@@ -108,12 +108,10 @@ def _gen_material(pool: TexturePool, albedo, rome, flags: int = 0, ior: float = 
 
 
 def build_cornell_box(prim_type: str = "boxes"):
-    """Returns (Entities, TexturePool).  Only 'boxes' is ported; the
-    'spheres' variant (refractive row) belongs to slice 2."""
+    """Returns (Entities, TexturePool).  Only 'boxes', the bench frame's
+    variant, is ported."""
     if prim_type != "boxes":
-        raise NotImplementedError(
-            f"cornell '{prim_type}': only 'boxes' is ported (spheres need "
-            "refraction, ROADMAP slice 2)")
+        raise NotImplementedError(f"cornell '{prim_type}': only 'boxes' is ported")
     ents = Entities()
     pool = TexturePool()
 

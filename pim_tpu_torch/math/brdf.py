@@ -171,3 +171,29 @@ def env_brdf(lut: BrdfLut, f0: V3, nov, alpha) -> V3:
         (1.0 - f0.z) * dvf + f0.z * dv,
     )
 
+
+
+_SIGMA_C = tuple(f32(c) for c in (5.969, 0.215, 2.532, 10.73, 5.574, 0.245))
+
+
+def sigma_a_from_reflectance(albedo: V3, beta_n) -> V3:
+    """Chiang et al. absorption from a reflectance color."""
+    c0, c1, c2, c3, c4, c5 = _SIGMA_C
+    r2 = beta_n * beta_n
+    r3 = r2 * beta_n
+    r4 = r3 * beta_n
+    r5 = r4 * beta_n
+    t = torch.clamp_min(c0 - c1 * beta_n + c2 * r2 - c3 * r3 + c4 * r4 + c5 * r5, EPS)
+
+    def chan(a):
+        s = torch.log(torch.clamp_min(a, EPS)) / t
+        return s * s
+
+    return V3(chan(albedo.x), chan(albedo.y), chan(albedo.z))
+
+
+def albedo_to_transmittance(albedo: V3, roughness, thickness) -> V3:
+    """Beer-Lambert interior transmittance."""
+    sig = sigma_a_from_reflectance(albedo, roughness)
+    return V3(torch.exp(-sig.x * thickness), torch.exp(-sig.y * thickness),
+              torch.exp(-sig.z * thickness))

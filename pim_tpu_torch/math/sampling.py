@@ -182,3 +182,21 @@ def sample_gauss_pixel_filter(u, v, stddev: float = 1.0):
     angle = u * TAU
     radius = stddev * torch.sqrt(-torch.log(torch.clamp_min(1.0 - v, EPS)))
     return torch.cos(angle) * radius, torch.sin(angle) * radius
+
+
+_MIE_K = f32(np.float32(3.0) / (np.float32(8.0) * np.float32(PI)))
+_RAYLEIGH_K = f32(np.float32(3.0) / (np.float32(16.0) * np.float32(PI)))
+
+
+def mie_phase(cos_theta, g: float):
+    """Mie phase function (Cornette-Shanks); g a float32 constant."""
+    g = np.float32(g)
+    k = f32(np.float32(_MIE_K) * (np.float32(1.0) - g * g) / (np.float32(2.0) + g * g))
+    l = f32(1.0 + g * g) - f32(2.0 * g) * cos_theta
+    l = l * torch.sqrt(torch.clamp_min(l, EPS_SQ))
+    return k * (1.0 + cos_theta * cos_theta) / torch.clamp_min(l, EPS)
+
+
+def rayleigh_phase(cos_theta):
+    """Rayleigh phase function."""
+    return _RAYLEIGH_K * (1.0 + cos_theta * cos_theta)

@@ -136,3 +136,13 @@ def saturate(x):
 
 def avg_lum3(c: V3):
     return (c.x + c.y + c.z) * f32(1.0 / 3.0)
+
+
+def refract(i: V3, n: V3, eta) -> V3:
+    """GLSL refract; zeros on total internal reflection."""
+    cosi = -dot(i, n)
+    k = 1.0 - eta * eta * (1.0 - cosi * cosi)
+    tir = k < 0.0
+    out = i * eta + n * (eta * cosi - torch.sqrt(torch.clamp_min(k, 0.0)))
+    zero = torch.zeros_like(cosi)
+    return where3(tir, V3(zero, zero, zero), out)

@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels (csrc/*.cu) through ctypes.
 
-The sources are compiled with nvcc for sm_90a into one shared library with
-a plain C interface.  The build runs at first use, from the package's own
+Each source is compiled with nvcc for sm_90a into an object, all of them at
+once in parallel, and the objects are linked into one shared library with a
+plain C interface.  The build runs at first use, from the package's own
 sources, into `build/pim_tpu_torch/<hash>/` beside the package (the hash
 covers the sources and the flags, so an edited kernel is rebuilt and a
 fresh checkout builds by itself).  Nothing here has a fallback: a missing
@@ -28,17 +29,20 @@ import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("dense_isect.cu", "gather_cols.cu")
+SOURCES = ("dense_isect.cu", "gather_cols.cu", "cluster_isect.cu", "gather_bilinear.cu")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "pim_tpu_torch")
 LIB_NAME = "libpim_tpu_torch.so"
 # --fmad=false: the intersection kernels must round every product and sum
 # as separate float32 operations (no fused multiply-add), as the reference.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
-launches: Dict[str, int] = {"dense_isect": 0, "dense_anyhit": 0, "gather_cols": 0}
+launches: Dict[str, int] = {
+    "dense_isect": 0, "dense_anyhit": 0, "gather_cols": 0,
+    "cluster_isect": 0, "cluster_anyhit": 0, "gather_bilinear": 0,
+}
 
 
 def reset_launches() -> None:
@@ -83,15 +87,33 @@ def build() -> BuildInfo:
     if os.path.exists(path):
         return BuildInfo(path=path, seconds=0.0, log="")
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC, s) for s in SOURCES)]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(out_dir, f"{s}.{tag}.o") for s in SOURCES]
     t0 = time.perf_counter()
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = []
+    failed = []
+    for src, proc in zip(SOURCES, procs):
+        out, _ = proc.communicate(timeout=600)
+        logs.append(f"== {src}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src)
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    tmp = f"{path}.{tag}"
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *objs]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
+    log += res.stdout + res.stderr
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{log}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n{log}")
     os.replace(tmp, path)
+    for obj in objs:
+        os.remove(obj)
     return BuildInfo(path=path, seconds=seconds, log=log)
 
 
@@ -113,6 +135,15 @@ def load() -> ctypes.CDLL:
         for fn in (lib.pim_gather_cols_i32, lib.pim_gather_cols_i64):
             fn.argtypes = [p, i, i, p, ll, p, p]
             fn.restype = i
+        # scb, spad, clb, n_sc, tris, stride, then the ray arguments
+        cluster_args = [p, i, p, i, p, i] + [p] * 6 + [f, p, f, i]
+        lib.pim_cluster_isect.argtypes = cluster_args + [p, p, p]
+        lib.pim_cluster_isect.restype = i
+        lib.pim_cluster_anyhit.argtypes = cluster_args + [p, p]
+        lib.pim_cluster_anyhit.restype = i
+        # planes, c, t, idx, tx, ty, valid, k * n, out, stream
+        lib.pim_gather_bilinear.argtypes = [p, i, i, p, p, p, p, ll, p, p]
+        lib.pim_gather_bilinear.restype = i
         lib.pim_cuda_error_string.argtypes = [i]
         lib.pim_cuda_error_string.restype = ctypes.c_char_p
         _lib, _info = lib, info

@@ -1,2 +1,2 @@
 """Rendering pipeline of the port: kernels, scene, camera, shading,
-lights and the wavefront integrator (dense Cornell path)."""
+lights, sky, exposure and the wavefront integrator."""

@@ -156,12 +156,18 @@ def dense_anyhit_plain(tris12, ro: V3, rd: V3, t_near: float, t_far):
 
 
 def _ray_args(tris12, ro: V3, rd: V3, t_near: float, t_far, name: str):
-    """The C entry points' ray arguments: six [N] pointers, t_near, then
-    t_far as an [N] pointer or, for a Python number, a null pointer and the
-    value for all rays."""
+    """The C entry points' ray arguments (see `ray_args`), after checking
+    the BW rows."""
+    native.require_cuda(f"{name}.tris12", tris12, torch.float32, (tris12.shape[0], 12),
+                        tris12.device)
+    return ray_args(ro, rd, t_near, t_far, name, tris12.device)
+
+
+def ray_args(ro: V3, rd: V3, t_near: float, t_far, name: str, dev):
+    """The ray arguments of the intersection kernels' C entry points: six
+    [N] pointers, t_near, then t_far as an [N] pointer or, for a Python
+    number, a null pointer and the value for all rays."""
     n = ro.x.shape[0]
-    dev = tris12.device
-    native.require_cuda(f"{name}.tris12", tris12, torch.float32, (tris12.shape[0], 12), dev)
     args = []
     for label, comp in (("ro.x", ro.x), ("ro.y", ro.y), ("ro.z", ro.z),
                         ("rd.x", rd.x), ("rd.y", rd.y), ("rd.z", rd.z)):

@@ -57,7 +57,7 @@ def build_tri_table(flat, mats, tri_to_emit, atlas, tex_rec) -> np.ndarray:
     """Host-side build of the fused attribute table, TRANSPOSED [48, T].
 
     Flat (1x1) textures are inlined as constants; textured materials store
-    their atlas ids (the textured path is ROADMAP slice 2)."""
+    their atlas ids, sampled through K6 (render/surface.py)."""
     tri_count = flat.mat_ids.shape[0]
     t = np.zeros((max(tri_count, 1), TRI_TABLE_ROWS), np.float32)
     if tri_count == 0:

@@ -3,14 +3,18 @@
 Counterpart of `pim_tpu.render.integrator.trace_rays` with media off and
 no lane compaction.  The reference's `lax.scan` over bounces is a Python
 loop here.  Each bounce starts from an already-traced hit and its fetched
-[48, N] attribute block, does NEE with ONE any-hit shadow ray (K2), samples
-the BSDF once (the continuation ray, whose emission at the next hit is
-MIS-weighted), applies Russian roulette and traces the continuation with
-ONE closest-hit call (K1) plus one attribute fetch (K3).
+[48, N] attribute block, does NEE with ONE any-hit shadow ray (K2 or K5),
+samples the BSDF once (the continuation ray, whose emission at the next hit
+is MIS-weighted), applies Russian roulette and traces the continuation with
+ONE closest-hit call (K1 or K4) plus one attribute fetch (K3) and, in a
+textured scene, one atlas fetch (K6).  Refractive surfaces add a masked
+closest-hit probe for their interior thickness; misses and sky surfaces
+take the sky radiance (K6).
 
-The [48, N] attribute block and the interpolated attributes of the hit a
-bounce starts from are the ones fetched at the end of the previous bounce
-(the reference re-derives the same values from its scan carry).
+The attributes of the hit a bounce starts from (its [48, N] block, the
+atlas samples) and the sky radiance along its ray are the ones fetched at
+the end of the previous bounce; the reference carries the same values in
+its scan carry.
 
 Everything stays on the device: the ray count and the image are tensors,
 and nothing in the bounce loop synchronises with the host.
@@ -23,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pim_tpu.geom.material import MatFlag
 from pim_tpu_torch.core import rng
 from pim_tpu_torch.math.brdf import BrdfLut
 from pim_tpu_torch.math.grid import grid_index_soa
@@ -36,14 +41,23 @@ from pim_tpu_torch.render.lights import (
     make_light_table,
     nee_light_strategy,
 )
-from pim_tpu_torch.render.scene import LightState, SceneArrays, SceneMeta, scene_intersect
+from pim_tpu_torch.render.scene import (
+    LightState,
+    SceneArrays,
+    SceneMeta,
+    intersect_raw,
+    scene_intersect,
+)
+from pim_tpu_torch.render.sky import sky_radiance
 from pim_tpu_torch.render.surface import (
     fetch_hit_attribs,
     get_emission_from_attribs,
     get_surface,
+    is_sky,
 )
 
 _RCP_PI = f32(np.float32(1.0) / np.float32(PI))
+_REFRACTIVE = int(MatFlag.REFRACTIVE)
 
 
 class TraceResult(NamedTuple):
@@ -56,12 +70,20 @@ class TraceResult(NamedTuple):
 
 def _finish_segment(meta, arrays, ro, rd, hit, at, atten, lum, alive, live, emis_w,
                     is_primary: bool):
-    """Shared tail of every traced segment: backface kill, light learning,
-    weighted emission.  (Refraction, media and the sky are later slices;
-    trace_rays and the surface code raise for a scene that has them.)"""
-    alive = alive & (hit.tri >= 0) & ~hit.backface
+    """Shared tail of every traced segment: sky on a miss, backface kill
+    (refractive surfaces are entered from behind), light learning, weighted
+    emission, sky-surface termination.  Returns the sky radiance along `rd`
+    too, which the next bounce's surface reuses."""
+    missed = hit.tri < 0
+    sky_surf = is_sky(at.flags)
+    sky = sky_radiance(meta, arrays, rd, active=alive & (missed | sky_surf))
+    if meta.has_sky:
+        lum = lum + atten * sky * (alive & missed).to(torch.float32)
 
-    emission = get_emission_from_attribs(meta, arrays, rd, at)
+    refr_hit = (at.flags & _REFRACTIVE) != 0
+    alive = alive & ~missed & ~(hit.backface & ~refr_hit)
+
+    emission = get_emission_from_attribs(meta, at, sky_col=sky)
 
     if meta.emissive_count > 0 and not is_primary:
         cell = grid_index_soa(meta.grid_spec(), ro)
@@ -69,14 +91,14 @@ def _finish_segment(meta, arrays, ro, rd, hit, at, atten, lum, alive, live, emis
         live = light_on_hit(meta, live, cell, emit, emission, alive)
 
     lum = lum + emission * atten * (emis_w * alive.to(torch.float32))
-    return atten, lum, alive, live
+    if meta.has_sky:
+        alive = alive & ~sky_surf
+    return atten, lum, alive, live, sky
 
 
 def trace_rays(meta: SceneMeta, arrays: SceneArrays, lights: LightState, ro: V3, rd: V3,
                state: rng.RngState, max_bounces: int) -> TraceResult:
     """Trace a batch of [N] rays to completion, with Russian roulette."""
-    if meta.has_refractive:
-        raise NotImplementedError("refraction is not ported yet (ROADMAP slice 2)")
     if meta.media_enabled:
         raise NotImplementedError("participating media are not ported yet (ROADMAP slice 3)")
     n = ro.x.shape[0]
@@ -86,13 +108,19 @@ def trace_rays(meta: SceneMeta, arrays: SceneArrays, lights: LightState, ro: V3,
     e = meta.emissive_count
     light_table = make_light_table(lights, arrays.cell_active_f) if e > 0 else None
 
+    thickness_fn = None
+    if meta.has_refractive:
+        def thickness_fn(p, l, mask):
+            # masked lanes carry t_far = 0: the kernel skips them
+            return intersect_raw(meta, arrays, p, l, 0.0, torch.where(mask, RCP_EPS, 0.0))[0]
+
     # --- primary segment
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
     live = torch.zeros((g, e_live), dtype=torch.int64, device=dev)
     rays = torch.full((), float(n), dtype=torch.float32, device=dev)
     hit = scene_intersect(meta, arrays, ro, rd, 0.0, RCP_EPS)
     at = fetch_hit_attribs(meta, arrays, hit)
-    atten, lum, alive, live = _finish_segment(
+    atten, lum, alive, live, sky = _finish_segment(
         meta, arrays, ro, rd, hit, at, V3.ones(n, dev), V3.zeros(n, dev), alive, live,
         1.0, is_primary=True)
 
@@ -101,7 +129,7 @@ def trace_rays(meta: SceneMeta, arrays: SceneArrays, lights: LightState, ro: V3,
     aov_weight = torch.zeros((n,), dtype=torch.float32, device=dev)
 
     for _ in range(max_bounces):
-        surf = get_surface(meta, ro, rd, hit, at)
+        surf = get_surface(meta, rd, hit, at, sky_col=sky)
         surf_alive = alive
 
         # --- NEE: light strategy, one any-hit shadow ray
@@ -115,7 +143,7 @@ def trace_rays(meta: SceneMeta, arrays: SceneArrays, lights: LightState, ro: V3,
 
         # --- continuation = BSDF strategy (its MIS weight is applied to the
         # NEXT hit's emission)
-        state, scat = scatter_principled(lut, surf, rd, state)
+        state, scat = scatter_principled(lut, surf, rd, state, occluded_fn=thickness_fn)
         cont = surf_alive & (scat.pdf > EPS)
         inv_pdf = 1.0 / torch.clamp_min(scat.pdf, EPS)
         atten = where3(cont, atten * scat.attenuation * inv_pdf, atten)
@@ -143,7 +171,8 @@ def trace_rays(meta: SceneMeta, arrays: SceneArrays, lights: LightState, ro: V3,
         hit2 = scene_intersect(meta, arrays, ro2, rd2, 0.0, t_far2)
         at2 = fetch_hit_attribs(meta, arrays, hit2)
 
-        # MIS weight for emission at the new hit
+        # MIS weight for emission at the new hit; refractive chains carry
+        # the full emission
         if e > 0:
             h_dist_sq = torch.clamp_min(hit2.t * hit2.t, EPS)
             lp_area = light_pdf(at2.rows[F.AREA], torch.abs(dot(rd2, hit2.ng)), h_dist_sq)
@@ -153,9 +182,11 @@ def trace_rays(meta: SceneMeta, arrays: SceneArrays, lights: LightState, ro: V3,
             ok_b = (bp2 > EPS) & (lp_area > EPS)
             w_mis = power_heuristic(bp2, lp2) * ok_b.to(torch.float32)
         else:
-            w_mis = 1.0
+            w_mis = torch.ones((n,), dtype=torch.float32, device=dev)
+        if meta.has_refractive:
+            w_mis = torch.where(cont & ((surf.flags & _REFRACTIVE) != 0), 1.0, w_mis)
 
-        atten, lum, alive, live = _finish_segment(
+        atten, lum, alive, live, sky = _finish_segment(
             meta, arrays, ro2, rd2, hit2, at2, atten, lum, alive2, live, w_mis,
             is_primary=False)
         ro, rd, hit, at = ro2, rd2, hit2, at2

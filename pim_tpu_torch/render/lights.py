@@ -1,10 +1,11 @@
 """Next-event estimation over the adaptive light grid.
 
 Counterpart of `pim_tpu.render.lights`: full MIS with a shared
-continuation ray, so NEE costs one any-hit shadow ray (K2) per bounce.  The
+continuation ray, so NEE costs one any-hit shadow ray (K2 or K5) per bounce.  The
 light-grid state is fetched as ONE fused [3K+2, G] table gather (K3) and
 the sampled light's vertices come from the compact [24, E] emissive table
-(K3).  Textured and sky lights are ROADMAP slice 2 and raise.
+(K3).  Textured lights are sampled at the light point through K6, sky
+lights take the sky radiance toward the light point (K6 with C = 3).
 """
 
 from __future__ import annotations
@@ -16,11 +17,16 @@ import torch
 from pim_tpu_torch.math.dist1d import cumsum_seq
 from pim_tpu_torch.math.grid import grid_index_soa
 from pim_tpu_torch.math.sampling import light_pdf, power_heuristic, sample_bary_coord
-from pim_tpu_torch.math.vec3 import EPS, LOG2_EPS, V3, avg_lum3, cross, dot, f32, normalize
+from pim_tpu.geom.material import MatFlag
+from pim_tpu_torch.math.color import K_EMISSION_SCALE
+from pim_tpu_torch.math.vec3 import (
+    EPS, LOG2_EPS, V2, V3, avg_lum3, cross, dot, f32, normalize, where3,
+)
 from pim_tpu_torch.render import fetch as F
 from pim_tpu_torch.render.bsdf import eval_principled
 from pim_tpu_torch.render.scene import SceneArrays, SceneMeta, scene_occluded
-from pim_tpu_torch.render.surface import K_EMISSION_SCALE, Surface
+from pim_tpu_torch.render.sky import sky_radiance
+from pim_tpu_torch.render.surface import Surface, is_sky, sample_atlas_bilinear_multi
 
 # Per-cell compacted light list size (the K highest-pdf lights of a cell,
 # renormalized; a light outside the top K has select pdf 0, and the BSDF
@@ -28,6 +34,7 @@ from pim_tpu_torch.render.surface import K_EMISSION_SCALE, Surface
 LIGHT_TOP_K = 32
 _SHADOW_SCALE = f32(1.0 - 1e-3)
 _LIVE_SCALE = 255.0 / 46.0
+_REFRACTIVE = int(MatFlag.REFRACTIVE)
 
 
 def light_k(e: int) -> int:
@@ -146,13 +153,12 @@ class LightSample(NamedTuple):
 
 
 def sample_light(meta: SceneMeta, arrays: SceneArrays, light_table, p: V3,
-                 u_sel, bu, bv) -> LightSample:
-    """Light selection + barycentric point sample + emission evaluation
-    (flat-emission lights)."""
-    if meta.textured:
-        raise NotImplementedError("textured lights are not ported yet (ROADMAP slice 2)")
-    if meta.has_sky:
-        raise NotImplementedError("sky lights are not ported yet (ROADMAP slice 2)")
+                 u_sel, bu, bv, active=None) -> LightSample:
+    """Light selection + barycentric point sample + emission evaluation.
+
+    active: optional [N] bool, the lanes whose NEE result is consumed; the
+    textured-light and sky-light fetches give 0 on the others (the caller's
+    `ok` gates drop them)."""
     sel = light_select(meta, light_table, p, u_sel)
     rows = F.fetch_cols(arrays.emissive_table, sel.emit)  # [24, N]
     a = F.v3_rows(rows, E_PA)
@@ -167,9 +173,26 @@ def sample_light(meta: SceneMeta, arrays: SceneArrays, light_table, p: V3,
     dist = torch.sqrt(dist_sq)
     rd = delta * (1.0 / dist)
 
+    # the emission at the sampled point, textured as the BSDF strategy sees it
     albedo = V3(rows[E_ALBEDO.start], rows[E_ALBEDO.start + 1], rows[E_ALBEDO.start + 2])
     emit_a = rows[E_EMIT_A]
+    if meta.textured:
+        a_tex = rows[E_ALBEDO_TEX].to(torch.int32)
+        r_tex = rows[E_ROME_TEX].to(torch.int32)
+        uv = V2(
+            rows[E_UVA.start] * w_ + rows[E_UVB.start] * wu + rows[E_UVC.start] * wv,
+            rows[E_UVA.start + 1] * w_ + rows[E_UVB.start + 1] * wu + rows[E_UVC.start + 1] * wv,
+        )
+        alb, rom = sample_atlas_bilinear_multi(
+            arrays.atlas_corners, arrays.tex_rec_t,
+            [(a_tex, uv, (0, 0, 0, 0)), (r_tex, uv, (0, 0, 0, 0))], active=active)
+        albedo = where3(a_tex >= 0, V3(alb[0], alb[1], alb[2]), albedo)
+        emit_a = torch.where(r_tex >= 0, rom[3], emit_a)
     emission = albedo * (emit_a * emit_a * K_EMISSION_SCALE)
+    if meta.has_sky:
+        sky = is_sky(rows[E_FLAGS].to(torch.int32))
+        emission = where3(sky, sky_radiance(meta, arrays, rd,
+                                            sky if active is None else sky & active), emission)
 
     ng = normalize(cross(b - a, c - a))
     cos_theta = torch.abs(dot(rd, ng))
@@ -184,11 +207,12 @@ def sample_light(meta: SceneMeta, arrays: SceneArrays, light_table, p: V3,
 def nee_light_strategy(meta: SceneMeta, arrays: SceneArrays, light_table, lut,
                        surf: Surface, src_tri, i_dir: V3, u_sel, bu, bv, active=None):
     """Light-strategy half of the MIS estimator: sample a light point,
-    trace ONE any-hit shadow ray (K2), weight by the power heuristic
-    against the BSDF pdf.  Inactive lanes get t_far = 0 (dead for K2).
+    trace ONE any-hit shadow ray (K2 or K5), weight by the power heuristic
+    against the BSDF pdf.  Inactive lanes get t_far = 0 (dead for the
+    kernel).  Refractive surfaces take no NEE.
 
     Returns (radiance V3, LightSample); radiance is zero where invalid."""
-    ls = sample_light(meta, arrays, light_table, surf.p, u_sel, bu, bv)
+    ls = sample_light(meta, arrays, light_table, surf.p, u_sel, bu, bv, active=active)
 
     # shadow ray: the target sits ON the light tri at t == dist, so clip
     # t_far a relative epsilon short of it
@@ -199,6 +223,8 @@ def nee_light_strategy(meta: SceneMeta, arrays: SceneArrays, light_table, lut,
 
     brdf_a, bp = eval_principled(lut, surf, i_dir, ls.dir)
     w = power_heuristic(ls.lp, bp) / torch.clamp_min(ls.lp, EPS)
-    ok = ls.ok & ~blocked & (src_tri != ls.tri) & (ls.lp > EPS) & (bp > EPS)
+    refractive = (surf.flags & _REFRACTIVE) != 0
+    ok = (ls.ok & ~blocked & (src_tri != ls.tri) & (ls.lp > EPS) & (bp > EPS)
+          & ~refractive)
     radiance = ls.emission * brdf_a * (w * ok.to(torch.float32))
     return radiance, ls

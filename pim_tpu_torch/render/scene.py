@@ -1,17 +1,20 @@
-"""The device-resident flat scene and its build (dense backend).
+"""The device-resident flat scene and its build.
 
 Counterpart of `pim_tpu.render.scene`.  The scene is split into:
 
-  SceneMeta   — static configuration (counts, grid dims, feature flags);
-  SceneArrays — the tensors the frame reads: BW rows for K1/K2, the fused
-                [48, T] attribute table, the emissive table, the light-grid
-                activity and the BRDF LUT;
+  SceneMeta   — static configuration (counts, grid dims, backend, feature
+                flags);
+  SceneArrays — the tensors the frame reads: BW rows for K1/K2, the cluster
+                hierarchy for K4/K5, the fused [48, T] attribute table, the
+                emissive table, the atlas corner planes and texture records
+                (K6), the sky cube and its corner planes (K6), the
+                light-grid activity and the BRDF LUT;
   LightState  — the per-cell light distributions (pdf, cdf, live histogram).
 
-Only the dense intersector is ported (K1/K2, render/dense_kernels.py).  A
-scene with more than DENSE_CROSSOVER_TRIS triangles needs the two-level
-cluster kernels of ROADMAP slice 2 and raises; there is no fallback to
-another intersector.
+Two intersectors: `dense` (K1/K2, render/dense_kernels.py) up to
+DENSE_CROSSOVER_TRIS triangles and `cluster` (K4/K5, render/cluster.py)
+past it, as the reference chooses on its TPU.  Cluster traces sort their
+rays first where `SceneMeta.sort_rays` says so (on the card).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from pim_tpu.geom.entities import Entities, FlatScene, flatten
 from pim_tpu.geom.material import MatFlag, TexturePool
+from pim_tpu_torch.render import cluster as CL
 from pim_tpu_torch.core import rng
 from pim_tpu_torch.math import dist1d
 from pim_tpu_torch.math.brdf import bake_brdf_lut
@@ -34,9 +38,12 @@ from pim_tpu_torch.math.sampling import hammersley_2d, sample_bary_coord, sample
 from pim_tpu_torch.math.vec3 import MILLI, RCP_EPS, V3, cross, dot, f32, where3
 from pim_tpu_torch.render import fetch as F
 from pim_tpu_torch.render.dense_kernels import intersect_dense_raw, occluded_dense, pack_tris
+from pim_tpu_torch.render.raysort import sorted_rays, unsort_rows
+from pim_tpu_torch.render.sky import sky_corner_planes
 
-# Past this many triangles the reference switches to the two-level cluster
-# kernels (K4/K5), which the port does not have yet.
+# Past this many triangles the cluster kernels (K4/K5) take over from the
+# dense ones (K1/K2).  This is the reference's crossover, measured on a TPU
+# v5e; it has not been measured again on the H100.
 DENSE_CROSSOVER_TRIS = 8192
 DEFAULT_CELLS_PER_METER = 1.0 / 1.5   # 1 / pt_dist_meters (default 1.5)
 DEFAULT_BRDF_LUT_SAMPLES = 5120       # max(4096, r_brdflut_spf * 512), spf = 10
@@ -68,6 +75,8 @@ class SceneMeta:
     media_enabled: bool
     textured: bool
     has_normal_maps: bool
+    backend: str = "dense"   # 'dense' (K1/K2) | 'cluster' (K4/K5)
+    sort_rays: bool = False  # coherence-sort cluster traces (render/raysort.py)
 
     @property
     def grid_len(self) -> int:
@@ -89,6 +98,13 @@ class SceneArrays:
     cell_active: torch.Tensor     # [G] bool
     cell_active_f: torch.Tensor   # [1, G] f32
     brdf_lut: torch.Tensor        # [16, 16, 2] f32 over (NoV, alpha)
+    cl_tris: torch.Tensor         # [13, C*128] f32 cluster BW rows + tri ids
+    cl_clb: torch.Tensor          # [6*S, 128] f32 cluster boxes
+    cl_scb: torch.Tensor          # [8, Spad] f32 supercluster boxes
+    atlas_corners: torch.Tensor   # [16, H*W] f32 atlas corner planes (K6, C = 4)
+    tex_rec_t: torch.Tensor       # [5, Ntex] f32 (x0, y0, w, h, atlas width)
+    sky: torch.Tensor             # [6, R, R, 3] f32 sky cube (R = 1, zeros: none)
+    sky_corners: torch.Tensor     # [12, 6*R*R] f32 its corner planes (K6, C = 3)
 
 
 @dataclass
@@ -142,15 +158,38 @@ def _finalize_hit_fused(arrays: SceneArrays, t, tri, ro: V3, rd: V3) -> Hit:
     )
 
 
+def _cluster_arrays(arrays: SceneArrays) -> CL.ClusterArrays:
+    return CL.ClusterArrays(tris=arrays.cl_tris, clb=arrays.cl_clb, scb=arrays.cl_scb)
+
+
+def intersect_raw(meta: SceneMeta, arrays: SceneArrays, ro: V3, rd: V3, t_near, t_far):
+    """Closest hit through the scene's intersector: (t [N], tri [N] i32),
+    -1 on a miss."""
+    if meta.backend == "dense":
+        return intersect_dense_raw(arrays.tris12, ro, rd, t_near, t_far)
+    cl = _cluster_arrays(arrays)
+    if not meta.sort_rays:
+        return CL.cluster_isect(cl, ro, rd, t_near, t_far)
+    ro_s, rd_s, tf_s, perm = sorted_rays(meta.grid_spec(), ro, rd, t_far)
+    t, tri = CL.cluster_isect(cl, ro_s, rd_s, t_near, tf_s)
+    return tuple(unsort_rows([t, tri], perm))
+
+
 def scene_intersect(meta: SceneMeta, arrays: SceneArrays, ro: V3, rd: V3,
                     t_near, t_far) -> Hit:
-    t, tri = intersect_dense_raw(arrays.tris12, ro, rd, t_near, t_far)
+    t, tri = intersect_raw(meta, arrays, ro, rd, t_near, t_far)
     return _finalize_hit_fused(arrays, t, tri, ro, rd)
 
 
 def scene_occluded(meta: SceneMeta, arrays: SceneArrays, ro: V3, rd: V3,
                    t_near, t_far) -> torch.Tensor:
-    return occluded_dense(arrays.tris12, ro, rd, t_near, t_far)
+    if meta.backend == "dense":
+        return occluded_dense(arrays.tris12, ro, rd, t_near, t_far)
+    cl = _cluster_arrays(arrays)
+    if not meta.sort_rays:
+        return CL.cluster_anyhit(cl, ro, rd, t_near, t_far) > 0
+    ro_s, rd_s, tf_s, perm = sorted_rays(meta.grid_spec(), ro, rd, t_far)
+    return unsort_rows([CL.cluster_anyhit(cl, ro_s, rd_s, t_near, tf_s)], perm)[0] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -353,11 +392,53 @@ def _to_device(x, device, dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype).contiguous()
 
 
-def _check_dense(tri_count: int) -> None:
-    if tri_count > DENSE_CROSSOVER_TRIS:
-        raise NotImplementedError(
-            f"{tri_count} tris > DENSE_CROSSOVER_TRIS={DENSE_CROSSOVER_TRIS}: scenes "
-            "this size need the cluster kernels K4/K5 (ROADMAP slice 2)")
+def choose_backend(tri_count: int) -> str:
+    """'dense' up to DENSE_CROSSOVER_TRIS triangles, 'cluster' past it."""
+    return "dense" if tri_count <= DENSE_CROSSOVER_TRIS else "cluster"
+
+
+def _resolve_sort_rays(sort_rays, backend: str, device: torch.device) -> bool:
+    """None follows the pt_sort cvar, whose 'auto' sorts the cluster
+    backend's traces on the card (the reference: on its TPU)."""
+    if sort_rays is None:
+        from pim_tpu.core.cvars import cv_pt_sort
+
+        mode = str(cv_pt_sort.get()).strip().lower()
+        if mode in ("1", "true", "on"):
+            return True
+        if mode in ("0", "false", "off"):
+            return False
+        sort_rays = backend == "cluster" and device.type == "cuda"
+    return bool(sort_rays)
+
+
+def build_atlas_corner_planes(atlas: np.ndarray, tex_rec: np.ndarray) -> np.ndarray:
+    """[16, H*W] corner planes of the atlas: rows corner*4 + channel for
+    the corners (00, 10, 01, 11), each texel's right/down/diagonal
+    neighbours clamped to its own sub-texture's edges, so K6 needs one
+    index per fetch."""
+    base = atlas
+    right = atlas.copy()
+    down = atlas.copy()
+    diag = atlas.copy()
+    for (x0, y0, tw, th) in np.asarray(tex_rec, np.int64).reshape(-1, 4):
+        sub = atlas[y0 : y0 + th, x0 : x0 + tw]
+        xs = np.minimum(np.arange(tw) + 1, tw - 1)
+        ys = np.minimum(np.arange(th) + 1, th - 1)
+        right[y0 : y0 + th, x0 : x0 + tw] = sub[:, xs]
+        down[y0 : y0 + th, x0 : x0 + tw] = sub[ys, :]
+        diag[y0 : y0 + th, x0 : x0 + tw] = sub[np.ix_(ys, xs)]
+    out = np.concatenate([p.reshape(-1, 4).T for p in (base, right, down, diag)], axis=0)
+    return np.ascontiguousarray(out, np.float32)
+
+
+def texture_records_t(atlas: np.ndarray, tex_rec: np.ndarray) -> np.ndarray:
+    """[5, Ntex] f32 records (x0, y0, w, h, atlas width) per texture."""
+    rec_t = np.zeros((5, max(tex_rec.shape[0], 1)), np.float32)
+    if tex_rec.shape[0] > 0:
+        rec_t[:4] = tex_rec.T.astype(np.float32)
+    rec_t[4] = float(atlas.shape[1])
+    return rec_t
 
 
 def build_scene(
@@ -366,15 +447,24 @@ def build_scene(
     device,
     cells_per_meter: float = DEFAULT_CELLS_PER_METER,
     brdf_lut_samples: int = DEFAULT_BRDF_LUT_SAMPLES,
+    backend: str = "auto",
+    sky=None,
+    sort_rays=None,
 ) -> Tuple[SceneMeta, SceneArrays, LightState]:
     """Entities + textures -> (meta, device arrays, light state).
 
-    The light grid is baked on `device`, so on the card the build already
-    runs K1, K2 and K3."""
+    backend: 'auto' (choose_backend), 'dense' or 'cluster'.  sky: a
+    [6, R, R, 3] radiance cube, or None: then a scene with sky surfaces
+    gets a black 1-texel cube, as the reference's.  sort_rays: None
+    follows `_resolve_sort_rays`.  The light grid is baked on `device`, so
+    on the card the build already runs the intersection and fetch kernels."""
     device = torch.device(device)
     flat = flatten(entities)
     tri_count = flat.mat_ids.shape[0]
-    _check_dense(tri_count)
+    if backend == "auto":
+        backend = choose_backend(tri_count)
+    if backend not in ("dense", "cluster"):
+        raise ValueError(f"backend {backend!r}: the port has 'dense' and 'cluster'")
     atlas, tex_rec = pool.pack()
 
     pdfs = _emission_pdf_host(flat, atlas, tex_rec)
@@ -391,6 +481,14 @@ def build_scene(
     grid = make_grid(lo, hi, cells_per_meter)
     lut = bake_brdf_lut(num_samples=brdf_lut_samples, device=device)
 
+    if sky is None:
+        sky_t = torch.zeros((6, 1, 1, 3), dtype=torch.float32, device=device)
+        has_sky = any(m.flags & MatFlag.SKY for m in flat.materials)
+    else:
+        sky_t = (sky.to(device=device, dtype=torch.float32).contiguous()
+                 if isinstance(sky, torch.Tensor) else _to_device(sky, device, torch.float32))
+        has_sky = True
+
     meta = SceneMeta(
         vert_count=flat.positions.shape[0],
         tri_count=tri_count,
@@ -399,7 +497,7 @@ def build_scene(
         grid_size=grid.size,
         grid_lo=tuple(float(v) for v in grid.lo),
         cells_per_meter=float(cells_per_meter),
-        has_sky=any(m.flags & MatFlag.SKY for m in flat.materials),
+        has_sky=has_sky,
         has_refractive=any(m.flags & MatFlag.REFRACTIVE for m in flat.materials),
         media_enabled=False,
         textured=any(
@@ -408,11 +506,15 @@ def build_scene(
             for m in flat.materials
         ),
         has_normal_maps=any(m.normal_tex >= 0 for m in flat.materials),
+        backend=backend,
+        sort_rays=_resolve_sort_rays(sort_rays, backend, device),
     )
 
     def dev_t(x, dtype=torch.float32):
         return _to_device(x, device, dtype)
 
+    cluster = CL.build_clusters(flat.positions) if backend == "cluster" \
+        else CL.dummy_cluster_arrays()
     g = grid_len(grid)
     arrays = SceneArrays(
         positions=dev_t(flat.positions),
@@ -424,6 +526,13 @@ def build_scene(
         cell_active=torch.zeros((g,), dtype=torch.bool, device=device),
         cell_active_f=torch.zeros((1, g), dtype=torch.float32, device=device),
         brdf_lut=lut.texels,
+        cl_tris=dev_t(cluster.tris),
+        cl_clb=dev_t(cluster.clb),
+        cl_scb=dev_t(cluster.scb),
+        atlas_corners=dev_t(build_atlas_corner_planes(atlas, tex_rec)),
+        tex_rec_t=dev_t(texture_records_t(atlas, tex_rec)),
+        sky=sky_t,
+        sky_corners=sky_corner_planes(sky_t),
     )
     cell_active, light_state = bake_light_grid(meta, arrays)
     arrays = dataclasses.replace(
@@ -432,17 +541,26 @@ def build_scene(
     return meta, arrays, light_state
 
 
+_JAX_BACKENDS = {"pallas": "dense", "cluster": "cluster"}
+
+
 def from_jax_scene(meta_fields: dict, arrays_np: dict, lights_np: dict,
                    device) -> Tuple[SceneMeta, SceneArrays, LightState]:
     """The JAX package's (SceneMeta, SceneArrays, LightState), given as
     `dataclasses.asdict(meta)` and `{field: numpy array}` dicts, -> the
     port's, so both packages can render the identical scene.
 
+    The JAX backends 'pallas' and 'cluster' map to the port's 'dense' and
+    'cluster'; its CPU intersectors ('brute', 'bvh') are not ported.
     `tris9` holds the [Tpad, 12] BW rows (whatever its field comment says);
-    fields of the JAX scene that the dense path does not read (BVH, atlas,
-    cluster arrays, normals, uvs) are not carried."""
+    fields the port does not read (BVH, the flat atlas planes, slot_tri,
+    normals, uvs) are not carried."""
     device = torch.device(device)
-    _check_dense(int(meta_fields["tri_count"]))
+    backend = _JAX_BACKENDS.get(meta_fields["backend"])
+    if backend is None:
+        raise NotImplementedError(
+            f"JAX backend {meta_fields['backend']!r}: the port has only 'dense' (from "
+            "'pallas') and 'cluster'")
     e = int(meta_fields["emissive_count"])
 
     def dev_t(x, dtype=torch.float32):
@@ -461,7 +579,10 @@ def from_jax_scene(meta_fields: dict, arrays_np: dict, lights_np: dict,
         media_enabled=bool(meta_fields["media_enabled"]),
         textured=bool(meta_fields["textured"]),
         has_normal_maps=bool(meta_fields["has_normal_maps"]),
+        backend=backend,
+        sort_rays=bool(meta_fields["sort_rays"]),
     )
+    sky = dev_t(arrays_np["sky"])
     arrays = SceneArrays(
         positions=dev_t(arrays_np["positions"]),
         tris12=dev_t(arrays_np["tris9"]),
@@ -472,6 +593,13 @@ def from_jax_scene(meta_fields: dict, arrays_np: dict, lights_np: dict,
         cell_active=dev_t(arrays_np["cell_active"], torch.bool),
         cell_active_f=dev_t(arrays_np["cell_active_f"]),
         brdf_lut=dev_t(arrays_np["brdf_lut"]),
+        cl_tris=dev_t(arrays_np["cl_tris"]),
+        cl_clb=dev_t(arrays_np["cl_clb"]),
+        cl_scb=dev_t(arrays_np["cl_scb"]),
+        atlas_corners=dev_t(arrays_np["atlas_corners"]),
+        tex_rec_t=dev_t(arrays_np["tex_rec_t"]),
+        sky=sky,
+        sky_corners=sky_corner_planes(sky),
     )
     lights = LightState(
         pdf=dev_t(lights_np["pdf"]),
@@ -481,4 +609,3 @@ def from_jax_scene(meta_fields: dict, arrays_np: dict, lights_np: dict,
         live=dev_t(np.asarray(lights_np["live"]).astype(np.int64), torch.int64),
     )
     return meta, arrays, lights
-

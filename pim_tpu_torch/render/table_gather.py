@@ -1,0 +1,68 @@
+"""K6, the filtered bilinear fetch from corner-resolved planes.
+
+Counterpart of `pim_tpu.render.table_gather.gather_bilinear_pallas`.
+corner_planes [4C, T] hold, in rows corner*C + channel with the corners in
+the order (00, 10, 01, 11), each texel and its three bilinear neighbours
+already clamped inside its own sub-texture (scene.build_atlas_corner_planes)
+or cube face (sky.sky_corner_planes), so one index per query names all four
+corners.  Per query (k, n): the four corner loads at clip(idx, 0, T-1),
+the weights of the reference kernel (sanitized: an invalid query gets 0
+whatever its tx, ty carry), the sum w00 q00 + w10 q10 + w01 q01 + w11 q11
+from left to right, and 0 where the query is invalid.
+
+For CUDA tensors `gather_bilinear` launches csrc/gather_bilinear.cu; for
+CPU tensors it runs `gather_bilinear_plain`.  Both read the texels as plain
+float32, where the TPU kernel reads bf16 terms of them (exact for the atlas,
+whose texels are bf16 values; 16 mantissa bits for the sky).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pim_tpu_torch import native
+
+
+def gather_bilinear_plain(corner_planes: torch.Tensor, idx: torch.Tensor, tx: torch.Tensor,
+                          ty: torch.Tensor, valid: torch.Tensor, c: int) -> torch.Tensor:
+    """Plain K6: [C, K, N] filtered texels."""
+    t = corner_planes.shape[1]
+    i = torch.clamp(idx, 0, t - 1).to(torch.int64)
+    txv = torch.where(valid, tx, 0.0)
+    tyv = torch.where(valid, ty, 0.0)
+    w00 = torch.where(valid, (1.0 - txv) * (1.0 - tyv), 0.0)
+    w10 = txv * (1.0 - tyv)
+    w01 = (1.0 - txv) * tyv
+    w11 = txv * tyv
+    q = corner_planes[:, i]  # [4C, K, N]
+    out = w00 * q[0:c] + w10 * q[c : 2 * c] + w01 * q[2 * c : 3 * c] + w11 * q[3 * c : 4 * c]
+    return torch.where(valid, out, 0.0)
+
+
+def gather_bilinear(corner_planes: torch.Tensor, idx: torch.Tensor, tx: torch.Tensor,
+                    ty: torch.Tensor, valid: torch.Tensor, c: int) -> torch.Tensor:
+    """corner_planes [4C, T] f32, idx [K, N] i32, tx/ty [K, N] f32, valid
+    [K, N] bool -> [C, K, N] f32 filtered texels (0 where invalid)."""
+    if corner_planes.device.type == "cpu":
+        return gather_bilinear_plain(corner_planes, idx, tx, ty, valid, c)
+    dev = corner_planes.device
+    t = corner_planes.shape[1]
+    native.require_cuda("gather_bilinear.corner_planes", corner_planes, torch.float32,
+                        (4 * c, t), dev)
+    if idx.dim() != 2:
+        raise ValueError(f"gather_bilinear.idx: expected [K, N], got {tuple(idx.shape)}")
+    k, n = idx.shape
+    native.require_cuda("gather_bilinear.idx", idx, torch.int32, (k, n), dev)
+    native.require_cuda("gather_bilinear.tx", tx, torch.float32, (k, n), dev)
+    native.require_cuda("gather_bilinear.ty", ty, torch.float32, (k, n), dev)
+    native.require_cuda("gather_bilinear.valid", valid, torch.bool, (k, n), dev)
+    out = torch.empty((c, k, n), dtype=torch.float32, device=dev)
+    if k * n == 0:
+        return out
+    lib = native.load()
+    rc = lib.pim_gather_bilinear(corner_planes.data_ptr(), c, t, idx.data_ptr(), tx.data_ptr(),
+                                 ty.data_ptr(), valid.data_ptr(), k * n, out.data_ptr(),
+                                 native.stream_ptr(dev))
+    native.check(lib, rc, "gather_bilinear")
+    native.launches["gather_bilinear"] += 1
+    return out

@@ -1,9 +1,10 @@
 """Where the time of one progressive step goes, on a CUDA device.
 
-    python -m pim_tpu_torch.tools.prof_frame [--out DIR]
+    python -m pim_tpu_torch.tools.prof_frame [--scene cornell|e1m1] [--out DIR]
 
-Builds the Cornell scene on the card and renders steps of the 512^2,
-10-bounce frame at SPP samples each: one warm-up step, WALLS untraced steps
+Builds the scene on the card and renders steps of its 512^2, 10-bounce
+bench frame at SPP[scene] samples each (2 for Cornell, 1 for e1m1, whose
+steps also run the exposure pass): one warm-up step, WALLS untraced steps
 (host wall clock after `torch.cuda.synchronize`), then one step traced with
 `torch.profiler`.  From the trace it prints:
 
@@ -34,7 +35,7 @@ import torch
 
 WIDTH = HEIGHT = 512
 BOUNCES = 10
-SPP = 2    # samples per profiled step: a few thousand kernels per sample
+SPP = {"cornell": 2, "e1m1": 1}  # samples per profiled step
 WALLS = 3  # untraced steps timed for the busy share
 
 # (group, name fragments), in the order a kernel name is matched
@@ -42,6 +43,9 @@ GROUPS = (
     ("K1 dense_isect", ("dense_isect_kernel",)),
     ("K2 dense_anyhit", ("dense_anyhit_kernel",)),
     ("K3 gather_cols", ("gather_cols_kernel",)),
+    ("K4 cluster_isect", ("cluster_isect_kernel",)),
+    ("K5 cluster_anyhit", ("cluster_anyhit_kernel",)),
+    ("K6 gather_bilinear", ("gather_bilinear_kernel",)),
     ("torch index/gather/scatter", ("index", "scatter", "gather")),
     ("torch sort/scan", ("sort", "scan", "radix")),
     ("torch reduce", ("reduce",)),
@@ -69,9 +73,15 @@ def _is_kernel(evt) -> bool:
 
 def main(argv=None) -> None:
     from pim_tpu_torch import native
-    from pim_tpu_torch.app import bench_camera, build_cornell_scene, render_step
+    from pim_tpu_torch.app import EXPOSURE_DT, SCENES, bench_camera, render_step
+    from pim_tpu_torch.render.exposure import (
+        ExposureParams,
+        exposure_pass,
+        make_exposure_state,
+    )
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", default="cornell", choices=sorted(SPP))
     ap.add_argument("--out", default=None, help="directory for kernels.txt and summary.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -82,11 +92,15 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi)
-    scene = build_cornell_scene(dev)
-    cam = bench_camera(WIDTH, HEIGHT)
+    spp = SPP[args.scene]
+    scene = SCENES[args.scene].build(dev)
+    cam = bench_camera(args.scene, WIDTH, HEIGHT)
+    exp_params = ExposureParams.from_cvars() if SCENES[args.scene].exposed else None
 
     def step(i: int):
-        res = render_step(scene, cam, WIDTH, HEIGHT, BOUNCES, SPP, i)
+        res = render_step(scene, cam, WIDTH, HEIGHT, BOUNCES, spp, i)
+        if exp_params is not None:
+            exposure_pass(res.color, exp_params, make_exposure_state(dev), EXPOSURE_DT)
         torch.cuda.synchronize(dev)
         return res
 
@@ -97,7 +111,7 @@ def main(argv=None) -> None:
         step(1 + i)
         walls.append(time.perf_counter() - t0)
     wall_ms = statistics.median(walls) * 1e3
-    print(f"untraced {SPP}-spp step walls s: {walls} (median {wall_ms:.3f} ms)")
+    print(f"untraced {spp}-spp {args.scene} step walls s: {walls} (median {wall_ms:.3f} ms)")
 
     native.reset_launches()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -141,7 +155,7 @@ def main(argv=None) -> None:
         with open(os.path.join(args.out, "kernels.txt"), "w") as f:
             f.write(avgs.table(sort_by=sort_key, row_limit=80))
         summary = dict(
-            card=smi, width=WIDTH, height=HEIGHT, bounces=BOUNCES, spp=SPP,
+            card=smi, scene=args.scene, width=WIDTH, height=HEIGHT, bounces=BOUNCES, spp=spp,
             untraced_walls_s=walls, traced_wall_s=traced_s,
             device_ms=device_ms, kernels=n_kernels, busy_share=busy, launches=launches,
             groups={k: list(v) for k, v in groups.items()}, aten_ops=n_aten,

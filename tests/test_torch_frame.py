@@ -46,7 +46,7 @@ def _cams(width=W, height=H):
     jc = jcam.Camera(position=np.array([-4, 0, 4], np.float32))
     jc.look_at([0, -1, 0])
     return (jcam.camera_arrays(jc, jcam.DofInfo(autofocus=False), width, height),
-            app.bench_camera(width, height))
+            app.bench_camera("cornell", width, height))
 
 
 def _rays(enable_dof=True):
@@ -123,7 +123,7 @@ def test_accumulate_and_stddev_match(frames):
 def test_app_frame_on_cpu_runs_plain_path(scenes):
     _, port = scenes
     before = dict(native.launches)
-    fr = app.render_frame(port, 8, 8, 2, 2, 2)
+    fr = app.render_frame(port, "cornell", 8, 8, 2, 2, 2)
     assert native.launches == before and all(v == 0 for v in fr.launches.values())
     assert fr.buffers.color.shape == (64, 3) and bool(torch.isfinite(fr.buffers.color).all())
     assert fr.rays > 2 * 64 and fr.mean > 0 and len(fr.step_seconds) == 2
@@ -136,4 +136,5 @@ def test_app_main_prints_the_frame_report(capsys):
     assert set(lines) == {"image mean", "luminance_stddev", "rays traced", "ms/step", "Mrays/s",
                           "launches"}
     assert float(lines["image mean"]) > 0 and float(lines["rays traced"]) > 2 * 64
-    assert lines["launches"] == "dense_isect=0 dense_anyhit=0 gather_cols=0"
+    assert lines["launches"] == ("dense_isect=0 dense_anyhit=0 gather_cols=0 cluster_isect=0 "
+                                 "cluster_anyhit=0 gather_bilinear=0")

@@ -20,6 +20,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from pim_tpu.geom.cornell import build_cornell_box
 from pim_tpu.geom.entities import flatten
+from pim_tpu.render import cluster as jcluster
 from pim_tpu.render import pallas_kernels as pk
 from pim_tpu.render.gather_kernel import gather_cols_pallas
 from pim_tpu_torch import native
@@ -45,20 +46,23 @@ def _finished(fn):
 
 @contextlib.contextmanager
 def pallas_interpret():
-    """The dense Pallas kernels in TPU interpret mode, each call finished
-    before the caller dispatches anything else.
+    """The dense and cluster Pallas kernels in TPU interpret mode, each call
+    finished before the caller dispatches anything else.
 
     In interpret mode a kernel's io_callbacks dispatch JAX ops of their own.
     When the caller has already queued more work behind the kernel (eager
     code such as `build_scene` runs on at once once its executables are
     cached), the CPU client can deadlock between the two."""
-    saved = pk._isect_call, pk._anyhit_call
-    pk._isect_call, pk._anyhit_call = _finished(saved[0]), _finished(saved[1])
+    mods = (pk, jcluster)
+    saved = [(m._isect_call, m._anyhit_call) for m in mods]
+    for m, (isect, anyhit) in zip(mods, saved):
+        m._isect_call, m._anyhit_call = _finished(isect), _finished(anyhit)
     try:
         with pltpu.force_tpu_interpret_mode():
             yield
     finally:
-        pk._isect_call, pk._anyhit_call = saved
+        for m, (isect, anyhit) in zip(mods, saved):
+            m._isect_call, m._anyhit_call = isect, anyhit
 
 
 @pytest.fixture(scope="module")

@@ -3,8 +3,10 @@
 The check runs in a subprocess whose `sys.modules["jax"]` and
 `sys.modules["ml_dtypes"]` are None, so any import of either (direct or
 through another module) raises there.  Of the JAX package, only the
-jax-free host modules `pim_tpu.geom.{entities,material,mesh}` (and the
-packages and `core.guid` they pull in) may be imported."""
+jax-free host modules `pim_tpu.geom.{entities,material,mesh,gltf}` and
+`pim_tpu.core.{cvar,cvars}` (and the packages and `core.guid` they pull in)
+may be imported.  The port loads the e1m1 glTF there too, so its texture
+pool needs no `ml_dtypes`."""
 
 import ast
 import os
@@ -12,7 +14,8 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-HOST_MODULES = {"pim_tpu.geom.entities", "pim_tpu.geom.material", "pim_tpu.geom.mesh"}
+HOST_MODULES = {"pim_tpu.geom.entities", "pim_tpu.geom.material", "pim_tpu.geom.mesh",
+                "pim_tpu.geom.gltf", "pim_tpu.core.cvars", "pim_tpu.core.cvar"}
 
 _SCRIPT = r"""
 import sys
@@ -23,17 +26,23 @@ torch.set_num_threads(2)
 import pim_tpu_torch
 from pim_tpu_torch import app, native
 from pim_tpu_torch.core import rng
-from pim_tpu_torch.geom import cornell, material
-from pim_tpu_torch.math import brdf, dist1d, geometry, grid, sampling, vec3
-from pim_tpu_torch.render import (bsdf, camera, dense_kernels, fetch, gather_kernel,
-                                  integrator, lights, scene, surface)
+from pim_tpu_torch.geom import cornell, gltf, material
+from pim_tpu_torch.math import brdf, color, dist1d, geometry, grid, sampling, vec3
+from pim_tpu_torch.render import (bsdf, camera, cluster, dense_kernels, exposure, fetch,
+                                  gather_kernel, integrator, lights, raysort, scene, sky,
+                                  surface, table_gather)
 from pim_tpu_torch.tools import prof_frame
 sc = app.build_cornell_scene("cpu")
-fr = app.render_frame(sc, 8, 8, 2, 1, 1)
+fr = app.render_frame(sc, "cornell", 8, 8, 2, 1, 1)
 assert fr.buffers.color.shape == (64, 3) and bool(torch.isfinite(fr.buffers.color).all())
 assert fr.rays > 0
+ents, pool = gltf.load_gltf_scene(app.E1M1_GLTF)
+atlas, rec = pool.pack()
+assert atlas.shape == (128, 256, 4) and rec.shape == (71, 4) and ents.count > 0
+assert exposure.ExposureParams.from_cvars().max_cdf > 0
 allowed = {"pim_tpu", "pim_tpu.core", "pim_tpu.core.guid", "pim_tpu.geom",
-           "pim_tpu.geom.entities", "pim_tpu.geom.material", "pim_tpu.geom.mesh"}
+           "pim_tpu.geom.entities", "pim_tpu.geom.material", "pim_tpu.geom.mesh",
+           "pim_tpu.geom.gltf", "pim_tpu.core.cvars", "pim_tpu.core.cvar"}
 bad = sorted(m for m in sys.modules
              if m.startswith("jax.") or m.startswith("ml_dtypes.")
              or (m == "pim_tpu" or m.startswith("pim_tpu.")) and m not in allowed)
@@ -58,7 +67,7 @@ def _imported_modules(path):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
-            if node.module in ("pim_tpu", "pim_tpu.geom"):  # names are modules
+            if node.module in ("pim_tpu", "pim_tpu.geom", "pim_tpu.core"):  # names are modules
                 yield from (f"{node.module}.{a.name}" for a in node.names)
             else:
                 yield node.module

@@ -27,8 +27,10 @@ from pim_tpu_torch.render.scene import (
     LightState,
     SceneArrays,
     build_scene,
+    choose_backend,
     from_jax_scene,
 )
+from pim_tpu_torch.render.sky import sky_corner_planes
 
 torch.set_num_threads(2)
 
@@ -108,6 +110,8 @@ def test_from_jax_scene_round_trips_every_field(jax_scene):
     for f in dataclasses.fields(m):
         if f.name == "grid_lo":
             np.testing.assert_array_equal(np.asarray(m.grid_lo, np.float32), arrays_np["grid_lo"])
+        elif f.name == "backend":
+            assert (m.backend, meta_f["backend"]) == ("dense", "pallas")
         else:
             assert getattr(m, f.name) == meta_f[f.name], f.name
     jax_name = {"tris12": "tris9"}
@@ -115,6 +119,8 @@ def test_from_jax_scene_round_trips_every_field(jax_scene):
         got = getattr(a, f.name).numpy()
         if f.name == "emit_tris":
             want = arrays_np["emit_to_tri_f"][0].astype(np.int64)
+        elif f.name == "sky_corners":
+            want = sky_corner_planes(torch.from_numpy(np.array(arrays_np["sky"]))).numpy()
         else:
             want = arrays_np[jax_name.get(f.name, f.name)]
         assert got.shape == want.shape, f.name
@@ -125,10 +131,14 @@ def test_from_jax_scene_round_trips_every_field(jax_scene):
 
 
 def test_dense_only_scenes_are_enforced(jax_scene):
+    """The dense kernels serve scenes up to DENSE_CROSSOVER_TRIS triangles,
+    the cluster kernels the rest; JAX backends the port lacks are refused."""
+    assert choose_backend(DENSE_CROSSOVER_TRIS) == "dense"
+    assert choose_backend(DENSE_CROSSOVER_TRIS + 1) == "cluster"
     meta_f, arrays_np, lights_np = _jax_dicts(jax_scene)
-    meta_f = dict(meta_f, tri_count=DENSE_CROSSOVER_TRIS + 1)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        from_jax_scene(meta_f, arrays_np, lights_np, "cpu")
+    for backend in ("bvh", "brute"):
+        with pytest.raises(NotImplementedError, match="port has only"):
+            from_jax_scene(dict(meta_f, backend=backend), arrays_np, lights_np, "cpu")
 
 
 def test_light_table_matches_reference(jax_scene):
