@@ -17,7 +17,7 @@ exits non-zero:
      and render the 512^2, 10-bounce frame at 16 spp per step for 3 steps
      through `pim_tpu_torch.app`, with the launch counts set to 0 just
      before and read just after; the mean must lie in the `cornell512`
-     band of pim_tpu/render/bench_gate_bands.json and K1-K3 must have
+     band of pim_tpu_torch/render/gate_bands.json and K1-K3 must have
      launched; a small frame on the card must agree with the CPU's;
   4. the e1m1 slice: its main path (the map built on the card, sky and
      light grid included, then the 512^2, 10-bounce, 1-spp-per-step frame
@@ -34,11 +34,29 @@ exits non-zero:
      build's parts timed; the 128^2, 16-spp frame gated by the CPU-anchored `e1m1_128`
      band of pim_tpu_torch/render/gate_bands.json (the 512^2 mean is printed
      beside the reference's TPU drift band, for information only); a 32^2,
-     3-bounce frame on the card against the same frame on the CPU.
+     3-bounce frame on the card against the same frame on the CPU;
+  5. the differentiable path (pim_tpu_torch.render.diff): K7 (12 x 262,144
+     indices into the e1m1 atlas planes, 4 x 262,144 into the sky planes)
+     against its plain version, bitwise; K7's and K3's backward kernels
+     (K3-bwd on the [48, 81552] tri table at 262,144 lanes and on the
+     [4, 208] material graft at 81,552) against their plain versions summed
+     in float64, within gamma(adds - 1) * sum |g| per output, the bound of
+     any summation order (float atomics reorder the adds); then its main
+     paths, counted as above: TRAIN_STEPS Adam steps of the e1m1 512^2,
+     3-bounce, 1-spp render with all six groups trainable against a target
+     rendered with perturbed parameters (finite loss, finite nonzero
+     gradients in every group, K3-bwd, K7 and K7-bwd launched; ms per step
+     and peak memory printed) and tests/test_grad.py's Cornell inverse
+     rendering at 512^2 (the last of INVERSE_STEPS losses below 0.2x the
+     first); per-group directional derivatives on the card against the CPU
+     at GRAD_RES^2 (within GRAD_RTOL) and against central differences at
+     FD_RES^2 (tests/test_grad.py's eps ladder).
 Before the last line come a JSON object of per-kernel results (`launches`
 summed over the main paths that run the kernel, each path's count in
-`launches_by_path`) and the card's nvidia-smi name and power limit; the last line is
-`{"ok": true, "device": {...}}`.  Imports nothing of JAX.
+`launches_by_path`; `bound_ms`, the least time the card could take, from
+this run's inputs; `library_ms`, one PyTorch call computing the same
+function, or null) and the card's nvidia-smi name and power limit; the last
+line is `{"ok": true, "device": {...}}`.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -61,6 +79,22 @@ N_RAYS = WIDTH * HEIGHT
 TIMING_RUNS = 25
 PLAIN_LANES = 32768   # lanes on which the brute-force plain K4/K5 are compared
 PLAIN_RUNS = 3        # and timed
+# the differentiable path
+TRAIN_BOUNCES = 3     # make_render_fn's default
+TRAIN_STEPS = 5       # Adam steps of the e1m1 training run
+INVERSE_STEPS = 20    # Adam steps of the Cornell inverse-rendering run
+TRAIN_SEED = 7
+GRAD_RES = 32         # card vs CPU gradients
+GRAD_RTOL = 1e-3      # card vs CPU directional derivatives (atomics reorder sums)
+GRAD_SKY_STEPS = 1    # sky re-bake of the card-vs-CPU check (224 view steps a texel)
+FD_RES = 64           # AD vs finite differences on the card
+FD_LADDER = (3e-3, 1e-3, 3e-4, 1e-4, 3e-5, 1e-5)  # tests/test_grad.py's
+# the bound of a kernel call: one H100 SXM's published peaks (NVIDIA data
+# sheet): HBM3 bytes per second and float32 operations per second outside
+# the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+BW_TEST_FLOPS = 31    # float operations of one Baldwin-Weber ray-triangle test
 
 
 def _time_ms(fn, runs: int = TIMING_RUNS):
@@ -91,11 +125,24 @@ def _time_pair(label: str, kernel, plain, plain_runs: int = TIMING_RUNS):
     return k, p
 
 
-def _row(max_abs_err: float, k, p) -> dict:
+def _bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take for a call: the larger of its
+    bytes (each input read once, each output written once) over the HBM
+    rate and its float operations over the float32 peak."""
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    f_ms = flops / FP32_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(b_ms, f_ms), bound_by="bytes" if b_ms >= f_ms else "operations",
+                bound_bytes=float(n_bytes), bound_flops=float(flops))
+
+
+def _row(max_abs_err: float, k, p, bound: dict, library=None) -> dict:
     """A kernel's row of the JSON report: its error against the plain
-    version and both times, median [min, max] in ms."""
+    version, both times, median [min, max] in ms, its bound, and the time
+    of one PyTorch call computing the same function (None where there is
+    none)."""
     return dict(max_abs_err=max_abs_err, ms=k[0], ms_min=k[1], ms_max=k[2],
-                plain_ms=p[0], plain_ms_min=p[1], plain_ms_max=p[2])
+                plain_ms=p[0], plain_ms_min=p[1], plain_ms_max=p[2], **bound,
+                library_ms=None if library is None else library[0])
 
 
 def _bits_equal(a, b) -> bool:
@@ -138,6 +185,10 @@ def check_kernels(dev, cpu_scene):
     tris12 = arrays.tris12.to(dev)
     ro, rd, t_far = _seeded_rays(dev)
     dead = t_far <= 0.0
+    live = int((~dead).sum())
+    n_tri = meta.tri_count
+    ray_bytes = N_RAYS * (6 * 4 + 4)  # origins, directions, t_far
+    rows_bytes = n_tri * 12 * 4
     results = {}
 
     # K1: closest hit
@@ -165,7 +216,10 @@ def check_kernels(dev, cpu_scene):
         raise AssertionError(f"K1 with one t_far differs from its plain version: {scalar_diff}")
     times = _time_pair("K1 time", lambda: dk.dense_isect(tris12, ro, rd, 0.0, t_far),
                        lambda: dk.dense_isect_plain(tris12, ro, rd, 0.0, t_far))
-    results["dense_isect"] = _row(float((t_k - t_p).abs().max()), *times)
+    # every live ray tests every triangle; t and tri are written
+    results["dense_isect"] = _row(
+        float((t_k - t_p).abs().max()), *times,
+        _bound(ray_bytes + rows_bytes + N_RAYS * 8, live * n_tri * BW_TEST_FLOPS))
 
     # K2: any hit (shadow rays to a finite distance)
     t_far2 = torch.where(dead, 0.0, 3.0)
@@ -181,7 +235,15 @@ def check_kernels(dev, cpu_scene):
         raise AssertionError("K2: a dead lane did not report 1")
     times = _time_pair("K2 time", lambda: dk.dense_anyhit(tris12, ro, rd, 0.0, t_far2),
                        lambda: dk.dense_anyhit_plain(tris12, ro, rd, 0.0, t_far2))
-    results["dense_anyhit"] = _row(float((h_k - h_p).abs().max()), *times)
+    # a live ray needs the tests up to its first blocker in index order
+    t_all, ok_all = dk._bw_test_plain(tris12[:n_tri], ro, rd, 0.0)
+    blk = ok_all & (t_all < t_far2[None, :])
+    tests = torch.where(blk.any(dim=0), blk.to(torch.int32).argmax(dim=0) + 1, n_tri)
+    need = int(tests[~dead].sum())
+    del t_all, ok_all, blk
+    results["dense_anyhit"] = _row(float((h_k - h_p).abs().max()), *times,
+                                   _bound(ray_bytes + rows_bytes + N_RAYS * 4,
+                                          need * BW_TEST_FLOPS))
 
     # K3: the three real tables and a random one; indices include -1 and T
     rs = np.random.default_rng(99)
@@ -199,7 +261,9 @@ def check_kernels(dev, cpu_scene):
 
 def check_gather_cols(dev, scene_name: str, tables, rs):
     """K3 against its plain version on each table at N_RAYS seeded indices
-    (-1 and T among them), bitwise; returns (max abs error, {table: times})."""
+    (-1 and T among them), bitwise, and `torch.index_select` on the same
+    indices clipped into range (it raises on the others) timed beside them;
+    returns (max abs error, {table: (kernel, plain, bound, library)})."""
     import numpy as np
     import torch
 
@@ -221,14 +285,31 @@ def check_gather_cols(dev, scene_name: str, tables, rs):
         if not same:
             raise AssertionError(f"K3 differs from its plain version on {scene_name} {name}")
         err = max(err, float((out_k - out_p).abs().max()))
-        times[name] = _time_pair(f"K3 time[{scene_name} {name}]",
-                                 lambda: gk.gather_cols(table, idx),
-                                 lambda: gk.gather_cols_plain(table, idx))
+        k, p = _time_pair(f"K3 time[{scene_name} {name}]", lambda: gk.gather_cols(table, idx),
+                          lambda: gk.gather_cols_plain(table, idx))
+        idx_in = idx.clamp(0, t - 1).to(torch.int64)
+        lib = _time_ms(lambda: torch.index_select(table, 1, idx_in))
+        print(f"K3 library index_select[{scene_name} {name}]: {lib[0]:.4f} ms")
+        f = table.shape[0]
+        times[name] = (k, p, _bound(N_RAYS * 4 + f * t * 4 + f * N_RAYS * 4, 0.0), lib)
     return err, times
 
 
 CORNELL_KERNELS = ("dense_isect", "dense_anyhit", "gather_cols")
 E1M1_KERNELS = ("cluster_isect", "cluster_anyhit", "gather_bilinear")
+TRAIN_KERNELS = ("gather_cols_bwd", "gather_texels", "gather_texels_bwd")
+# the main paths that run each kernel
+PATHS = {
+    "dense_isect": ("cornell", "cornell_train"),
+    "dense_anyhit": ("cornell", "cornell_train"),
+    "gather_cols": ("cornell", "e1m1", "e1m1_train", "cornell_train"),
+    "cluster_isect": ("e1m1", "e1m1_train"),
+    "cluster_anyhit": ("e1m1", "e1m1_train"),
+    "gather_bilinear": ("e1m1",),
+    "gather_cols_bwd": ("e1m1_train", "cornell_train"),
+    "gather_texels": ("e1m1_train",),
+    "gather_texels_bwd": ("e1m1_train",),
+}
 SOURCES = {
     "dense_isect": ("pim_tpu_torch/csrc/dense_isect.cu", "pim_tpu/render/pallas_kernels.py:149"),
     "dense_anyhit": ("pim_tpu_torch/csrc/dense_isect.cu", "pim_tpu/render/pallas_kernels.py:183"),
@@ -237,6 +318,12 @@ SOURCES = {
     "cluster_anyhit": ("pim_tpu_torch/csrc/cluster_isect.cu", "pim_tpu/render/cluster.py:345"),
     "gather_bilinear": ("pim_tpu_torch/csrc/gather_bilinear.cu",
                         "pim_tpu/render/table_gather.py:171"),
+    # K3's custom VJP backward, a column scatter-add
+    "gather_cols_bwd": ("pim_tpu_torch/csrc/gather_cols.cu", "pim_tpu/render/fetch.py:52"),
+    "gather_texels": ("pim_tpu_torch/csrc/gather_texels.cu", "pim_tpu/render/table_gather.py:43"),
+    # the transpose of K7's gather (JAX differentiates the clipped take)
+    "gather_texels_bwd": ("pim_tpu_torch/csrc/gather_texels.cu",
+                          "pim_tpu/render/table_gather.py:377"),
 }
 
 
@@ -314,7 +401,7 @@ def run_cornell(dev):
     build_launches = dict(native.launches)
     fr = render_frame(scene, "cornell", WIDTH, HEIGHT, BOUNCES, SPP, STEPS)
     launches = dict(native.launches)
-    lo, hi = _band("pim_tpu/render/bench_gate_bands.json", "cornell512")
+    lo, hi = _band("pim_tpu_torch/render/gate_bands.json", "cornell512")
     print(f"cornell scene build on card: {build_s:.3f} s, launches {build_launches}")
     print(_frame_line(f"cornell frame {WIDTH}x{HEIGHT} bounces={BOUNCES} spp/step={SPP} "
                       f"steps={STEPS} band=[{lo:.6f}, {hi:.6f}]", fr))
@@ -323,7 +410,7 @@ def run_cornell(dev):
     if not lo <= fr.mean <= hi:
         raise AssertionError(f"frame mean {fr.mean} outside the cornell512 band [{lo}, {hi}]")
     check_small_frame("cornell", _scene_to(cpu_scene, dev), cpu_scene)
-    return kernels, launches
+    return kernels, launches, cpu_scene
 
 
 def _e1m1_rays(dev, scene):
@@ -396,7 +483,14 @@ def check_e1m1_kernels(dev, scene):
     times = _time_pair("K4 time", lambda: CL.cluster_isect(cl, ro, rd, 0.0, t_far),
                        lambda: CL.cluster_isect_plain(cl, ro_s, rd_s, 0.0, t_far[sub]),
                        PLAIN_RUNS)
-    results["cluster_isect"] = _row(float((t_k[sub] - t_p).abs().max()), *times)
+    # a live ray must test every cluster whose slab it enters no farther
+    # than its result (its hit, else t_far); box tests are not counted
+    cl_bytes = sum(x.numel() * 4 for x in (cl.tris, cl.clb, cl.scb))
+    ray_bytes = N_RAYS * (6 * 4 + 4)
+    need = _clusters_needed(cl, ro, rd, t_far, torch.where(tri_k >= 0, t_k, t_far))
+    results["cluster_isect"] = _row(float((t_k[sub] - t_p).abs().max()), *times,
+                                    _bound(ray_bytes + cl_bytes + N_RAYS * 8,
+                                           need * CL.CB * BW_TEST_FLOPS))
     sro, srd, stf, _ = sorted_rays(meta.grid_spec(), ro, rd, t_far)
     k_sorted = _time_ms(lambda: CL.cluster_isect(cl, sro, srd, 0.0, stf))
     print(f"K4 time on the same rays sorted by raysort: {k_sorted[0]:.4f} ms "
@@ -415,7 +509,14 @@ def check_e1m1_kernels(dev, scene):
     times = _time_pair("K5 time", lambda: CL.cluster_anyhit(cl, ro, rd, 0.0, t_short),
                        lambda: CL.cluster_anyhit_plain(cl, ro_s, rd_s, 0.0, t_short[sub]),
                        PLAIN_RUNS)
-    results["cluster_anyhit"] = _row(float((h_k[sub] - h_p).abs().max()), *times)
+    # an unblocked live ray must test every cluster it enters before
+    # t_far; a blocked one at least the cluster that blocks it
+    blocked = h_k > 0
+    need = (_clusters_needed(cl, ro, rd, torch.where(blocked, 0.0, t_short), t_short)
+            + int((blocked & ~dead).sum()))
+    results["cluster_anyhit"] = _row(float((h_k[sub] - h_p).abs().max()), *times,
+                                     _bound(ray_bytes + cl_bytes + N_RAYS * 4,
+                                            need * CL.CB * BW_TEST_FLOPS))
 
     rs = np.random.default_rng(77)
     k6_err = 0.0
@@ -442,7 +543,12 @@ def check_e1m1_kernels(dev, scene):
         k6_times[label] = _time_pair(f"K6 time[{label}]",
                                      lambda: tg.gather_bilinear(planes, *args, c=c),
                                      lambda: tg.gather_bilinear_plain(planes, *args, c=c))
-    results["gather_bilinear"] = _row(k6_err, *k6_times["atlas"])
+        if label == "atlas":
+            # a query reads its index, two weights and a flag and writes C
+            # values; a valid one makes 6 weight operations and 7 per channel
+            k6_bound = _bound(k * N_RAYS * (13 + 4 * c) + planes.numel() * 4,
+                              int(valid.sum()) * (6 + 7 * c))
+    results["gather_bilinear"] = _row(k6_err, *k6_times["atlas"], k6_bound)
 
     # K3 on the four tables the e1m1 frame fetches from
     tables = {
@@ -454,6 +560,25 @@ def check_e1m1_kernels(dev, scene):
     k3_err, k3_times = check_gather_cols(dev, "e1m1", tables, rs)
     results["gather_cols"] = _row(k3_err, *k3_times["tri_table"])
     return results
+
+
+def _clusters_needed(cl, ro, rd, t_far, t_stop) -> int:
+    """The (ray, cluster) pairs a traversal must test: live rays (t_far > 0)
+    and the clusters whose supercluster and cluster slabs they enter no
+    farther than t_stop."""
+    import torch
+
+    from pim_tpu_torch.math.vec3 import V3
+    from pim_tpu_torch.render import cluster as CL
+
+    total = 0
+    for r0 in range(0, N_RAYS, PLAIN_LANES):
+        sl = slice(r0, r0 + PLAIN_LANES)
+        cand, entry = CL._cluster_cull(cl, V3(*(c[sl] for c in ro)), V3(*(c[sl] for c in rd)),
+                                       0.0, t_far[sl])
+        need = cand & (entry <= t_stop[sl][:, None]) & (t_far[sl] > 0.0)[:, None]
+        total += int(need.sum())
+    return total
 
 
 def time_e1m1_build(dev, scene) -> None:
@@ -501,7 +626,7 @@ def run_e1m1(dev):
     meta = scene[0]
     print(f"e1m1 scene build on card: {build_s:.3f} s ({meta.tri_count} tris, backend "
           f"{meta.backend}, sort_rays {meta.sort_rays}), launches {build_launches}")
-    lo, hi = _band("pim_tpu/render/bench_gate_bands.json", "e1m1_512")
+    lo, hi = _band("pim_tpu_torch/render/gate_bands.json", "e1m1_512")
     print(_frame_line(f"e1m1 frame {WIDTH}x{HEIGHT} bounces={BOUNCES} spp/step=1 "
                       f"steps={E1M1_STEPS} (TPU drift band [{lo:.4f}, {hi:.4f}], "
                       "for information only)", fr))
@@ -521,7 +646,376 @@ def run_e1m1(dev):
         raise AssertionError(f"e1m1 {GATE_RES}^2 mean {gate.mean} outside the e1m1_128 band "
                              f"[{lo}, {hi}]")
     check_small_frame("e1m1", scene, _scene_to(scene, "cpu"))
-    return kernels, launches
+    return kernels, launches, scene
+
+
+def run_training(dev, cornell_cpu, e1m1_scene):
+    """Phase 5, the differentiable path; returns (kernel rows, launches of
+    its two main paths)."""
+    kernels = check_train_kernels(dev, e1m1_scene)
+    e1m1_launches = run_e1m1_training(dev, e1m1_scene)
+    cornell_card = _scene_to(cornell_cpu, dev)
+    cornell_launches = run_cornell_inverse(dev, cornell_card)
+    check_card_vs_cpu_grads("cornell", cornell_card, cornell_cpu)
+    check_card_vs_cpu_grads("e1m1", e1m1_scene, _scene_to(e1m1_scene, "cpu"))
+    check_ad_vs_fd("cornell", cornell_card)
+    check_ad_vs_fd("e1m1", e1m1_scene)
+    return kernels, {"e1m1_train": e1m1_launches, "cornell_train": cornell_launches}
+
+
+def _sum_bound(bwd_plain, g, idx, t):
+    """The error bound of a float32 sum in any order, per output:
+    gamma(adds - 1) * sum |g|, gamma(k) = k u / (1 - k u), u = 2^-24."""
+    import torch
+
+    ku = torch.clamp_min(bwd_plain(torch.ones_like(g, dtype=torch.float64), idx, t) - 1.0,
+                         0.0) * 2.0 ** -24
+    return ku / (1.0 - ku) * bwd_plain(g.abs().double(), idx, t)
+
+
+def _check_scatter(label: str, kernel, bwd_plain, g, idx, t, library):
+    """A backward kernel against its plain version accumulated in float64,
+    within the atomics' bound; timed against its float32 plain version and
+    one `index_add_` call.  Returns (max abs error, kernel, plain, library)."""
+    import torch
+
+    out_k = kernel(g, idx, t)
+    exact = bwd_plain(g.double(), idx, t)
+    bound = _sum_bound(bwd_plain, g, idx, t)
+    torch.cuda.synchronize()
+    err = (out_k.double() - exact).abs()
+    ok = bool((err <= bound).all())
+    ratio = float((err / torch.clamp_min(bound, 1e-300)).max())
+    print(f"{label}: g {tuple(g.shape)} -> {tuple(out_k.shape)}: max_abs_err="
+          f"{float(err.max()):.3e} within gamma(adds-1)*sum|g|={ok} "
+          f"(largest err/bound {ratio:.3e})")
+    if not ok:
+        raise AssertionError(f"{label} leaves its float64 plain version's bound")
+    k, p = _time_pair(f"{label} time", lambda: kernel(g, idx, t),
+                      lambda: bwd_plain(g, idx, t))
+    lib = _time_ms(library)
+    print(f"{label} library index_add_: {lib[0]:.4f} ms [min {lib[1]:.4f}, max {lib[2]:.4f}]")
+    return float(err.max()), k, p, lib
+
+
+def check_train_kernels(dev, scene):
+    """K7 forward (bitwise) and the K3 and K7 backward kernels (within the
+    atomics' bound of a float64 plain sum) at the training path's shapes."""
+    import numpy as np
+    import torch
+
+    from pim_tpu_torch.render import fetch as F
+    from pim_tpu_torch.render import gather_kernel as gk
+    from pim_tpu_torch.render import table_gather as tg
+
+    meta, arrays, _ = scene
+    rs = np.random.default_rng(55)
+    results = {}
+
+    def cuda(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    k7 = {}
+    for label, planes, k in (("atlas", arrays.atlas_planes, 12),
+                             ("sky", arrays.sky.reshape(-1, 3).T.contiguous(), 4)):
+        c, t = planes.shape
+        idx = rs.integers(0, t, (k, N_RAYS)).astype(np.int32)
+        idx[0, :2] = [-1, t]
+        idx = cuda(idx)
+        out_k = tg.gather_texels(planes, idx, parts=1)
+        out_p = tg.gather_texels_plain(planes, idx)
+        torch.cuda.synchronize()
+        same = _bits_equal(out_k, out_p)
+        print(f"K7 gather_texels[{label}] planes {tuple(planes.shape)} x [{k}, {N_RAYS}]: "
+              f"bitwise_equal={same}")
+        if not same:
+            raise AssertionError(f"K7 differs from its plain version on the {label}")
+        times = _time_pair(f"K7 time[{label}]", lambda: tg.gather_texels(planes, idx),
+                           lambda: tg.gather_texels_plain(planes, idx))
+        idx_in = idx.clamp(0, t - 1).to(torch.int64).reshape(-1)
+        lib = _time_ms(lambda: torch.index_select(planes, 1, idx_in))
+        print(f"K7 library index_select[{label}]: {lib[0]:.4f} ms")
+        k7[label] = (*times, _bound(k * N_RAYS * 4 + c * t * 4 + c * k * N_RAYS * 4, 0.0), lib)
+
+        g = cuda(rs.standard_normal((c, k, N_RAYS)).astype(np.float32))
+        buf = torch.zeros((c, t), dtype=torch.float32, device=dev)
+        g_flat = g.reshape(c, -1)
+        err, kb, pb, libb = _check_scatter(
+            f"K7-bwd gather_texels_bwd[{label}]", tg.gather_texels_bwd,
+            tg.gather_texels_bwd_plain, g, idx, t, lambda: buf.index_add_(1, idx_in, g_flat))
+        if label == "atlas":
+            results["gather_texels_bwd"] = _row(
+                err, kb, pb, _bound(c * k * N_RAYS * 4 + k * N_RAYS * 4 + c * t * 4,
+                                    c * k * N_RAYS), libb)
+    results["gather_texels"] = _row(0.0, *k7["atlas"])
+
+    k3b = {}
+    tt = arrays.tri_table
+    mat_ids = tt[F.MAT_ID].to(torch.int64)
+    for label, f, t, idx in (
+            ("tri_table", tt.shape[0], tt.shape[1],
+             cuda(np.concatenate([[-1, tt.shape[1]],
+                                  rs.integers(-1, tt.shape[1] + 1, N_RAYS - 2)]).astype(np.int32))),
+            ("mat_albedo graft", 4, meta.mat_count, mat_ids)):
+        n = idx.shape[0]
+        g = cuda(rs.standard_normal((f, n)).astype(np.float32))
+        ok = (idx >= 0) & (idx < t)
+        idx_in = torch.where(ok, idx, 0).to(torch.int64)
+        g_in = torch.where(ok[None, :], g, 0.0)
+        buf = torch.zeros((f, t), dtype=torch.float32, device=dev)
+        err, kb, pb, libb = _check_scatter(
+            f"K3-bwd gather_cols_bwd[{label}] {f}x{t}", gk.gather_cols_bwd,
+            gk.gather_cols_bwd_plain, g, idx, t, lambda: buf.index_add_(1, idx_in, g_in))
+        k3b[label] = _row(err, kb, pb, _bound(f * n * 4 + n * idx.element_size() + f * t * 4,
+                                              f * int(ok.sum())), libb)
+    row = k3b["tri_table"]
+    row["max_abs_err"] = max(row["max_abs_err"], k3b["mat_albedo graft"]["max_abs_err"])
+    row.update({f"graft_{key}": v for key, v in k3b["mat_albedo graft"].items()
+                if key != "max_abs_err"})
+    results["gather_cols_bwd"] = row
+    return results
+
+
+def _train_setup(name: str, scene, res: int):
+    """(camera, the scene's parameters) of a scene's bench camera at res^2."""
+    from pim_tpu_torch.app import SUN_DIR, SUN_LUM, bench_camera
+    from pim_tpu_torch.render import diff
+
+    cam = bench_camera(name, res, res)
+    meta, arrays, _ = scene
+    return cam, diff.extract_params(meta, arrays, cam, sun_dir=SUN_DIR, sun_lum=(SUN_LUM,) * 3)
+
+
+def _perturbed(params):
+    """Target parameters: every group moved off the scene's."""
+    import torch
+
+    dev = params.sun_dir.device
+    return params._replace(
+        mat_albedo=torch.clamp(params.mat_albedo * 0.8 + 0.1, 0.0, 1.0),
+        mat_rome=torch.clamp(params.mat_rome * 0.9 + 0.05, 0.0, 1.0),
+        atlas_planes=params.atlas_planes * 0.9,
+        sun_dir=params.sun_dir + torch.tensor([0.05, 0.0, -0.05], device=dev),
+        sun_lum=params.sun_lum * 1.1,
+        cam_eye=params.cam_eye + torch.tensor([0.02, 0.01, -0.02], device=dev))
+
+
+def run_e1m1_training(dev, scene):
+    """The e1m1 training path at full width: TRAIN_STEPS Adam steps, all six
+    groups trainable, against a target rendered with perturbed parameters.
+    Returns the launches of the path."""
+    import torch
+
+    from pim_tpu_torch import native
+    from pim_tpu_torch.app import SKY_STEPS
+    from pim_tpu_torch.render import diff
+
+    meta, arrays, lights = scene
+    cam, params = _train_setup("e1m1", scene, WIDTH)
+    render = diff.make_render_fn(meta, WIDTH, HEIGHT, TRAIN_BOUNCES, sky_steps=SKY_STEPS)
+    with torch.no_grad():
+        target, _ = render(_perturbed(params), arrays, lights, cam, TRAIN_SEED)
+    init, step = diff.make_train_step(meta, WIDTH, HEIGHT, TRAIN_BOUNCES, sky_steps=SKY_STEPS)
+    opt = init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    native.reset_launches()
+    losses, walls = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, params, opt = step(params, opt, arrays, lights, cam, target, TRAIN_SEED)
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            grads = {name: p.grad for name, p in zip(diff.DiffParams._fields, params)}
+            for name, g in grads.items():
+                if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+                    raise AssertionError(f"e1m1 training: the {name} gradient is not finite "
+                                         "and nonzero")
+            print("e1m1 train step 0 gradient |g|_1: " + ", ".join(
+                f"{name}={float(g.abs().sum()):.6g}" for name, g in grads.items()))
+    launches = dict(native.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
+        raise AssertionError(f"e1m1 training: loss not finite: {losses}")
+    ms = statistics.mean(walls[1:]) * 1e3
+    print(f"e1m1 training {WIDTH}x{HEIGHT} bounces={TRAIN_BOUNCES} spp=1 mis_both use_rr=False "
+          f"sky_steps={SKY_STEPS}, all six groups trainable: losses={losses} "
+          f"ms/train_step={ms:.3f} (steps 2-{TRAIN_STEPS}; walls s {[round(w, 4) for w in walls]}) "
+          f"max_memory_allocated={peak / 2**30:.3f} GiB")
+    print(f"e1m1 training launches: {launches}")
+    for name in ("gather_cols", "gather_cols_bwd", "gather_texels", "gather_texels_bwd",
+                 "cluster_isect", "cluster_anyhit"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the e1m1 training path")
+    return launches
+
+
+def run_cornell_inverse(dev, scene):
+    """tests/test_grad.py::test_inverse_rendering_converges at 512^2: albedo
+    x0.5+0.2 clipped, only albedo trainable, lr 5e-2, INVERSE_STEPS steps;
+    the last loss must be below 0.2x the first.  Returns its launches."""
+    import torch
+
+    from pim_tpu_torch import native
+    from pim_tpu_torch.render import diff
+
+    meta, arrays, lights = scene
+    cam, params = _train_setup("cornell", scene, WIDTH)
+    with torch.no_grad():
+        target, _ = diff.make_render_fn(meta, WIDTH, HEIGHT, TRAIN_BOUNCES)(
+            params, arrays, lights, cam, TRAIN_SEED)
+    p = params._replace(mat_albedo=torch.clamp(params.mat_albedo * 0.5 + 0.2, 0.0, 1.0))
+    only_albedo = diff.DiffParams(mat_albedo=True, mat_rome=False, atlas_planes=False,
+                                  sun_dir=False, sun_lum=False, cam_eye=False)
+    init, step = diff.make_train_step(meta, WIDTH, HEIGHT, TRAIN_BOUNCES, learning_rate=5e-2,
+                                      trainable=only_albedo)
+    opt = init(p)
+    native.reset_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(INVERSE_STEPS):
+        loss, p, opt = step(p, opt, arrays, lights, cam, target, TRAIN_SEED)
+        losses.append(float(loss))
+    seconds = time.perf_counter() - t0
+    launches = dict(native.launches)
+    print(f"cornell inverse rendering {WIDTH}x{HEIGHT} bounces={TRAIN_BOUNCES}: first loss "
+          f"{losses[0]:.6e}, last {losses[-1]:.6e} (ratio {losses[-1] / losses[0]:.4f}), "
+          f"{seconds / INVERSE_STEPS * 1e3:.3f} ms/step; launches {launches}")
+    if not losses[-1] < 0.2 * losses[0]:
+        raise AssertionError(f"cornell inverse rendering did not converge: {losses}")
+    for name in ("dense_isect", "dense_anyhit", "gather_cols", "gather_cols_bwd"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the cornell training path")
+    return launches
+
+
+def _albedo_texels(arrays):
+    """[4, H*W] direction: 1 on the rgb of the texels of the textures used
+    only as albedo textures (their gradient is smooth: they move colours,
+    not directions)."""
+    import numpy as np
+    import torch
+
+    from pim_tpu_torch.render import fetch as F
+
+    tt = arrays.tri_table.detach().cpu().numpy()
+    rec = arrays.tex_rec_t.cpu().numpy()
+    atlas_w = int(rec[4, 0])
+    used = {row: set(tt[row][tt[row] >= 0].astype(int))
+            for row in (F.ALBEDO_TEX, F.ROME_TEX, F.NORMAL_TEX)}
+    v = np.zeros(tuple(arrays.atlas_planes.shape), np.float32)
+    for tex in used[F.ALBEDO_TEX] - used[F.ROME_TEX] - used[F.NORMAL_TEX]:
+        x0, y0, w, h = rec[:4, tex].astype(int)
+        for y in range(y0, y0 + h):
+            v[:3, y * atlas_w + x0 : y * atlas_w + x0 + w] = 1.0
+    return torch.from_numpy(v)
+
+
+def _direction(group: str, params, arrays):
+    """(group index, direction tensor) of a named test direction."""
+    import torch
+
+    if group in ("albedo", "roughness", "emission"):
+        d = torch.zeros_like(params.mat_albedo)
+        if group == "albedo":
+            d[:, :3] = 1.0
+        else:
+            d[:, 0 if group == "roughness" else 3] = 1.0
+        return (0 if group == "albedo" else 1), d
+    if group == "atlas":
+        return 2, _albedo_texels(arrays).to(params.atlas_planes.device)
+    vec = {"sun_dir": (3, [1.0, 0.0, -0.5]), "sun_lum": (4, [1.0, 1.0, 1.0]),
+           "camera": (5, [1.0, 0.5, -0.25])}[group]
+    return vec[0], torch.tensor(vec[1], device=params.cam_eye.device)
+
+
+def _directional(name, scene, res, sky_steps, groups, params=None):
+    """{group: d loss / d params along the group's direction} of a scene's
+    res^2, TRAIN_BOUNCES render against a zero target, by autograd."""
+    import torch
+
+    from pim_tpu_torch.render import diff
+
+    meta, arrays, lights = scene
+    cam, base = _train_setup(name, scene, res)
+    p = diff.DiffParams(*(x.detach().clone().requires_grad_(True)
+                          for x in (base if params is None else params)))
+    loss_fn = diff.make_loss_fn(meta, res, res, TRAIN_BOUNCES, sky_steps=sky_steps)
+    target = torch.zeros((res * res, 3), device=arrays.tri_table.device)
+    loss_fn(p, arrays, lights, cam, target, TRAIN_SEED)[0].backward()
+    out = {}
+    for group in groups:
+        gi, v = _direction(group, p, arrays)
+        g = p[gi].grad
+        out[group] = 0.0 if g is None else float((g.double() * v.double()).sum())
+    return out
+
+
+GROUPS = {"cornell": ("albedo", "roughness", "emission", "camera"),
+          "e1m1": ("albedo", "roughness", "atlas", "sun_dir", "sun_lum", "camera")}
+
+
+def check_card_vs_cpu_grads(name: str, card_scene, cpu_scene) -> None:
+    """Per-group directional derivatives of the same GRAD_RES^2 render on
+    the card and on the CPU (plain versions), within GRAD_RTOL."""
+    t0 = time.perf_counter()
+    card = _directional(name, card_scene, GRAD_RES, GRAD_SKY_STEPS, GROUPS[name])
+    cpu = _directional(name, cpu_scene, GRAD_RES, GRAD_SKY_STEPS, GROUPS[name])
+    bad = []
+    for group in GROUPS[name]:
+        a, b = card[group], cpu[group]
+        ok = abs(a - b) <= GRAD_RTOL * abs(b) and b != 0.0
+        print(f"{name} gradient card vs cpu {GRAD_RES}^2 [{group}]: card {a:+.6e} cpu {b:+.6e} "
+              f"rel {abs(a - b) / max(abs(b), 1e-30):.3e} ok={ok}")
+        if not ok:
+            bad.append(group)
+    print(f"{name} card-vs-cpu gradients: {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"{name}: card and CPU gradients disagree in {bad}")
+
+
+FD_CHECKS = {"cornell": (("albedo", None, 2e-2), ("camera", None, 5e-2), ("emission", None, 2e-2)),
+             "e1m1": (("sun_dir", 2e-3, 5e-2), ("atlas", None, 5e-2))}
+
+
+def check_ad_vs_fd(name: str, scene) -> None:
+    """tests/test_grad.py's ladder on the card at FD_RES^2: autograd's
+    directional derivative against central differences of the same
+    estimator; a group passes if any rung agrees within its rtol."""
+    import torch
+
+    from pim_tpu_torch.app import SKY_STEPS
+    from pim_tpu_torch.render import diff
+
+    meta, arrays, lights = scene
+    cam, base = _train_setup(name, scene, FD_RES)
+    loss_fn = diff.make_loss_fn(meta, FD_RES, FD_RES, TRAIN_BOUNCES, sky_steps=SKY_STEPS)
+    target = torch.zeros((FD_RES * FD_RES, 3), device=arrays.tri_table.device)
+    groups = [g for g, _, _ in FD_CHECKS[name]]
+    ad = _directional(name, scene, FD_RES, SKY_STEPS, groups)
+    for group, eps, rtol in FD_CHECKS[name]:
+        gi, v = _direction(group, base, arrays)
+        sweep = []
+        with torch.no_grad():
+            for e in ((eps,) if eps is not None else FD_LADDER):
+                def at(sign):
+                    p = list(base)
+                    p[gi] = p[gi] + sign * e * v
+                    return float(loss_fn(diff.DiffParams(*p), arrays, lights, cam, target,
+                                         TRAIN_SEED)[0])
+
+                fd = (at(1.0) - at(-1.0)) / (2.0 * e)
+                sweep.append((e, fd))
+                if abs(fd - ad[group]) <= rtol * abs(ad[group]) + 1e-6:
+                    break
+            else:
+                raise AssertionError(f"{name} [{group}] AD {ad[group]:+.6g} matched no FD rung: "
+                                     f"{sweep}")
+        print(f"{name} AD vs FD {FD_RES}^2 [{group}]: AD {ad[group]:+.6e} FD {sweep[-1][1]:+.6e} "
+              f"at eps {sweep[-1][0]:g} (rtol {rtol}; rungs tried {len(sweep)})")
+        if abs(ad[group]) <= 1e-8:
+            raise AssertionError(f"{name} [{group}]: the gradient is zero")
 
 
 def main() -> int:
@@ -550,23 +1044,24 @@ def main() -> int:
         print(f"  ptxas: {ln}")
 
     t0 = time.perf_counter()
-    kernels, cornell_launches = run_cornell(dev)
+    kernels, cornell_launches, cornell_cpu = run_cornell(dev)
     print(f"cornell phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    e1m1_kernels, e1m1_launches = run_e1m1(dev)
+    e1m1_kernels, e1m1_launches, e1m1_scene = run_e1m1(dev)
     print(f"e1m1 phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_kernels, train_launches = run_training(dev, cornell_cpu, e1m1_scene)
+    print(f"training phases: {time.perf_counter() - t0:.1f} s")
     # K3 runs on both paths: its row keeps the Cornell times and adds the
     # e1m1 tri table's; its error is the larger of the two checks
     e1m1_k3 = e1m1_kernels.pop("gather_cols")
     kernels.update(e1m1_kernels)
+    kernels.update(train_kernels)
     k3 = kernels["gather_cols"]
     k3["max_abs_err"] = max(k3["max_abs_err"], e1m1_k3.pop("max_abs_err"))
     k3.update({f"e1m1_{key}": v for key, v in e1m1_k3.items()})
-    by_path = {"cornell": cornell_launches, "e1m1": e1m1_launches}
-    paths = {name: ("cornell",) for name in CORNELL_KERNELS}
-    paths.update({name: ("e1m1",) for name in E1M1_KERNELS})
-    paths["gather_cols"] = ("cornell", "e1m1")
-    launches = {name: {p: by_path[p][name] for p in ps} for name, ps in paths.items()}
+    by_path = {"cornell": cornell_launches, "e1m1": e1m1_launches, **train_launches}
+    launches = {name: {p: by_path[p][name] for p in ps} for name, ps in PATHS.items()}
     for name, counts in launches.items():
         for p, count in counts.items():
             if count <= 0:
@@ -576,7 +1071,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": sum(launches[name].values()),
          "launches_by_path": launches[name], **kernels[name]}
-        for name in CORNELL_KERNELS + E1M1_KERNELS]}
+        for name in CORNELL_KERNELS + E1M1_KERNELS + TRAIN_KERNELS]}
     print(json.dumps(report))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

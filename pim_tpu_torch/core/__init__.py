@@ -1,1 +1,2 @@
-"""Core runtime pieces of the port (today: the per-ray RNG)."""
+"""Core runtime pieces of the port: the per-ray RNG, the cvar registry and
+name hashing."""

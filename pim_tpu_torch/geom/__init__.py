@@ -1,8 +1,5 @@
-"""Host-side scene pipeline of the port (numpy): the Cornell box and the
-texture pool.
-
-Entities, meshes, materials and world-space flattening are the JAX
-package's own jax-free host modules, `pim_tpu.geom.{entities,material,
-mesh}`, imported as they are.  `pim_tpu.geom.cornell` is not: it imports
-`pim_tpu.render.camera`, which imports jax.
+"""Host-side scene pipeline of the port (numpy): entities and their
+world-space flattening, meshes, materials and the texture pool, the Cornell
+box and the glTF import.  The entity, mesh and material modules are the
+port's own copies of the JAX package's jax-free host modules.
 """

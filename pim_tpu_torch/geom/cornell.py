@@ -10,9 +10,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from pim_tpu.geom.entities import Entities
-from pim_tpu.geom.material import MatFlag, Material
-from pim_tpu.geom.mesh import gen_box_mesh
+from pim_tpu_torch.geom.entities import Entities
+from pim_tpu_torch.geom.material import MatFlag, Material
+from pim_tpu_torch.geom.mesh import gen_box_mesh
 from pim_tpu_torch.geom.material import TexturePool
 
 K_DECI = 0.1

@@ -1,14 +1,10 @@
 """glTF 2.0 scene import into the port's texture pool.
 
-Counterpart of `pim_tpu.geom.gltf.load_gltf_scene`.  The buffer, accessor
-and node-matrix helpers are the JAX package's own (`pim_tpu.geom.gltf`
-imports nothing of JAX at module level).  Two pieces are the port's:
-  - the texture pool, `pim_tpu_torch.geom.material.TexturePool`, whose bf16
-    snap needs no `ml_dtypes`;
-  - the PNG decode: the reference decodes through
-    `pim_tpu.render.screenshot.read_png`, a module that imports jax, so the
-    same stdlib reader (8-bit, no interlace) is kept here.
-The atlas and the texture records come out bitwise the reference's.
+Counterpart of `pim_tpu.geom.gltf.load_gltf_scene`, with the port's own
+copies of its buffer, accessor and node-matrix helpers and of the stdlib PNG
+reader (the reference decodes through `pim_tpu.render.screenshot.read_png`;
+8-bit, no interlace).  The atlas and the texture records come out bitwise
+the reference's.
 """
 
 from __future__ import annotations
@@ -22,12 +18,72 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from pim_tpu.geom.entities import Entities
-from pim_tpu.geom.gltf import _load_buffers, _node_matrix, _read_accessor
-from pim_tpu.geom.material import MatFlag, Material, srgb_to_linear
-from pim_tpu.geom.mesh import MeshData
 from pim_tpu_torch.geom.cornell import mat3_to_quat
-from pim_tpu_torch.geom.material import TexturePool
+from pim_tpu_torch.geom.entities import Entities
+from pim_tpu_torch.geom.material import MatFlag, Material, TexturePool, srgb_to_linear
+from pim_tpu_torch.geom.mesh import MeshData
+
+_COMP_DTYPE = {
+    5120: np.int8, 5121: np.uint8, 5122: np.int16,
+    5123: np.uint16, 5125: np.uint32, 5126: np.float32,
+}
+_TYPE_COUNT = {"SCALAR": 1, "VEC2": 2, "VEC3": 3, "VEC4": 4, "MAT4": 16}
+
+
+def _load_buffers(doc: dict, base_dir: str, glb_bin: Optional[bytes]) -> List[bytes]:
+    out = []
+    for buf in doc.get("buffers", []):
+        uri = buf.get("uri")
+        if uri is None:
+            out.append(glb_bin or b"")
+        elif uri.startswith("data:"):
+            out.append(base64.b64decode(uri.split(",", 1)[1]))
+        else:
+            with open(os.path.join(base_dir, uri), "rb") as f:
+                out.append(f.read())
+    return out
+
+
+def _read_accessor(doc: dict, buffers: List[bytes], idx: int) -> np.ndarray:
+    acc = doc["accessors"][idx]
+    view = doc["bufferViews"][acc["bufferView"]]
+    dtype = _COMP_DTYPE[acc["componentType"]]
+    ncomp = _TYPE_COUNT[acc["type"]]
+    count = acc["count"]
+    itemsize = np.dtype(dtype).itemsize * ncomp
+    stride = view.get("byteStride", itemsize)
+    offset = view.get("byteOffset", 0) + acc.get("byteOffset", 0)
+    buf = buffers[view["buffer"]]
+    if stride == itemsize:
+        arr = np.frombuffer(buf, dtype, count * ncomp, offset).reshape(count, ncomp)
+    else:
+        arr = np.zeros((count, ncomp), dtype)
+        for i in range(count):
+            arr[i] = np.frombuffer(buf, dtype, ncomp, offset + i * stride)
+    if acc.get("normalized"):
+        info = np.iinfo(dtype)
+        arr = arr.astype(np.float32) / info.max
+    return arr
+
+
+def _node_matrix(node: dict) -> np.ndarray:
+    if "matrix" in node:
+        return np.asarray(node["matrix"], np.float64).reshape(4, 4).T
+    m = np.eye(4)
+    t = node.get("translation", [0, 0, 0])
+    r = node.get("rotation", [0, 0, 0, 1])
+    s = node.get("scale", [1, 1, 1])
+    x, y, z, w = r
+    rot = np.array(
+        [
+            [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+            [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+            [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+        ]
+    )
+    m[:3, :3] = rot @ np.diag(s)
+    m[:3, 3] = t
+    return m
 
 
 def _paeth(a: int, b: int, c: int) -> int:

@@ -20,6 +20,7 @@ from pim_tpu_torch.math.vec3 import (
     TAU,
     V3,
     f32,
+    sqrt0,
 )
 
 _PI_4 = f32(np.float32(PI) / np.float32(4.0))
@@ -135,7 +136,7 @@ def sample_pentagram(u, v, side):
 
 def spherical_to_cartesian(cos_theta, phi) -> V3:
     """(cos theta, phi) -> unit vector with N = +Z."""
-    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
+    sin_theta = sqrt0(1.0 - cos_theta * cos_theta)
     return V3(sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta)
 
 

@@ -138,11 +138,20 @@ def avg_lum3(c: V3):
     return (c.x + c.y + c.z) * f32(1.0 / 3.0)
 
 
+def sqrt0(x):
+    """sqrt(max(x, 0)), the same values, with a zero derivative where
+    x <= 0: there autograd's 0 * inf through the clamp would give NaN (at
+    total internal reflection, for one)."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)),
+                       torch.sqrt(torch.clamp_min(x, 0.0)).detach())
+
+
 def refract(i: V3, n: V3, eta) -> V3:
     """GLSL refract; zeros on total internal reflection."""
     cosi = -dot(i, n)
     k = 1.0 - eta * eta * (1.0 - cosi * cosi)
     tir = k < 0.0
-    out = i * eta + n * (eta * cosi - torch.sqrt(torch.clamp_min(k, 0.0)))
+    out = i * eta + n * (eta * cosi - sqrt0(k))
     zero = torch.zeros_like(cosi)
     return where3(tir, V3(zero, zero, zero), out)

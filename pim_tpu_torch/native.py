@@ -29,7 +29,8 @@ import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("dense_isect.cu", "gather_cols.cu", "cluster_isect.cu", "gather_bilinear.cu")
+SOURCES = ("dense_isect.cu", "gather_cols.cu", "cluster_isect.cu", "gather_bilinear.cu",
+           "gather_texels.cu")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "pim_tpu_torch")
 LIB_NAME = "libpim_tpu_torch.so"
 # --fmad=false: the intersection kernels must round every product and sum
@@ -40,8 +41,9 @@ NVCC_FLAGS = (
 )
 
 launches: Dict[str, int] = {
-    "dense_isect": 0, "dense_anyhit": 0, "gather_cols": 0,
+    "dense_isect": 0, "dense_anyhit": 0, "gather_cols": 0, "gather_cols_bwd": 0,
     "cluster_isect": 0, "cluster_anyhit": 0, "gather_bilinear": 0,
+    "gather_texels": 0, "gather_texels_bwd": 0,
 }
 
 
@@ -132,7 +134,10 @@ def load() -> ctypes.CDLL:
         lib.pim_dense_isect.restype = i
         lib.pim_dense_anyhit.argtypes = ray_args + [i, p, p]
         lib.pim_dense_anyhit.restype = i
-        for fn in (lib.pim_gather_cols_i32, lib.pim_gather_cols_i64):
+        # table (or gradient), f, t, idx, n, out (or gradient table), stream
+        for fn in (lib.pim_gather_cols_i32, lib.pim_gather_cols_i64,
+                   lib.pim_gather_cols_bwd_i32, lib.pim_gather_cols_bwd_i64,
+                   lib.pim_gather_texels, lib.pim_gather_texels_bwd):
             fn.argtypes = [p, i, i, p, ll, p, p]
             fn.restype = i
         # scb, spad, clb, n_sc, tris, stride, then the ray arguments

@@ -13,8 +13,8 @@ from typing import NamedTuple
 
 import torch
 
-from pim_tpu.geom.material import MatFlag
 from pim_tpu_torch.core import rng
+from pim_tpu_torch.geom.material import MatFlag
 from pim_tpu_torch.math.brdf import (
     BrdfLut,
     albedo_to_transmittance,

@@ -78,7 +78,9 @@ def proj_slope(fov_y_radians: float, aspect: float):
 
 
 class CameraArrays(NamedTuple):
-    """The camera basis as float32 values (Python floats holding float32)."""
+    """The camera basis as float32 values (Python floats holding float32).
+    `eye` may instead be a [3] float32 tensor, e.g. one that requires grad
+    (the differentiable path's camera position)."""
 
     eye: Tuple[float, float, float]
     right: Tuple[float, float, float]
@@ -110,13 +112,15 @@ def camera_arrays(camera: Camera, dof: DofInfo, width: int, height: int,
 def generate_primary_rays(cam: CameraArrays, width: int, height: int,
                           state: rng.RngState, blade_count: int = 5,
                           blade_rot: float = float(np.pi / 10.0),
-                          enable_dof: bool = True):
+                          enable_dof: bool = True, pixel_ids=None):
     """Per-pixel primary rays with gaussian AA jitter + bokeh DoF (SoA),
-    one per pixel of the width*height frame, on the state's device.
+    one per pixel of the width*height frame (or of `pixel_ids`, a subset of
+    its pixel indices), on the state's device.
 
     Returns (state, ro V3, rd V3)."""
     dev = state.x.device
-    i = torch.arange(width * height, dtype=torch.int64, device=dev)
+    i = (torch.arange(width * height, dtype=torch.int64, device=dev) if pixel_ids is None
+         else pixel_ids.to(device=dev, dtype=torch.int64))
     cx = (i % width).to(torch.float32)
     cy = (i // width).to(torch.float32)
 
@@ -130,7 +134,8 @@ def generate_primary_rays(cam: CameraArrays, width: int, height: int,
     right = V3(*cam.right)
     up = V3(*cam.up)
     fwd = V3(*cam.fwd)
-    eye = V3(*(torch.full(i.shape, c, dtype=torch.float32, device=dev) for c in cam.eye))
+    e = torch.as_tensor(cam.eye, dtype=torch.float32, device=dev)
+    eye = V3(*(e[k].expand(i.shape).contiguous() for k in range(3)))
 
     rd = normalize(V3(fwd.x + right.x * sx + up.x * sy,
                       fwd.y + right.y * sx + up.y * sy,

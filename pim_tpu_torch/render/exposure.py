@@ -37,7 +37,7 @@ class ExposureParams(NamedTuple):
 
     @classmethod
     def from_cvars(cls) -> "ExposureParams":
-        from pim_tpu.core import cvars as cv
+        from pim_tpu_torch.core import cvars as cv
 
         return cls(
             manual=bool(cv.cv_exp_manual.get()),

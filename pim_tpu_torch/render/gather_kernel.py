@@ -1,9 +1,12 @@
-"""K3, the column gather: `table_t[:, idx]` with 0 for idx outside [0, T).
+"""K3, the column gather: `table_t[:, idx]` with 0 for idx outside [0, T),
+and its backward, the column scatter-add.
 
-Counterpart of `pim_tpu.render.gather_kernel.gather_cols_pallas`.  For CUDA
+Counterpart of `pim_tpu.render.gather_kernel.gather_cols_pallas` and of the
+custom VJP around it (`pim_tpu.render.fetch._fetch_cols_pallas`).  For CUDA
 tensors `gather_cols` launches csrc/gather_cols.cu, for every table size
-and batch size; for CPU tensors it runs `gather_cols_plain`.  Both move the
-stored float32 values unchanged.
+and batch size, and its gradient launches the scatter-add of the same file;
+for CPU tensors both run their plain versions.  The forward moves the
+stored float32 values unchanged.  `idx` gets no gradient.
 """
 
 from __future__ import annotations
@@ -21,8 +24,25 @@ def gather_cols_plain(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(ok[None, :], out, 0.0)
 
 
-def gather_cols(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table_t [F, T] f32, idx [N] i32/i64 -> [F, N] f32."""
+def gather_cols_bwd_plain(g: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
+    """Plain K3 backward: g [F, N] added into a zero [F, t] at column idx;
+    lanes with idx outside [0, t) add nothing."""
+    ok = (idx >= 0) & (idx < t)
+    out = torch.zeros((g.shape[0], t), dtype=g.dtype, device=g.device)
+    return out.index_add_(1, torch.where(ok, idx, 0).to(torch.int64),
+                          torch.where(ok[None, :], g, 0.0))
+
+
+def _check_idx(name: str, idx: torch.Tensor, dev) -> int:
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{name}.idx: dtype {idx.dtype}, expected int32 or int64")
+    n = idx.shape[0] if idx.dim() == 1 else -1
+    native.require_cuda(f"{name}.idx", idx, idx.dtype, (n,), dev)
+    return n
+
+
+def gather_cols_fwd(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table_t [F, T] f32, idx [N] i32/i64 -> [F, N] f32 (no autograd)."""
     if table_t.device.type == "cpu":
         return gather_cols_plain(table_t, idx)
     dev = table_t.device
@@ -30,10 +50,7 @@ def gather_cols(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gather_cols.table_t: expected [F, T], got {tuple(table_t.shape)}")
     f, t = table_t.shape
     native.require_cuda("gather_cols.table_t", table_t, torch.float32, (f, t), dev)
-    if idx.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"gather_cols.idx: dtype {idx.dtype}, expected int32 or int64")
-    n = idx.shape[0] if idx.dim() == 1 else -1
-    native.require_cuda("gather_cols.idx", idx, idx.dtype, (n,), dev)
+    n = _check_idx("gather_cols", idx, dev)
     out = torch.empty((f, n), dtype=torch.float32, device=dev)
     if n == 0 or f == 0:
         return out
@@ -44,3 +61,45 @@ def gather_cols(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     native.check(lib, rc, "gather_cols")
     native.launches["gather_cols"] += 1
     return out
+
+
+def gather_cols_bwd(g: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
+    """g [F, N] f32, idx [N] i32/i64 -> [F, t] f32 column scatter-add."""
+    if g.device.type == "cpu":
+        return gather_cols_bwd_plain(g, idx, t)
+    dev = g.device
+    if g.dim() != 2:
+        raise ValueError(f"gather_cols_bwd.g: expected [F, N], got {tuple(g.shape)}")
+    f, n = g.shape
+    native.require_cuda("gather_cols_bwd.g", g, torch.float32, (f, n), dev)
+    _check_idx("gather_cols_bwd", idx, dev)
+    grad = torch.zeros((f, t), dtype=torch.float32, device=dev)
+    if n == 0 or f == 0:
+        return grad
+    lib = native.load()
+    fn = lib.pim_gather_cols_bwd_i32 if idx.dtype == torch.int32 else lib.pim_gather_cols_bwd_i64
+    rc = fn(g.data_ptr(), f, t, idx.data_ptr(), n, grad.data_ptr(), native.stream_ptr(dev))
+    native.check(lib, rc, "gather_cols_bwd")
+    native.launches["gather_cols_bwd"] += 1
+    return grad
+
+
+class _GatherCols(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table_t, idx):
+        ctx.save_for_backward(idx)
+        ctx.t = table_t.shape[1]
+        return gather_cols_fwd(table_t, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return gather_cols_bwd(g.contiguous(), idx, ctx.t), None
+
+
+def gather_cols(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table_t [F, T] f32, idx [N] i32/i64 -> [F, N] f32, differentiable in
+    table_t when it requires grad."""
+    if table_t.requires_grad and torch.is_grad_enabled():
+        return _GatherCols.apply(table_t, idx)
+    return gather_cols_fwd(table_t, idx)

@@ -17,7 +17,10 @@ the end of the previous bounce; the reference carries the same values in
 its scan carry.
 
 Everything stays on the device: the ray count and the image are tensors,
-and nothing in the bounce loop synchronises with the host.
+and nothing in the bounce loop synchronises with the host.  Nothing in it
+writes in place into a tensor that needs a gradient, so the differentiable
+path (`SceneMeta.differentiable`, render/diff.py) runs through it under
+autograd.
 """
 
 from __future__ import annotations
@@ -27,8 +30,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pim_tpu.geom.material import MatFlag
 from pim_tpu_torch.core import rng
+from pim_tpu_torch.geom.material import MatFlag
 from pim_tpu_torch.math.brdf import BrdfLut
 from pim_tpu_torch.math.grid import grid_index_soa
 from pim_tpu_torch.math.sampling import light_pdf, power_heuristic
@@ -97,8 +100,16 @@ def _finish_segment(meta, arrays, ro, rd, hit, at, atten, lum, alive, live, emis
 
 
 def trace_rays(meta: SceneMeta, arrays: SceneArrays, lights: LightState, ro: V3, rd: V3,
-               state: rng.RngState, max_bounces: int) -> TraceResult:
-    """Trace a batch of [N] rays to completion, with Russian roulette."""
+               state: rng.RngState, max_bounces: int, mis_both: bool = False,
+               use_rr: bool = True) -> TraceResult:
+    """Trace a batch of [N] rays to completion.
+
+    mis_both: accepted and ignored, as the reference does: the integrator
+    is always full MIS.  use_rr: Russian roulette; the differentiable path
+    turns it off, since its survive/die compare flips discretely with the
+    parameters.  The roulette uniform is drawn either way, so the RNG
+    streams of the two modes stay aligned."""
+    del mis_both
     if meta.media_enabled:
         raise NotImplementedError("participating media are not ported yet (ROADMAP slice 3)")
     n = ro.x.shape[0]
@@ -112,7 +123,10 @@ def trace_rays(meta: SceneMeta, arrays: SceneArrays, lights: LightState, ro: V3,
     if meta.has_refractive:
         def thickness_fn(p, l, mask):
             # masked lanes carry t_far = 0: the kernel skips them
-            return intersect_raw(meta, arrays, p, l, 0.0, torch.where(mask, RCP_EPS, 0.0))[0]
+            t_far = torch.where(mask, RCP_EPS, 0.0)
+            if meta.differentiable:  # t with its Moller-Trumbore gradient
+                return scene_intersect(meta, arrays, p, l, 0.0, t_far).t
+            return intersect_raw(meta, arrays, p, l, 0.0, t_far)[0]
 
     # --- primary segment
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
@@ -159,11 +173,12 @@ def trace_rays(meta: SceneMeta, arrays: SceneArrays, lights: LightState, ro: V3,
 
         # --- Russian roulette before the trace
         state, u_rr = rng.next_f32(state)
-        p = saturate(avg_lum3(atten))
-        survive = u_rr < p
-        scale = torch.where(alive2 & survive, 1.0 / torch.clamp_min(p, EPS), 1.0)
-        atten = atten * scale
-        alive2 = alive2 & survive
+        if use_rr:
+            p = saturate(avg_lum3(atten))
+            survive = u_rr < p
+            scale = torch.where(alive2 & survive, 1.0 / torch.clamp_min(p, EPS), 1.0)
+            atten = atten * scale
+            alive2 = alive2 & survive
 
         # --- trace the continuation segment; dead lanes carry t_far = 0
         rays = rays + torch.sum(alive2.to(torch.float32))

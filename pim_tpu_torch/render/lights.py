@@ -4,8 +4,9 @@ Counterpart of `pim_tpu.render.lights`: full MIS with a shared
 continuation ray, so NEE costs one any-hit shadow ray (K2 or K5) per bounce.  The
 light-grid state is fetched as ONE fused [3K+2, G] table gather (K3) and
 the sampled light's vertices come from the compact [24, E] emissive table
-(K3).  Textured lights are sampled at the light point through K6, sky
-lights take the sky radiance toward the light point (K6 with C = 3).
+(K3).  Textured lights are sampled at the light point through K6 (K7 on
+the differentiable path), sky lights take the sky radiance toward the light
+point (K6 with C = 3, or K7).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from pim_tpu_torch.math.dist1d import cumsum_seq
 from pim_tpu_torch.math.grid import grid_index_soa
 from pim_tpu_torch.math.sampling import light_pdf, power_heuristic, sample_bary_coord
-from pim_tpu.geom.material import MatFlag
+from pim_tpu_torch.geom.material import MatFlag
 from pim_tpu_torch.math.color import K_EMISSION_SCALE
 from pim_tpu_torch.math.vec3 import (
     EPS, LOG2_EPS, V2, V3, avg_lum3, cross, dot, f32, normalize, where3,
@@ -184,8 +185,9 @@ def sample_light(meta: SceneMeta, arrays: SceneArrays, light_table, p: V3,
             rows[E_UVA.start + 1] * w_ + rows[E_UVB.start + 1] * wu + rows[E_UVC.start + 1] * wv,
         )
         alb, rom = sample_atlas_bilinear_multi(
-            arrays.atlas_corners, arrays.tex_rec_t,
-            [(a_tex, uv, (0, 0, 0, 0)), (r_tex, uv, (0, 0, 0, 0))], active=active)
+            arrays.atlas_planes, arrays.tex_rec_t,
+            [(a_tex, uv, (0, 0, 0, 0)), (r_tex, uv, (0, 0, 0, 0))],
+            atlas_corners=None if meta.differentiable else arrays.atlas_corners, active=active)
         albedo = where3(a_tex >= 0, V3(alb[0], alb[1], alb[2]), albedo)
         emit_a = torch.where(r_tex >= 0, rom[3], emit_a)
     emission = albedo * (emit_a * emit_a * K_EMISSION_SCALE)

@@ -7,7 +7,8 @@ Counterpart of `pim_tpu.render.scene`.  The scene is split into:
   SceneArrays — the tensors the frame reads: BW rows for K1/K2, the cluster
                 hierarchy for K4/K5, the fused [48, T] attribute table, the
                 emissive table, the atlas corner planes and texture records
-                (K6), the sky cube and its corner planes (K6), the
+                (K6), the atlas parameter planes (K7, the differentiable
+                path), the sky cube and its corner planes (K6), the
                 light-grid activity and the BRDF LUT;
   LightState  — the per-cell light distributions (pdf, cdf, live histogram).
 
@@ -15,6 +16,13 @@ Two intersectors: `dense` (K1/K2, render/dense_kernels.py) up to
 DENSE_CROSSOVER_TRIS triangles and `cluster` (K4/K5, render/cluster.py)
 past it, as the reference chooses on its TPU.  Cluster traces sort their
 rays first where `SceneMeta.sort_rays` says so (on the card).
+
+No intersection kernel has a backward: ray origins, directions and t_far
+are detached before K1, K2, K4 or K5 (and their plain versions) see them.
+The hit distance t of a closest hit takes its gradient from the
+Moller-Trumbore t that `_finalize_hit_fused` computes on the hit triangle,
+as the JAX package's brute-force backend differentiates it; its value stays
+the kernel's.
 """
 
 from __future__ import annotations
@@ -26,8 +34,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from pim_tpu.geom.entities import Entities, FlatScene, flatten
-from pim_tpu.geom.material import MatFlag, TexturePool
+from pim_tpu_torch.geom.entities import Entities, FlatScene, flatten
+from pim_tpu_torch.geom.material import MatFlag, TexturePool
 from pim_tpu_torch.render import cluster as CL
 from pim_tpu_torch.core import rng
 from pim_tpu_torch.math import dist1d
@@ -77,6 +85,10 @@ class SceneMeta:
     has_normal_maps: bool
     backend: str = "dense"   # 'dense' (K1/K2) | 'cluster' (K4/K5)
     sort_rays: bool = False  # coherence-sort cluster traces (render/raysort.py)
+    # the differentiable path (render/diff.py): the atlas and the sky are
+    # sampled from their parameter planes through K7, and the refraction
+    # probe's t carries its gradient
+    differentiable: bool = False
 
     @property
     def grid_len(self) -> int:
@@ -102,6 +114,7 @@ class SceneArrays:
     cl_clb: torch.Tensor          # [6*S, 128] f32 cluster boxes
     cl_scb: torch.Tensor          # [8, Spad] f32 supercluster boxes
     atlas_corners: torch.Tensor   # [16, H*W] f32 atlas corner planes (K6, C = 4)
+    atlas_planes: torch.Tensor    # [4, H*W] f32 atlas channel planes (K7)
     tex_rec_t: torch.Tensor       # [5, Ntex] f32 (x0, y0, w, h, atlas width)
     sky: torch.Tensor             # [6, R, R, 3] f32 sky cube (R = 1, zeros: none)
     sky_corners: torch.Tensor     # [12, 6*R*R] f32 its corner planes (K6, C = 3)
@@ -125,7 +138,8 @@ def _mt_soa(ro: V3, rd: V3, a: V3, e1: V3, e2: V3):
     """Moller-Trumbore on SoA lanes; returns (t, u, v, det)."""
     p = cross(rd, e2)
     det = dot(e1, p)
-    inv_det = torch.where(torch.abs(det) > 1e-12, 1.0 / det, 0.0)
+    ok = torch.abs(det) > 1e-12
+    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)  # no 0 * inf in the backward
     tv = ro - a
     u = dot(tv, p) * inv_det
     q = cross(tv, e1)
@@ -140,7 +154,9 @@ def _finalize_hit_fused(arrays: SceneArrays, t, tri, ro: V3, rd: V3) -> Hit:
     a = F.v3_rows(rows, F.PA)
     b = F.v3_rows(rows, F.PB)
     c = F.v3_rows(rows, F.PC)
-    _, u, v, det = _mt_soa(ro, rd, a, b - a, c - a)
+    t_mt, u, v, det = _mt_soa(ro, rd, a, b - a, c - a)
+    if t_mt.requires_grad:
+        t = t + (t_mt - t_mt.detach())
     miss = tri < 0
     ng = cross(b - a, c - a)
     backface = det < 0.0
@@ -162,9 +178,16 @@ def _cluster_arrays(arrays: SceneArrays) -> CL.ClusterArrays:
     return CL.ClusterArrays(tris=arrays.cl_tris, clb=arrays.cl_clb, scb=arrays.cl_scb)
 
 
+def _detached(*xs):
+    """The intersectors' inputs, cut from the autograd graph."""
+    return [V3(*(c.detach() for c in x)) if isinstance(x, V3)
+            else x.detach() if isinstance(x, torch.Tensor) else x for x in xs]
+
+
 def intersect_raw(meta: SceneMeta, arrays: SceneArrays, ro: V3, rd: V3, t_near, t_far):
     """Closest hit through the scene's intersector: (t [N], tri [N] i32),
-    -1 on a miss."""
+    -1 on a miss; neither carries a gradient."""
+    ro, rd, t_far = _detached(ro, rd, t_far)
     if meta.backend == "dense":
         return intersect_dense_raw(arrays.tris12, ro, rd, t_near, t_far)
     cl = _cluster_arrays(arrays)
@@ -183,6 +206,7 @@ def scene_intersect(meta: SceneMeta, arrays: SceneArrays, ro: V3, rd: V3,
 
 def scene_occluded(meta: SceneMeta, arrays: SceneArrays, ro: V3, rd: V3,
                    t_near, t_far) -> torch.Tensor:
+    ro, rd, t_far = _detached(ro, rd, t_far)
     if meta.backend == "dense":
         return occluded_dense(arrays.tris12, ro, rd, t_near, t_far)
     cl = _cluster_arrays(arrays)
@@ -401,7 +425,7 @@ def _resolve_sort_rays(sort_rays, backend: str, device: torch.device) -> bool:
     """None follows the pt_sort cvar, whose 'auto' sorts the cluster
     backend's traces on the card (the reference: on its TPU)."""
     if sort_rays is None:
-        from pim_tpu.core.cvars import cv_pt_sort
+        from pim_tpu_torch.core.cvars import cv_pt_sort
 
         mode = str(cv_pt_sort.get()).strip().lower()
         if mode in ("1", "true", "on"):
@@ -530,6 +554,7 @@ def build_scene(
         cl_clb=dev_t(cluster.clb),
         cl_scb=dev_t(cluster.scb),
         atlas_corners=dev_t(build_atlas_corner_planes(atlas, tex_rec)),
+        atlas_planes=dev_t(np.ascontiguousarray(atlas.reshape(-1, 4).T)),
         tex_rec_t=dev_t(texture_records_t(atlas, tex_rec)),
         sky=sky_t,
         sky_corners=sky_corner_planes(sky_t),
@@ -553,8 +578,8 @@ def from_jax_scene(meta_fields: dict, arrays_np: dict, lights_np: dict,
     The JAX backends 'pallas' and 'cluster' map to the port's 'dense' and
     'cluster'; its CPU intersectors ('brute', 'bvh') are not ported.
     `tris9` holds the [Tpad, 12] BW rows (whatever its field comment says);
-    fields the port does not read (BVH, the flat atlas planes, slot_tri,
-    normals, uvs) are not carried."""
+    fields the port does not read (BVH, slot_tri, normals, uvs) are not
+    carried."""
     device = torch.device(device)
     backend = _JAX_BACKENDS.get(meta_fields["backend"])
     if backend is None:
@@ -597,6 +622,7 @@ def from_jax_scene(meta_fields: dict, arrays_np: dict, lights_np: dict,
         cl_clb=dev_t(arrays_np["cl_clb"]),
         cl_scb=dev_t(arrays_np["cl_scb"]),
         atlas_corners=dev_t(arrays_np["atlas_corners"]),
+        atlas_planes=dev_t(arrays_np["atlas_planes"]),
         tex_rec_t=dev_t(arrays_np["tex_rec_t"]),
         sky=sky,
         sky_corners=sky_corner_planes(sky),

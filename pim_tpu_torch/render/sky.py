@@ -1,5 +1,5 @@
 """Physically-based sky: the Rayleigh/Mie single-scattering bake and the
-cubemap fetch (K6).
+cubemap fetch (K6, or K7 on the differentiable path).
 
 Counterpart of `pim_tpu.render.sky`.  The bake marches every texel's view
 ray in fixed steps (the reference's masked `lax.scan`, a Python loop here);
@@ -8,9 +8,18 @@ with its liveness as a running product, so the loop holds only the view
 steps.  The step positions are the reference's repeated float32 sums of the
 step length, formed on the host.
 
+The bake is differentiable in the sun's direction and luminance when they
+are given as tensors (the differentiable path re-bakes the cube in every
+step); each view step's 96-step sun march is then recomputed in the
+backward (`torch.utils.checkpoint`) instead of keeping its [96, 6*S*S]
+intermediates.  Given as floats, as the serving bake does, the cube is the
+same as before, bit for bit.
+
 The cubemap [6, S, S, 3] is fetched through K6 with C = 3 from [12, 6*S*S]
 corner planes (`sky_corner_planes`, the reference's slice-shifts, clamped
-at each face edge).
+at each face edge), or, on the differentiable path, by its four corners
+through ONE K7 call on the [3, 6*S*S] cube planes and the JAX package's
+lerp form.
 """
 
 from __future__ import annotations
@@ -19,10 +28,11 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from pim_tpu_torch.math.sampling import mie_phase, rayleigh_phase
 from pim_tpu_torch.math.vec3 import EPS, V3, f32
-from pim_tpu_torch.render.table_gather import gather_bilinear
+from pim_tpu_torch.render.table_gather import gather_bilinear, gather_texels
 
 # fixed trip counts of the masked marches (the reference's)
 VIEW_STEPS = 224
@@ -67,10 +77,22 @@ def _march_positions(mfp: np.float32, n: int) -> np.ndarray:
     return out
 
 
-def atmosphere(sky: SkyMedium, ro, rd: V3, light_dir, luminance: float, steps: int) -> V3:
+def _components(x):
+    """3 floats (a float is repeated), or the 3 elements of a [3] tensor."""
+    if isinstance(x, torch.Tensor):
+        return [x[i] for i in range(3)]
+    a = np.asarray(x, np.float32)
+    return [float(a)] * 3 if a.ndim == 0 else [float(v) for v in a]
+
+
+def atmosphere(sky: SkyMedium, ro, rd: V3, light_dir, luminance, steps: int) -> V3:
     """Single-scatter march.  ro: 3 floats (planet centre at the origin);
-    rd: V3 of [D] unit directions; light_dir: 3 floats.  Returns V3 [D]."""
+    rd: V3 of [D] unit directions; light_dir: 3 floats or a [3] tensor;
+    luminance: a float, 3 floats or a [3] tensor.  Returns V3 [D],
+    differentiable in the tensors given."""
     dev = rd.x.device
+    ld = _components(light_dir)
+    lum = _components(luminance)
     majorant = np.float32(max(sky.mu_m, max(sky.mu_r))) * np.float32(steps)
     mfp = np.float32(-np.log(np.float32(0.5))) / majorant
     mfp_f = float(mfp)
@@ -90,9 +112,10 @@ def atmosphere(sky: SkyMedium, ro, rd: V3, light_dir, luminance: float, steps: i
         return h, dr, dm
 
     t_sun = torch.from_numpy(_march_positions(mfp, SUN_STEPS)).to(dev)[:, None]  # [96, 1]
-    sun_x = t_sun * float(light_dir[0])
-    sun_y = t_sun * float(light_dir[1])
-    sun_z = t_sun * float(light_dir[2])
+    sun_x = t_sun * ld[0]
+    sun_y = t_sun * ld[1]
+    sun_z = t_sun * ld[2]
+    recompute = sun_x.requires_grad and torch.is_grad_enabled()
 
     def sun_march(px, py, pz):
         """Optical depth toward the sun from each [D] point, all steps at once."""
@@ -121,7 +144,10 @@ def atmosphere(sky: SkyMedium, ro, rd: V3, light_dir, luminance: float, steps: i
         od_m_i = dm * mfp_f
         od_r_v = od_r_v + torch.where(live, od_r_i, 0.0)
         od_m_v = od_m_v + torch.where(live, od_m_i, 0.0)
-        od_r_l, od_m_l, hit_crust = sun_march(px, py, pz)
+        if recompute:
+            od_r_l, od_m_l, hit_crust = checkpoint(sun_march, px, py, pz, use_reentrant=False)
+        else:
+            od_r_l, od_m_l, hit_crust = sun_march(px, py, pz)
         m = (live & ~hit_crust).to(torch.float32)
         a_r = (od_r_v + od_r_l)
         a_m = (od_m_v + od_m_l)
@@ -130,10 +156,10 @@ def atmosphere(sky: SkyMedium, ro, rd: V3, light_dir, luminance: float, steps: i
             tr_r[c] = tr_r[c] + tr_i * (od_r_i * m)
             tr_m[c] = tr_m[c] + tr_i * (od_m_i * m)
 
-    cos_theta = rd.x * float(light_dir[0]) + rd.y * float(light_dir[1]) + rd.z * float(light_dir[2])
+    cos_theta = rd.x * ld[0] + rd.y * ld[1] + rd.z * ld[2]
     ph_r = rayleigh_phase(cos_theta)
     ph_m = mie_phase(cos_theta, sky.g_m)
-    out = [(tr_r[c] * sky.mu_r[c] * ph_r + tr_m[c] * (sky.mu_m * ph_m)) * f32(luminance)
+    out = [(tr_r[c] * sky.mu_r[c] * ph_r + tr_m[c] * (sky.mu_m * ph_m)) * lum[c]
            for c in range(3)]
     return V3(*out)
 
@@ -156,13 +182,21 @@ def cubemap_dirs(size: int) -> np.ndarray:
     return dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
 
 
-def bake_sky_cubemap(sky: SkyMedium, sun_dir, sun_lum: float, size: int, steps: int,
+def bake_sky_cubemap(sky: SkyMedium, sun_dir, sun_lum, size: int, steps: int,
                      device="cpu") -> torch.Tensor:
     """[6, size, size, 3] radiance cubemap, baked on `device` (the view
-    rays start at the crust, at the north pole)."""
+    rays start at the crust, at the north pole).  sun_dir: 3 floats or a
+    [3] tensor (normalized here); sun_lum: a float, 3 floats or a [3]
+    tensor.  Differentiable in the tensors given."""
     dirs = torch.from_numpy(np.ascontiguousarray(cubemap_dirs(size).reshape(-1, 3).T)).to(device)
-    s = np.asarray(sun_dir, np.float32)
-    s = s / np.sqrt(np.maximum(np.sum(s * s), np.float32(1e-12)))
+    if isinstance(sun_dir, torch.Tensor):
+        s = sun_dir.to(device=device, dtype=torch.float32)
+        s = s / torch.sqrt(torch.clamp_min(torch.sum(s * s), 1e-12))
+    else:
+        s = np.asarray(sun_dir, np.float32)
+        s = s / np.sqrt(np.maximum(np.sum(s * s), np.float32(1e-12)))
+    if isinstance(sun_lum, torch.Tensor):
+        sun_lum = sun_lum.to(device=device, dtype=torch.float32)
     out = atmosphere(sky, (0.0, float(sky.r_crust), 0.0), V3(dirs[0], dirs[1], dirs[2]),
                      s, sun_lum, steps)
     return out.aos().reshape(6, size, size, 3)
@@ -177,11 +211,9 @@ def sky_corner_planes(cube: torch.Tensor) -> torch.Tensor:
     return torch.cat([p.reshape(-1, 3).T for p in (cube, right, down, diag)], dim=0).contiguous()
 
 
-def sample_sky_cubemap_soa(corners: torch.Tensor, size: int, rd: V3, active=None) -> V3:
-    """Bilinear-clamp cubemap fetch of V3 directions through K6.
-
-    corners: `sky_corner_planes` of the cube; active: optional [N] bool of
-    the lanes that consume the sample (the others get 0)."""
+def _cube_texel(size: int, rd: V3):
+    """Face, texel corner and lerp weights of V3 directions:
+    (face [N] i64, x0 i32, y0 i32, tx, ty)."""
     ax = torch.abs(rd.x)
     ay = torch.abs(rd.y)
     az = torch.abs(rd.z)
@@ -211,15 +243,49 @@ def sample_sky_cubemap_soa(corners: torch.Tensor, size: int, rd: V3, active=None
     y0 = torch.floor(fy).to(torch.int32)
     tx = fx - x0.to(torch.float32)
     ty = fy - y0.to(torch.float32)
+    return f, x0, y0, tx, ty
+
+
+def sample_sky_cubemap_soa(corners: torch.Tensor, size: int, rd: V3, active=None) -> V3:
+    """Bilinear-clamp cubemap fetch of V3 directions through K6.
+
+    corners: `sky_corner_planes` of the cube; active: optional [N] bool of
+    the lanes that consume the sample (the others get 0)."""
+    f, x0, y0, tx, ty = _cube_texel(size, rd)
     i00 = f.to(torch.int32) * (size * size) + y0 * size + x0
     ok = torch.ones_like(tx, dtype=torch.bool) if active is None else active
     filt = gather_bilinear(corners, i00[None, :], tx[None, :], ty[None, :], ok[None, :], c=3)
     return V3(filt[0, 0], filt[1, 0], filt[2, 0])
 
 
+def sample_sky_cubemap_planes(cube: torch.Tensor, rd: V3) -> V3:
+    """Bilinear-clamp cubemap fetch of V3 directions, differentiable in the
+    cube [6, S, S, 3]: the four corners through ONE K7 call on its [3, 6*S*S]
+    planes, then the JAX package's lerp, t00 + (t10 - t00) tx, ..."""
+    size = cube.shape[1]
+    f, x0, y0, tx, ty = _cube_texel(size, rd)
+    x1 = torch.clamp_max(x0 + 1, size - 1)
+    y1 = torch.clamp_max(y0 + 1, size - 1)
+    base = f.to(torch.int32) * (size * size)
+    row0 = base + y0 * size
+    row1 = base + y1 * size
+    idx = torch.stack([row0 + x0, row0 + x1, row1 + x0, row1 + x1], dim=0)
+    tex = gather_texels(cube.reshape(-1, 3).T.contiguous(), idx)  # [3, 4, N]
+    out = []
+    for ch in range(3):
+        t00, t10, t01, t11 = tex[ch]
+        top = t00 + (t10 - t00) * tx
+        bot = t01 + (t11 - t01) * tx
+        out.append(top + (bot - top) * ty)
+    return V3(*out)
+
+
 def sky_radiance(meta, arrays, rd: V3, active=None) -> V3:
-    """The scene's sky radiance along `rd` (0 for a scene without a sky)."""
+    """The scene's sky radiance along `rd` (0 for a scene without a sky);
+    the differentiable path reads the cube itself through K7."""
     if not meta.has_sky:
         z = torch.zeros_like(rd.x)
         return V3(z, z, z)
+    if meta.differentiable:
+        return sample_sky_cubemap_planes(arrays.sky, rd)
     return sample_sky_cubemap_soa(arrays.sky_corners, arrays.sky.shape[1], rd, active=active)

@@ -3,13 +3,16 @@
 Counterpart of `pim_tpu.render.surface`.  Every per-hit attribute comes
 from ONE K3 fetch of the fused [48, T] triangle table.  Atlas textures
 (albedo, rome and normal maps) are sampled for all of a hit's texture sets
-in ONE K6 fetch from the atlas corner planes; sky surfaces take the sky
-radiance as emission.
+in ONE fetch; sky surfaces take the sky radiance as emission.
 
-The JAX package samples the atlas on the CPU with its own lerp form,
-t00 + (t10 - t00) * tx; the port uses the kernel's weighted form,
-w00 t00 + w10 t10 + w01 t01 + w11 t11, everywhere, so the two differ by a
-few ulp per texel.
+The atlas has two fetches, as in the JAX package:
+  - the serving path: ONE K6 call on the atlas corner planes, in the
+    kernel's weighted form w00 t00 + w10 t10 + w01 t01 + w11 t11;
+  - the differentiable path (`SceneMeta.differentiable`): the four corners
+    of every set through ONE K7 call on the learnable [4, H*W] atlas planes,
+    then the JAX package's lerp form t00 + (t10 - t00) * tx, so gradients
+    reach the texels and, through tx and ty, the uvs.
+The two forms differ by a few ulp per texel.
 """
 
 from __future__ import annotations
@@ -18,12 +21,12 @@ from typing import NamedTuple
 
 import torch
 
-from pim_tpu.geom.material import MatFlag
+from pim_tpu_torch.geom.material import MatFlag
 from pim_tpu_torch.math.color import K_EMISSION_SCALE
 from pim_tpu_torch.math.sampling import tan_to_world
 from pim_tpu_torch.math.vec3 import MILLI, V2, V3, dot, f32, normalize, reflect, where3
 from pim_tpu_torch.render import fetch as F
-from pim_tpu_torch.render.table_gather import gather_bilinear
+from pim_tpu_torch.render.table_gather import gather_bilinear, gather_texels
 
 _SURFACE_BIAS = f32(f32(0.01) * MILLI)
 _SKY = int(MatFlag.SKY)
@@ -56,9 +59,10 @@ def is_sky(flags: torch.Tensor) -> torch.Tensor:
 
 
 def _bilinear_setup(rec_t, tex_id, uv: V2):
-    """The i00 corner index and the lerp weights of one texture-id set:
-    (i00 [N] i32, tx, ty).  Negative uvs are mirrored before the frac, as
-    the reference's LinearWrap does (u = u >= 0 ? u : 1 - u)."""
+    """The four corner indices and the lerp weights of one texture-id set:
+    (idx4 [4, N] i32 in the order 00, 10, 01, 11, tx, ty).  Negative uvs are
+    mirrored before the frac, as the reference's LinearWrap does
+    (u = u >= 0 ? u : 1 - u)."""
     rec = F.fetch_cols(rec_t, torch.clamp_min(tex_id, 0)).to(torch.int32)  # [5, N]
     x0, y0, w, h, stride = rec[0], rec[1], rec[2], rec[3], rec[4]
 
@@ -72,19 +76,46 @@ def _bilinear_setup(rec_t, tex_id, uv: V2):
     ay = torch.floor(fy)
     tx = fx - ax
     ty = fy - ay
-    i00 = (y0 + ay.to(torch.int32)) * stride + x0 + ax.to(torch.int32)
-    return i00, tx, ty
+    ax = ax.to(torch.int32)
+    ay = ay.to(torch.int32)
+    bx = torch.minimum(ax + 1, w - 1)
+    by = torch.minimum(ay + 1, h - 1)
+    row0 = (y0 + ay) * stride + x0
+    row1 = (y0 + by) * stride + x0
+    return torch.stack([row0 + ax, row0 + bx, row1 + ax, row1 + bx], dim=0), tx, ty
 
 
-def sample_atlas_bilinear_multi(atlas_corners, rec_t, fetches, active=None):
-    """Bilinear-wrap fetch of several texture-id sets in ONE K6 call.
+def _bilinear_out(corners, tx, ty, missing, default):
+    """corners: per channel the 4 corner tensors [N] -> the lerped channels,
+    `default` where `missing` (the JAX package's lerp form)."""
+    out = []
+    for c in range(4):
+        t00, t10, t01, t11 = corners[c]
+        top = t00 + (t10 - t00) * tx
+        bot = t01 + (t11 - t01) * tx
+        out.append(torch.where(missing, float(default[c]), top + (bot - top) * ty))
+    return out
+
+
+def sample_atlas_bilinear_multi(atlas_planes, rec_t, fetches, atlas_corners=None, active=None):
+    """Bilinear-wrap fetch of several texture-id sets in ONE table fetch.
 
     fetches: list of (tex_id [N] i32, uv V2, default 4-tuple); returns a
-    list of 4-channel lists, one per fetch.  tex_id < 0 gives the default;
-    lanes outside `active` (when given) get 0, as on the reference's kernel
-    path (their values are never consumed)."""
+    list of 4-channel lists, one per fetch.  tex_id < 0 gives the default.
+    With `atlas_corners`, ONE K6 call filters the corner planes; lanes
+    outside `active` (when given) get 0 there, as on the reference's kernel
+    path (their values are never consumed).  Without, ONE K7 call gathers
+    the four corners of every set from `atlas_planes` [4, H*W] and the lerp
+    runs in torch, differentiable in the planes and the uvs; `active` is
+    not used."""
     setups = [_bilinear_setup(rec_t, tex_id, uv) for tex_id, uv, _ in fetches]
-    idx = torch.stack([s[0] for s in setups], dim=0)
+    if atlas_corners is None:
+        tex = gather_texels(atlas_planes, torch.cat([s[0] for s in setups], dim=0),
+                            parts=1)  # [4, 4F, N]
+        return [_bilinear_out([tuple(tex[c, 4 * fi + k] for k in range(4)) for c in range(4)],
+                              tx, ty, tex_id < 0, default)
+                for fi, ((tex_id, _, default), (_, tx, ty)) in enumerate(zip(fetches, setups))]
+    idx = torch.stack([s[0][0] for s in setups], dim=0)
     txs = torch.stack([s[1] for s in setups], dim=0)
     tys = torch.stack([s[2] for s in setups], dim=0)
     valid = torch.stack([(tex_id >= 0) if active is None else ((tex_id >= 0) & active)
@@ -150,8 +181,10 @@ def attribs_from_rows(meta, arrays, rows, hit) -> HitAttribs:
     if meta.has_normal_maps:
         fetches.append((rows[F.NORMAL_TEX].to(torch.int32), uv, (0.0, 0.0, 1.0, 0.0)))
     if fetches:
-        smps = sample_atlas_bilinear_multi(arrays.atlas_corners, arrays.tex_rec_t, fetches,
-                                           active=hit.tri >= 0)
+        smps = sample_atlas_bilinear_multi(
+            arrays.atlas_planes, arrays.tex_rec_t, fetches,
+            atlas_corners=None if meta.differentiable else arrays.atlas_corners,
+            active=hit.tri >= 0)
         if meta.textured:
             albedo = [torch.where(a_tex >= 0, smps[0][c], albedo[c]) for c in range(3)]
             rome = [torch.where(r_tex >= 0, smps[1][c], rome[c]) for c in range(4)]

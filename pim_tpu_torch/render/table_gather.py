@@ -1,6 +1,7 @@
-"""K6, the filtered bilinear fetch from corner-resolved planes.
+"""K6, the filtered bilinear fetch from corner-resolved planes, and K7, the
+texel gather `planes[:, clip(idx)]` with its backward.
 
-Counterpart of `pim_tpu.render.table_gather.gather_bilinear_pallas`.
+K6 is the counterpart of `pim_tpu.render.table_gather.gather_bilinear_pallas`.
 corner_planes [4C, T] hold, in rows corner*C + channel with the corners in
 the order (00, 10, 01, 11), each texel and its three bilinear neighbours
 already clamped inside its own sub-texture (scene.build_atlas_corner_planes)
@@ -14,6 +15,18 @@ For CUDA tensors `gather_bilinear` launches csrc/gather_bilinear.cu; for
 CPU tensors it runs `gather_bilinear_plain`.  Both read the texels as plain
 float32, where the TPU kernel reads bf16 terms of them (exact for the atlas,
 whose texels are bf16 values; 16 mantissa bits for the sky).
+
+K7 is the counterpart of `pim_tpu.render.table_gather.gather_texels_pallas`:
+planes [C, T] f32, idx [K, N] i32 -> [C, K, N] f32 = planes[:, clip(idx, 0,
+T-1)].  It serves the differentiable path, which samples the learnable atlas
+planes and the re-baked sky cube by their four bilinear corners; its
+gradient in `planes` is the scatter-add of the output gradient at the
+clipped index (`idx` gets none).  For CUDA tensors `gather_texels` launches
+csrc/gather_texels.cu, forward and backward; for CPU tensors it runs their
+plain versions.  The TPU kernel's `parts` (1, 2 or 3 bf16 terms) is taken
+for the API and changes nothing: the port reads f32, which is exact (at
+parts = 1 the atlas texels are bf16 values already, so the TPU gives the
+same numbers).
 """
 
 from __future__ import annotations
@@ -66,3 +79,88 @@ def gather_bilinear(corner_planes: torch.Tensor, idx: torch.Tensor, tx: torch.Te
     native.check(lib, rc, "gather_bilinear")
     native.launches["gather_bilinear"] += 1
     return out
+
+
+def gather_texels_plain(planes: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain K7: [C, K, N] = planes[:, clip(idx, 0, T-1)]."""
+    t = planes.shape[1]
+    return planes[:, torch.clamp(idx, 0, t - 1).to(torch.int64)]
+
+
+def gather_texels_bwd_plain(g: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
+    """Plain K7 backward: g [C, K, N] added into a zero [C, t] at the
+    clipped index."""
+    c = g.shape[0]
+    out = torch.zeros((c, t), dtype=g.dtype, device=g.device)
+    return out.index_add_(1, torch.clamp(idx, 0, t - 1).to(torch.int64).reshape(-1),
+                          g.reshape(c, -1))
+
+
+def _check_texel_idx(name: str, idx: torch.Tensor, dev):
+    if idx.dim() != 2:
+        raise ValueError(f"{name}.idx: expected [K, N], got {tuple(idx.shape)}")
+    k, n = idx.shape
+    native.require_cuda(f"{name}.idx", idx, torch.int32, (k, n), dev)
+    return k, n
+
+
+def gather_texels_fwd(planes: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """planes [C, T] f32, idx [K, N] i32 -> [C, K, N] f32 (no autograd)."""
+    if planes.device.type == "cpu":
+        return gather_texels_plain(planes, idx)
+    dev = planes.device
+    if planes.dim() != 2:
+        raise ValueError(f"gather_texels.planes: expected [C, T], got {tuple(planes.shape)}")
+    c, t = planes.shape
+    native.require_cuda("gather_texels.planes", planes, torch.float32, (c, t), dev)
+    k, n = _check_texel_idx("gather_texels", idx, dev)
+    out = torch.empty((c, k, n), dtype=torch.float32, device=dev)
+    if k * n == 0 or c == 0:
+        return out
+    lib = native.load()
+    rc = lib.pim_gather_texels(planes.data_ptr(), c, t, idx.data_ptr(), k * n, out.data_ptr(),
+                               native.stream_ptr(dev))
+    native.check(lib, rc, "gather_texels")
+    native.launches["gather_texels"] += 1
+    return out
+
+
+def gather_texels_bwd(g: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
+    """g [C, K, N] f32, idx [K, N] i32 -> [C, t] f32 scatter-add."""
+    if g.device.type == "cpu":
+        return gather_texels_bwd_plain(g, idx, t)
+    dev = g.device
+    k, n = _check_texel_idx("gather_texels_bwd", idx, dev)
+    c = g.shape[0]
+    native.require_cuda("gather_texels_bwd.g", g, torch.float32, (c, k, n), dev)
+    grad = torch.zeros((c, t), dtype=torch.float32, device=dev)
+    if k * n == 0 or c == 0:
+        return grad
+    lib = native.load()
+    rc = lib.pim_gather_texels_bwd(g.data_ptr(), c, t, idx.data_ptr(), k * n, grad.data_ptr(),
+                                   native.stream_ptr(dev))
+    native.check(lib, rc, "gather_texels_bwd")
+    native.launches["gather_texels_bwd"] += 1
+    return grad
+
+
+class _GatherTexels(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, planes, idx):
+        ctx.save_for_backward(idx)
+        ctx.t = planes.shape[1]
+        return gather_texels_fwd(planes, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return gather_texels_bwd(g.contiguous(), idx, ctx.t), None
+
+
+def gather_texels(planes: torch.Tensor, idx: torch.Tensor, parts: int = 3) -> torch.Tensor:
+    """planes [C, T] f32, idx [K, N] i32 -> [C, K, N] f32, differentiable in
+    `planes`.  `parts` is the TPU kernel's bf16 split and has no effect
+    here (see the module note)."""
+    if parts not in (1, 2, 3):
+        raise ValueError(f"gather_texels: parts {parts}, expected 1, 2 or 3")
+    return _GatherTexels.apply(planes, idx)

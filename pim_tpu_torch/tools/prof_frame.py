@@ -1,12 +1,16 @@
 """Where the time of one progressive step goes, on a CUDA device.
 
-    python -m pim_tpu_torch.tools.prof_frame [--scene cornell|e1m1] [--out DIR]
+    python -m pim_tpu_torch.tools.prof_frame [--scene cornell|e1m1] [--train] [--out DIR]
 
 Builds the scene on the card and renders steps of its 512^2, 10-bounce
 bench frame at SPP[scene] samples each (2 for Cornell, 1 for e1m1, whose
 steps also run the exposure pass): one warm-up step, WALLS untraced steps
 (host wall clock after `torch.cuda.synchronize`), then one step traced with
-`torch.profiler`.  From the trace it prints:
+`torch.profiler`.  With `--train` a step is instead one training step of the
+differentiable path (render/diff.py): 512^2, TRAIN_BOUNCES bounces, 1 spp,
+every parameter group trainable, Adam against a target rendered with the
+albedos moved (x0.8); the sky is re-baked at the scene's own bake steps.
+From the trace it prints:
 
   - the device time of every CUDA kernel of the traced step, summed, and
     the kernel count;
@@ -37,15 +41,19 @@ WIDTH = HEIGHT = 512
 BOUNCES = 10
 SPP = {"cornell": 2, "e1m1": 1}  # samples per profiled step
 WALLS = 3  # untraced steps timed for the busy share
+TRAIN_BOUNCES = 3  # make_render_fn's default
 
 # (group, name fragments), in the order a kernel name is matched
 GROUPS = (
     ("K1 dense_isect", ("dense_isect_kernel",)),
     ("K2 dense_anyhit", ("dense_anyhit_kernel",)),
     ("K3 gather_cols", ("gather_cols_kernel",)),
+    ("K3-bwd gather_cols_bwd", ("gather_cols_bwd_kernel",)),
     ("K4 cluster_isect", ("cluster_isect_kernel",)),
     ("K5 cluster_anyhit", ("cluster_anyhit_kernel",)),
     ("K6 gather_bilinear", ("gather_bilinear_kernel",)),
+    ("K7 gather_texels", ("gather_texels_kernel",)),
+    ("K7-bwd gather_texels_bwd", ("gather_texels_bwd_kernel",)),
     ("torch index/gather/scatter", ("index", "scatter", "gather")),
     ("torch sort/scan", ("sort", "scan", "radix")),
     ("torch reduce", ("reduce",)),
@@ -71,6 +79,26 @@ def _is_kernel(evt) -> bool:
     return evt.device_type == torch.autograd.DeviceType.CUDA
 
 
+def _train_step_fn(scene, cam, dev):
+    """step(i) of the differentiable path: one Adam step of every group."""
+    from pim_tpu_torch.app import SKY_STEPS, SUN_DIR, SUN_LUM
+    from pim_tpu_torch.render import diff
+
+    meta, arrays, lights = scene
+    params = diff.extract_params(meta, arrays, cam, sun_dir=SUN_DIR, sun_lum=(SUN_LUM,) * 3)
+    with torch.no_grad():
+        target, _ = diff.make_render_fn(meta, WIDTH, HEIGHT, TRAIN_BOUNCES, SKY_STEPS)(
+            params._replace(mat_albedo=params.mat_albedo * 0.8), arrays, lights, cam, 0)
+    init, train = diff.make_train_step(meta, WIDTH, HEIGHT, TRAIN_BOUNCES, SKY_STEPS)
+    opt = init(params)
+
+    def step(i: int):
+        train(params, opt, arrays, lights, cam, target, i)
+        torch.cuda.synchronize(dev)
+
+    return step
+
+
 def main(argv=None) -> None:
     from pim_tpu_torch import native
     from pim_tpu_torch.app import EXPOSURE_DT, SCENES, bench_camera, render_step
@@ -82,6 +110,8 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default="cornell", choices=sorted(SPP))
+    ap.add_argument("--train", action="store_true",
+                    help="profile a training step of the differentiable path")
     ap.add_argument("--out", default=None, help="directory for kernels.txt and summary.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -104,6 +134,11 @@ def main(argv=None) -> None:
         torch.cuda.synchronize(dev)
         return res
 
+    kind = f"{spp}-spp"
+    if args.train:
+        step = _train_step_fn(scene, cam, dev)
+        kind = f"{TRAIN_BOUNCES}-bounce training"
+    torch.cuda.reset_peak_memory_stats(dev)
     step(0)  # warm-up: the kernel library and torch's own kernels load here
     walls = []
     for i in range(WALLS):
@@ -111,7 +146,9 @@ def main(argv=None) -> None:
         step(1 + i)
         walls.append(time.perf_counter() - t0)
     wall_ms = statistics.median(walls) * 1e3
-    print(f"untraced {spp}-spp {args.scene} step walls s: {walls} (median {wall_ms:.3f} ms)")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"untraced {kind} {args.scene} step walls s: {walls} (median {wall_ms:.3f} ms); "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB")
 
     native.reset_launches()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -155,7 +192,9 @@ def main(argv=None) -> None:
         with open(os.path.join(args.out, "kernels.txt"), "w") as f:
             f.write(avgs.table(sort_by=sort_key, row_limit=80))
         summary = dict(
-            card=smi, scene=args.scene, width=WIDTH, height=HEIGHT, bounces=BOUNCES, spp=spp,
+            card=smi, scene=args.scene, train=args.train, width=WIDTH, height=HEIGHT,
+            bounces=TRAIN_BOUNCES if args.train else BOUNCES, spp=1 if args.train else spp,
+            max_memory_allocated=peak,
             untraced_walls_s=walls, traced_wall_s=traced_s,
             device_ms=device_ms, kernels=n_kernels, busy_share=busy, launches=launches,
             groups={k: list(v) for k, v in groups.items()}, aten_ops=n_aten,

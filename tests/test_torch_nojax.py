@@ -2,20 +2,19 @@
 
 The check runs in a subprocess whose `sys.modules["jax"]` and
 `sys.modules["ml_dtypes"]` are None, so any import of either (direct or
-through another module) raises there.  Of the JAX package, only the
-jax-free host modules `pim_tpu.geom.{entities,material,mesh,gltf}` and
-`pim_tpu.core.{cvar,cvars}` (and the packages and `core.guid` they pull in)
-may be imported.  The port loads the e1m1 glTF there too, so its texture
+through another module) raises there.  No module of the JAX package may be
+imported at all: the port keeps its own copies of the host modules it needs
+(entities, meshes, materials, the glTF helpers, the cvar registry) and of
+the gate bands.  The port loads the e1m1 glTF there too, so its texture
 pool needs no `ml_dtypes`."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-HOST_MODULES = {"pim_tpu.geom.entities", "pim_tpu.geom.material", "pim_tpu.geom.mesh",
-                "pim_tpu.geom.gltf", "pim_tpu.core.cvars", "pim_tpu.core.cvar"}
 
 _SCRIPT = r"""
 import sys
@@ -25,13 +24,13 @@ import torch
 torch.set_num_threads(2)
 import pim_tpu_torch
 from pim_tpu_torch import app, native
-from pim_tpu_torch.core import rng
-from pim_tpu_torch.geom import cornell, gltf, material
+from pim_tpu_torch.core import cvar, cvars, guid, rng
+from pim_tpu_torch.geom import cornell, entities, gltf, material, mesh
 from pim_tpu_torch.math import brdf, color, dist1d, geometry, grid, sampling, vec3
 from pim_tpu_torch.render import (bsdf, camera, cluster, dense_kernels, exposure, fetch,
-                                  gather_kernel, integrator, lights, raysort, scene, sky,
+                                  gather_kernel, diff, integrator, lights, raysort, scene, sky,
                                   surface, table_gather)
-from pim_tpu_torch.tools import prof_frame
+from pim_tpu_torch.tools import prof_frame, vml_first_call
 sc = app.build_cornell_scene("cpu")
 fr = app.render_frame(sc, "cornell", 8, 8, 2, 1, 1)
 assert fr.buffers.color.shape == (64, 3) and bool(torch.isfinite(fr.buffers.color).all())
@@ -40,12 +39,9 @@ ents, pool = gltf.load_gltf_scene(app.E1M1_GLTF)
 atlas, rec = pool.pack()
 assert atlas.shape == (128, 256, 4) and rec.shape == (71, 4) and ents.count > 0
 assert exposure.ExposureParams.from_cvars().max_cdf > 0
-allowed = {"pim_tpu", "pim_tpu.core", "pim_tpu.core.guid", "pim_tpu.geom",
-           "pim_tpu.geom.entities", "pim_tpu.geom.material", "pim_tpu.geom.mesh",
-           "pim_tpu.geom.gltf", "pim_tpu.core.cvars", "pim_tpu.core.cvar"}
 bad = sorted(m for m in sys.modules
              if m.startswith("jax.") or m.startswith("ml_dtypes.")
-             or (m == "pim_tpu" or m.startswith("pim_tpu.")) and m not in allowed)
+             or m == "pim_tpu" or m.startswith("pim_tpu."))
 assert not bad, bad
 print("NOJAX_OK", fr.mean)
 """
@@ -79,6 +75,18 @@ def test_no_jax_or_other_pim_tpu_import_in_sources():
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     offenders = [(os.path.relpath(path, ROOT), mod)
                  for path in files for mod in _imported_modules(path)
-                 if mod.split(".")[0] in ("jax", "ml_dtypes", "pim_tpu")
-                 and mod not in HOST_MODULES]
+                 if mod.split(".")[0] in ("jax", "ml_dtypes", "pim_tpu")]
     assert not offenders, offenders
+
+
+def test_gate_bands_are_the_reference_bands():
+    """The port's copies of the JAX package's bench bands equal them, key by
+    key, so the two files cannot drift apart."""
+    with open(os.path.join(ROOT, "pim_tpu", "render", "bench_gate_bands.json")) as fh:
+        ref = json.load(fh)
+    with open(os.path.join(ROOT, "pim_tpu_torch", "render", "gate_bands.json")) as fh:
+        own = json.load(fh)
+    for name in ("cornell512", "e1m1_512"):
+        copy = {k: v for k, v in own[name].items() if k != "copied_from"}
+        assert copy == ref[name], name
+        assert "pim_tpu/render/bench_gate_bands.json" in own[name]["copied_from"]

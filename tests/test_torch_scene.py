@@ -112,6 +112,8 @@ def test_from_jax_scene_round_trips_every_field(jax_scene):
             np.testing.assert_array_equal(np.asarray(m.grid_lo, np.float32), arrays_np["grid_lo"])
         elif f.name == "backend":
             assert (m.backend, meta_f["backend"]) == ("dense", "pallas")
+        elif f.name == "differentiable":  # the port's flag for render/diff.py
+            assert "differentiable" not in meta_f and not m.differentiable
         else:
             assert getattr(m, f.name) == meta_f[f.name], f.name
     jax_name = {"tris12": "tris9"}

@@ -142,10 +142,10 @@ def test_bilinear_setup_bitwise(atlas):
     uv[:, :8] = [[-1.0, -0.0, 0.0, 1.0, -2.5, 2.5, -1e-8, 0.999999]] * 2
     want_idx, want_tx, want_ty = jsurface._bilinear_setup(
         jnp.asarray(rec_t), jnp.asarray(tex), JV2(jnp.asarray(uv[0]), jnp.asarray(uv[1])))
-    i00, tx, ty = surface._bilinear_setup(torch.from_numpy(rec_t), torch.from_numpy(tex),
-                                          V2(torch.from_numpy(uv[0]), torch.from_numpy(uv[1])))
-    assert i00.dtype == torch.int32
-    np.testing.assert_array_equal(i00.numpy(), np.asarray(want_idx)[0])
+    idx4, tx, ty = surface._bilinear_setup(torch.from_numpy(rec_t), torch.from_numpy(tex),
+                                           V2(torch.from_numpy(uv[0]), torch.from_numpy(uv[1])))
+    assert idx4.dtype == torch.int32 and idx4.shape == (4, N)
+    np.testing.assert_array_equal(idx4.numpy(), np.asarray(want_idx))
     np.testing.assert_array_equal(tx.numpy(), np.asarray(want_tx))
     np.testing.assert_array_equal(ty.numpy(), np.asarray(want_ty))
 
