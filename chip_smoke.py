@@ -12,8 +12,9 @@ exits non-zero:
      on the card at the frame's shapes (K1/K2: 262,144 rays against the
      Cornell BW rows, about 10% dead lanes and one fully dead 2048-ray run;
      K3: the three real tables and a random [48, 4096] table, indices
-     including -1 and T) and time both (median, min and max of 25 runs,
-     CUDA events); then its main path: build the Cornell scene on the card
+     including -1 and T; on the tri table also int64 indices and N - 1
+     indices from an aligned and a misaligned pointer) and time both (see
+     Timing below); then its main path: build the Cornell scene on the card
      and render the 512^2, 10-bounce frame at 16 spp per step for 3 steps
      through `pim_tpu_torch.app`, with the launch counts set to 0 just
      before and read just after; the mean must lie in the `cornell512`
@@ -31,13 +32,19 @@ exits non-zero:
      tables the frame fetches from (the [48, 81552] tri table, the [5, 71]
      texture records, the light table over the grid's cells and the
      [24, 600] emissive table), indices including -1 and T, bitwise; the
-     build's parts timed; the 128^2, 16-spp frame gated by the CPU-anchored `e1m1_128`
+     tri table also from its row-major copy, as the main path reads it, and
+     on the main path's indices (K4's tri ids for the same rays in
+     raysort's order, clamped as surface.py passes them); the build's
+     parts timed; the 128^2, 16-spp frame gated by the CPU-anchored `e1m1_128`
      band of pim_tpu_torch/render/gate_bands.json (the 512^2 mean is printed
      beside the reference's TPU drift band, for information only); a 32^2,
      3-bounce frame on the card against the same frame on the CPU;
   5. the differentiable path (pim_tpu_torch.render.diff): K7 (12 x 262,144
-     indices into the e1m1 atlas planes, 4 x 262,144 into the sky planes)
-     against its plain version, bitwise; K7's and K3's backward kernels
+     indices into the e1m1 atlas, read from its interleaved copy as the
+     main path reads it and from its planes; 4 x 262,144 into the sky
+     planes; 3 x 262,143 from an aligned and a misaligned pointer; the main
+     path's atlas and sky corner indices at the hits of phase 4) against
+     its plain version, bitwise; K7's and K3's backward kernels
      (K3-bwd on the [48, 81552] tri table at 262,144 lanes and on the
      [4, 208] material graft at 81,552) against their plain versions summed
      in float64, within gamma(adds - 1) * sum |g| per output, the bound of
@@ -51,16 +58,32 @@ exits non-zero:
      first); per-group directional derivatives on the card against the CPU
      at GRAD_RES^2 (within GRAD_RTOL) and against central differences at
      FD_RES^2 (tests/test_grad.py's eps ladder).
+Timing: every kernel, its plain version and its library call get `ms`, the
+device time per call: a GPU sleep holds the stream while the host queues
+DEVICE_RUNS back-to-back calls behind it between two CUDA events, and the
+device then runs them without waiting on the host (`_device_ms`;
+torch.profiler, tried first, lost device activity in about one trace in a
+hundred on the H100 machine, and in streaks); and `call_ms`, the wall of
+ONE call from an idle device (CUDA events around it after a synchronise;
+median, min, max of TIMING_RUNS), which holds the host's work in the call.
+K3 and K7 (kernel and library call) are timed DEVICE_BATCHES times, and
+also L2-cold (`cold_ms`: each call after a 96 MB read, the reads' own time
+taken off).  The brute-force K4/K5 plain versions wait on the device
+themselves, so their `plain_ms` holds their host time too.
 Before the last line come a JSON object of per-kernel results (`launches`
 summed over the main paths that run the kernel, each path's count in
-`launches_by_path`; `bound_ms`, the least time the card could take, from
-this run's inputs; `library_ms`, one PyTorch call computing the same
-function, or null) and the card's nvidia-smi name and power limit; the last
-line is `{"ok": true, "device": {...}}`.  Imports nothing of JAX.
+`launches_by_path`; `ms`, `call_ms`, `plain_ms`, `plain_call_ms`,
+`library_ms`, `library_call_ms`; `bound_ms`, the least time the card could
+take, from this run's inputs; `library_ms` is one PyTorch call computing
+the same function, or null; K3 and K7 also carry their other shapes and
+the main-path indices under prefixed keys) and the card's nvidia-smi name
+and power limit; the last line is `{"ok": true, "device": {...}}`.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -76,7 +99,11 @@ STEPS = 3
 E1M1_STEPS = 16
 GATE_RES = 128
 N_RAYS = WIDTH * HEIGHT
-TIMING_RUNS = 25
+TIMING_RUNS = 25      # walls of one call (call_ms)
+DEVICE_RUNS = 25      # back-to-back calls traced for a device time (ms)
+DEVICE_BATCHES = 3    # traces of the redesigned K3 and K7, for their spread
+FLUSH_BYTES = 96 << 20  # read before each L2-cold call (the card's L2: 50 MB)
+QUEUE_CYCLES = 40_000_000  # GPU sleep ahead of the queued calls of a device timing
 PLAIN_LANES = 32768   # lanes on which the brute-force plain K4/K5 are compared
 PLAIN_RUNS = 3        # and timed
 # the differentiable path
@@ -97,12 +124,12 @@ FP32_FLOPS_PER_S = 67e12
 BW_TEST_FLOPS = 31    # float operations of one Baldwin-Weber ray-triangle test
 
 
-def _time_ms(fn, runs: int = TIMING_RUNS):
-    """(median, min, max) of `runs` CUDA-event timings of `fn`, in ms."""
+def _call_ms_list(fn, runs: int) -> list:
+    """`runs` walls in ms of ONE call of `fn` from an idle device: CUDA
+    events around the call after a synchronise, so the host's work in the
+    call (checks, allocation, the launch) is in it."""
     import torch
 
-    fn()  # warm-up
-    torch.cuda.synchronize()
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
@@ -112,17 +139,133 @@ def _time_ms(fn, runs: int = TIMING_RUNS):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return times
+
+
+def _call_ms(fn, runs: int = TIMING_RUNS):
+    """(median, min, max) of `_call_ms_list` after a warm-up."""
+    import torch
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    times = _call_ms_list(fn, runs)
     return statistics.median(times), min(times), max(times)
 
 
-def _time_pair(label: str, kernel, plain, plain_runs: int = TIMING_RUNS):
-    """Times a kernel and its plain version; prints both; returns
-    (median, min, max) of each."""
-    k = _time_ms(kernel)
-    p = _time_ms(plain, plain_runs)
-    print(f"{label}: kernel {k[0]:.4f} ms [min {k[1]:.4f}, max {k[2]:.4f}], "
-          f"plain {p[0]:.4f} ms [min {p[1]:.4f}, max {p[2]:.4f}] over {plain_runs} runs")
+@functools.lru_cache(maxsize=None)
+def _l2_flush():
+    """flush(): reads FLUSH_BYTES of device memory (a row max of float64),
+    more than the card's 50 MB L2, so that a call after it finds its inputs
+    in HBM and no dirty lines of another call in L2."""
+    import torch
+
+    buf = torch.ones((4096, FLUSH_BYTES // 8 // 4096), dtype=torch.float64, device="cuda")
+    return lambda: torch.amax(buf, dim=1)
+
+
+def _queued_ms(step, calls: int):
+    """Device ms of `calls` back-to-back calls of step(): a GPU sleep
+    (QUEUE_CYCLES) holds the stream while the host queues them between two
+    CUDA events, so the device then runs them without waiting on the host.
+    None if the device reached them before the host had queued the last
+    (the host blocks once about a thousand launches wait in the queue)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
+    start.record()
+    for _ in range(calls):
+        step()
+    end.record()
+    ahead = not start.query()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) if ahead else None
+
+
+def _device_ms(fn, runs: int = DEVICE_RUNS, cold: bool = False, queued: bool = True) -> float:
+    """Device time of one call of `fn` in ms, after a warm-up: `runs`
+    back-to-back calls queued ahead of the device (`_queued_ms`, fewer
+    behind each sleep where the host cannot queue them all in time), their
+    time over `runs`.  With `cold`, an L2 flush precedes each call, and the
+    flushes' own time, queued alone, is taken off.  `queued=False` is for a
+    function that waits on the device itself (the brute-force K4/K5 plain
+    versions): each call is timed alone with CUDA events, its host time
+    inside."""
+    import torch
+
+    flush = _l2_flush() if cold else None
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    if not queued:
+        return statistics.mean(_call_ms_list(fn, runs))
+
+    def flushed():
+        flush()
+        fn()
+
+    group, done, total = runs, 0, 0.0
+    while done < runs:
+        calls = min(group, runs - done)
+        ms = _queued_ms(fn if flush is None else flushed, calls)
+        if ms is not None and flush is not None:
+            flush_ms = _queued_ms(flush, calls)
+            ms = None if flush_ms is None else ms - flush_ms
+        if ms is not None:
+            total += ms
+            done += calls
+        elif group > 1:
+            group = max(1, group // 2)
+        else:
+            raise RuntimeError("the host could not queue one call ahead of the device")
+    return total / runs
+
+
+def _timing(fn, runs: int = DEVICE_RUNS, batches: int = 1, cold: bool = False,
+            queued: bool = True) -> dict:
+    """{"ms": device ms per call, the median over `batches` timings of
+    `runs` calls, "ms_range": (min, max) over them, "call": the (median,
+    min, max) wall of one call from an idle device}; with `cold` also
+    "cold_ms" and "cold_range", the same with the L2 flushed before each
+    call."""
+    dev = sorted(_device_ms(fn, runs, queued=queued) for _ in range(batches))
+    out = dict(ms=statistics.median(dev), ms_range=(dev[0], dev[-1]),
+               call=_call_ms(fn, min(runs, TIMING_RUNS)))
+    if cold:
+        dev = sorted(_device_ms(fn, runs, cold=True) for _ in range(batches))
+        out.update(cold_ms=statistics.median(dev), cold_range=(dev[0], dev[-1]))
+    return out
+
+
+def _fmt(t: dict) -> str:
+    def spread(lo, hi):
+        return f" [min {lo:.4f}, max {hi:.4f}]" if hi > lo else ""
+
+    c = t["call"]
+    cold = ("" if "cold_ms" not in t else
+            f", L2 cold {t['cold_ms']:.4f} ms device{spread(*t['cold_range'])}")
+    return (f"{t['ms']:.4f} ms device{spread(*t['ms_range'])}{cold}, "
+            f"call {c[0]:.4f} ms [min {c[1]:.4f}, max {c[2]:.4f}]")
+
+
+def _time_pair(label: str, kernel, plain, plain_runs: int = DEVICE_RUNS, batches: int = 1,
+               cold: bool = False, plain_queued: bool = True):
+    """Times a kernel (`batches` times, also L2-cold with `cold`) and its
+    plain version; prints both; returns their `_timing` dicts."""
+    k = _timing(kernel, batches=batches, cold=cold)
+    p = _timing(plain, plain_runs, queued=plain_queued)
+    print(f"{label}: kernel {_fmt(k)}; plain {_fmt(p)} ({plain_runs} runs)")
     return k, p
+
+
+def _copy_rate(dev) -> float:
+    """Bytes per second that a 256 MiB device-to-device copy moves (read
+    plus write): what this machine's device memory gives a plain stream."""
+    import torch
+
+    src = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    return 2 * src.numel() / (_device_ms(lambda: dst.copy_(src), 10) * 1e-3)
 
 
 def _bound(n_bytes: float, flops: float) -> dict:
@@ -137,12 +280,21 @@ def _bound(n_bytes: float, flops: float) -> dict:
 
 def _row(max_abs_err: float, k, p, bound: dict, library=None) -> dict:
     """A kernel's row of the JSON report: its error against the plain
-    version, both times, median [min, max] in ms, its bound, and the time
-    of one PyTorch call computing the same function (None where there is
-    none)."""
-    return dict(max_abs_err=max_abs_err, ms=k[0], ms_min=k[1], ms_max=k[2],
-                plain_ms=p[0], plain_ms_min=p[1], plain_ms_max=p[2], **bound,
-                library_ms=None if library is None else library[0])
+    version; the device ms per call of the kernel, its plain version and
+    the one PyTorch call computing the same function (None where there is
+    none), each with the wall of one call (`call_ms`); the bound."""
+    row = dict(max_abs_err=max_abs_err, ms=k["ms"], ms_min=k["ms_range"][0],
+               ms_max=k["ms_range"][1], call_ms=k["call"][0],
+               call_ms_min=k["call"][1], call_ms_max=k["call"][2],
+               plain_ms=p["ms"], plain_call_ms=p["call"][0], **bound,
+               library_ms=None if library is None else library["ms"],
+               library_call_ms=None if library is None else library["call"][0])
+    if "cold_ms" in k:
+        row.update(cold_ms=k["cold_ms"], cold_ms_min=k["cold_range"][0],
+                   cold_ms_max=k["cold_range"][1])
+    if library is not None and "cold_ms" in library:
+        row["library_cold_ms"] = library["cold_ms"]
+    return row
 
 
 def _bits_equal(a, b) -> bool:
@@ -259,15 +411,57 @@ def check_kernels(dev, cpu_scene):
     return results
 
 
-def check_gather_cols(dev, scene_name: str, tables, rs):
-    """K3 against its plain version on each table at N_RAYS seeded indices
-    (-1 and T among them), bitwise, and `torch.index_select` on the same
-    indices clipped into range (it raises on the others) timed beside them;
-    returns (max abs error, {table: (kernel, plain, bound, library)})."""
-    import numpy as np
+def _touched_bytes(cols, row_bytes: int) -> int:
+    """Bytes of the distinct table columns (texels) that in-range indices
+    `cols` read: a gather needs those, not the whole table."""
+    import torch
+
+    return int(torch.unique(cols).numel()) * row_bytes
+
+
+def check_k3(label: str, table, idx, time_it: bool = True, rows=None):
+    """K3 against its plain version on (table, idx), bitwise; with `time_it`
+    also timed beside its plain version and `torch.index_select` on the
+    indices clipped into range (it raises on the others); with `rows` the
+    kernel reads that row-major copy.  Returns (max abs error, (kernel,
+    plain, bound, library) or None)."""
     import torch
 
     from pim_tpu_torch.render import gather_kernel as gk
+
+    f, t = table.shape
+    n = idx.shape[0]
+    out_k = gk.gather_cols(table, idx, rows)
+    out_p = gk.gather_cols_plain(table, idx)
+    torch.cuda.synchronize()
+    same = _bits_equal(out_k, out_p)
+    print(f"K3 gather_cols[{label}] {tuple(table.shape)} x {n} {str(idx.dtype)[6:]}: "
+          f"bitwise_equal={same}")
+    if not same:
+        raise AssertionError(f"K3 differs from its plain version on {label}")
+    err = float((out_k - out_p).abs().max())
+    if not time_it:
+        return err, None
+    k, p = _time_pair(f"K3 time[{label}]", lambda: gk.gather_cols(table, idx, rows),
+                      lambda: gk.gather_cols_plain(table, idx), batches=DEVICE_BATCHES,
+                      cold=True)
+    idx_in = idx.clamp(0, t - 1).to(torch.int64)
+    lib = _timing(lambda: torch.index_select(table, 1, idx_in), batches=DEVICE_BATCHES,
+                  cold=True)
+    # indices read, the columns they reach, the [F, N] output written
+    bound = _bound(n * idx.element_size() + _touched_bytes(idx[(idx >= 0) & (idx < t)], f * 4)
+                   + f * n * 4, 0.0)
+    print(f"K3 library index_select[{label}]: {_fmt(lib)}; bound {bound['bound_ms']:.4f} ms")
+    return err, (k, p, bound, lib)
+
+
+def check_gather_cols(dev, scene_name: str, tables, rs):
+    """K3 on each table at N_RAYS seeded indices (-1 and T among them),
+    timed; on the tri table also at int64 indices and at N_RAYS - 1
+    indices (the scalar path), from an aligned and a misaligned pointer.
+    Returns (max abs error, {table: (kernel, plain, bound, library)})."""
+    import numpy as np
+    import torch
 
     err = 0.0
     times = {}
@@ -276,22 +470,12 @@ def check_gather_cols(dev, scene_name: str, tables, rs):
         t = table.shape[1]
         idx = torch.from_numpy(rs.integers(-1, t + 1, N_RAYS).astype(np.int32)).to(dev)
         idx[:2] = torch.tensor([-1, t], dtype=torch.int32)
-        out_k = gk.gather_cols(table, idx)
-        out_p = gk.gather_cols_plain(table, idx)
-        torch.cuda.synchronize()
-        same = _bits_equal(out_k, out_p)
-        print(f"K3 gather_cols[{scene_name} {name}] {tuple(table.shape)} x {N_RAYS}: "
-              f"bitwise_equal={same}")
-        if not same:
-            raise AssertionError(f"K3 differs from its plain version on {scene_name} {name}")
-        err = max(err, float((out_k - out_p).abs().max()))
-        k, p = _time_pair(f"K3 time[{scene_name} {name}]", lambda: gk.gather_cols(table, idx),
-                          lambda: gk.gather_cols_plain(table, idx))
-        idx_in = idx.clamp(0, t - 1).to(torch.int64)
-        lib = _time_ms(lambda: torch.index_select(table, 1, idx_in))
-        print(f"K3 library index_select[{scene_name} {name}]: {lib[0]:.4f} ms")
-        f = table.shape[0]
-        times[name] = (k, p, _bound(N_RAYS * 4 + f * t * 4 + f * N_RAYS * 4, 0.0), lib)
+        e, times[name] = check_k3(f"{scene_name} {name}", table, idx)
+        err = max(err, e)
+        if name == "tri_table":
+            for sub, what in ((idx.to(torch.int64), "int64"), (idx[:-1], "N-1"),
+                              (idx[1:], "N-1 misaligned")):
+                err = max(err, check_k3(f"{scene_name} {name} {what}", table, sub, False)[0])
     return err, times
 
 
@@ -453,6 +637,7 @@ def check_e1m1_kernels(dev, scene):
 
     from pim_tpu_torch.math.vec3 import V3
     from pim_tpu_torch.render import cluster as CL
+    from pim_tpu_torch.render import gather_kernel as gk
     from pim_tpu_torch.render import table_gather as tg
     from pim_tpu_torch.render.lights import make_light_table
     from pim_tpu_torch.render.raysort import sorted_rays
@@ -482,7 +667,7 @@ def check_e1m1_kernels(dev, scene):
         raise AssertionError("K4: a dead lane reported a hit")
     times = _time_pair("K4 time", lambda: CL.cluster_isect(cl, ro, rd, 0.0, t_far),
                        lambda: CL.cluster_isect_plain(cl, ro_s, rd_s, 0.0, t_far[sub]),
-                       PLAIN_RUNS)
+                       PLAIN_RUNS, plain_queued=False)
     # a live ray must test every cluster whose slab it enters no farther
     # than its result (its hit, else t_far); box tests are not counted
     cl_bytes = sum(x.numel() * 4 for x in (cl.tris, cl.clb, cl.scb))
@@ -492,9 +677,8 @@ def check_e1m1_kernels(dev, scene):
                                     _bound(ray_bytes + cl_bytes + N_RAYS * 8,
                                            need * CL.CB * BW_TEST_FLOPS))
     sro, srd, stf, _ = sorted_rays(meta.grid_spec(), ro, rd, t_far)
-    k_sorted = _time_ms(lambda: CL.cluster_isect(cl, sro, srd, 0.0, stf))
-    print(f"K4 time on the same rays sorted by raysort: {k_sorted[0]:.4f} ms "
-          f"[min {k_sorted[1]:.4f}, max {k_sorted[2]:.4f}]")
+    k_sorted = _timing(lambda: CL.cluster_isect(cl, sro, srd, 0.0, stf))
+    print(f"K4 time on the same rays sorted by raysort: {_fmt(k_sorted)}")
 
     h_k = CL.cluster_anyhit(cl, ro, rd, 0.0, t_short)
     h_p = CL.cluster_anyhit_plain(cl, ro_s, rd_s, 0.0, t_short[sub])
@@ -508,7 +692,7 @@ def check_e1m1_kernels(dev, scene):
         raise AssertionError("K5: a dead lane reported a hit")
     times = _time_pair("K5 time", lambda: CL.cluster_anyhit(cl, ro, rd, 0.0, t_short),
                        lambda: CL.cluster_anyhit_plain(cl, ro_s, rd_s, 0.0, t_short[sub]),
-                       PLAIN_RUNS)
+                       PLAIN_RUNS, plain_queued=False)
     # an unblocked live ray must test every cluster it enters before
     # t_far; a blocked one at least the cluster that blocks it
     blocked = h_k > 0
@@ -558,8 +742,60 @@ def check_e1m1_kernels(dev, scene):
         "emissive_table": arrays.emissive_table,
     }
     k3_err, k3_times = check_gather_cols(dev, "e1m1", tables, rs)
-    results["gather_cols"] = _row(k3_err, *k3_times["tri_table"])
-    return results
+    # the main path reads the tri table from its row-major copy; the
+    # direct read of the [F, T] table is timed beside it
+    mp = main_path_indices(scene, sro, srd, stf)
+    tt, rows = arrays.tri_table, arrays.tri_rows
+    idx = torch.from_numpy(rs.integers(-1, tt.shape[1] + 1, N_RAYS).astype(np.int32)).to(dev)
+    errs = [k3_err]
+    for key, label, ix, copy in (("rows", "row-major copy", idx, rows),
+                                 ("main", "main-path, row-major copy", mp["tri"], rows),
+                                 ("main_direct", "main-path", mp["tri"], None)):
+        e, k3_times[key] = check_k3(f"e1m1 tri_table {label}", tt, ix, rows=copy)
+        errs.append(e)
+    check_k3("e1m1 tri_table N-1 misaligned, row-major copy", tt, idx[1:], False, rows=rows)
+    copy = _timing(lambda: gk.table_rows(tt))
+    print(f"K3 row-major copy of the e1m1 tri table (made at the build and once per training "
+          f"step): {_fmt(copy)}")
+    row = _row(max(errs), *k3_times["rows"])
+    row["rows_copy_ms"] = copy["ms"]
+    for key, name in (("main", "main"), ("tri_table", "direct"), ("main_direct", "direct_main")):
+        row.update({f"{name}_{k}": v for k, v in _row(0.0, *k3_times[key]).items()
+                    if k != "max_abs_err"})
+    results["gather_cols"] = row
+    return results, mp
+
+
+def main_path_indices(scene, sro, srd, stf) -> dict:
+    """The indices the main path hands K3 and K7 at the hits of rays in
+    raysort's order: "tri", K4's tri ids clamped as surface.py passes them
+    to the tri-table fetch; "atlas", the [12, N] corner indices that
+    `surface._bilinear_setup` makes there for the albedo, ROME and normal
+    textures; "sky", sky.py's [4, N] cube corners of the rays' directions."""
+    import torch
+
+    from pim_tpu_torch.render import cluster as CL
+    from pim_tpu_torch.render import fetch as F
+    from pim_tpu_torch.render import gather_kernel as gk
+    from pim_tpu_torch.render import surface
+    from pim_tpu_torch.render.scene import _finalize_hit_fused
+    from pim_tpu_torch.render.sky import cube_corner_idx
+
+    meta, arrays, _ = scene
+    cl = CL.ClusterArrays(tris=arrays.cl_tris, clb=arrays.cl_clb, scb=arrays.cl_scb)
+    t, tri = CL.cluster_isect(cl, sro, srd, 0.0, stf)
+    hit = _finalize_hit_fused(arrays, t, tri, sro, srd)
+    tri_idx = torch.clamp_min(tri, 0)
+    rows = gk.gather_cols_plain(arrays.tri_table, tri_idx)
+    uv = surface.hit_uv(rows, 1.0 - hit.u - hit.v, hit.u, hit.v)
+    atlas = torch.cat([surface._bilinear_setup(arrays.tex_rec_t, rows[r].to(torch.int32), uv)[0]
+                       for r in (F.ALBEDO_TEX, F.ROME_TEX, F.NORMAL_TEX)], dim=0)
+    sky = cube_corner_idx(arrays.sky.shape[1], srd)[0]
+    print(f"main-path indices: {int((tri >= 0).sum())} hits of {tri.shape[0]} sorted rays, "
+          f"{int(torch.unique(tri_idx).numel())} distinct tri ids; atlas {tuple(atlas.shape)} "
+          f"({int(torch.unique(atlas).numel())} distinct texels); sky {tuple(sky.shape)} "
+          f"({int(torch.unique(sky).numel())} distinct texels)")
+    return {"tri": tri_idx.contiguous(), "atlas": atlas.contiguous(), "sky": sky.contiguous()}
 
 
 def _clusters_needed(cl, ro, rd, t_far, t_stop) -> int:
@@ -609,7 +845,8 @@ def time_e1m1_build(dev, scene) -> None:
 
 
 def run_e1m1(dev):
-    """Phase 4; returns (kernel rows, launches of the main path)."""
+    """Phase 4; returns (kernel rows, launches of the main path, the scene,
+    the main-path indices of K3 and K7)."""
     import torch
 
     from pim_tpu_torch import native
@@ -634,7 +871,7 @@ def run_e1m1(dev):
     print(f"e1m1 launches during build+frame: {launches}")
     _check_frame(fr, WIDTH * HEIGHT, ("gather_cols",) + E1M1_KERNELS)
 
-    kernels = check_e1m1_kernels(dev, scene)
+    kernels, main_idx = check_e1m1_kernels(dev, scene)
     time_e1m1_build(dev, scene)
 
     lo, hi = _band("pim_tpu_torch/render/gate_bands.json", "e1m1_128")
@@ -646,13 +883,13 @@ def run_e1m1(dev):
         raise AssertionError(f"e1m1 {GATE_RES}^2 mean {gate.mean} outside the e1m1_128 band "
                              f"[{lo}, {hi}]")
     check_small_frame("e1m1", scene, _scene_to(scene, "cpu"))
-    return kernels, launches, scene
+    return kernels, launches, scene, main_idx
 
 
-def run_training(dev, cornell_cpu, e1m1_scene):
+def run_training(dev, cornell_cpu, e1m1_scene, main_idx):
     """Phase 5, the differentiable path; returns (kernel rows, launches of
     its two main paths)."""
-    kernels = check_train_kernels(dev, e1m1_scene)
+    kernels = check_train_kernels(dev, e1m1_scene, main_idx)
     e1m1_launches = run_e1m1_training(dev, e1m1_scene)
     cornell_card = _scene_to(cornell_cpu, dev)
     cornell_launches = run_cornell_inverse(dev, cornell_card)
@@ -693,14 +930,48 @@ def _check_scatter(label: str, kernel, bwd_plain, g, idx, t, library):
         raise AssertionError(f"{label} leaves its float64 plain version's bound")
     k, p = _time_pair(f"{label} time", lambda: kernel(g, idx, t),
                       lambda: bwd_plain(g, idx, t))
-    lib = _time_ms(library)
-    print(f"{label} library index_add_: {lib[0]:.4f} ms [min {lib[1]:.4f}, max {lib[2]:.4f}]")
+    lib = _timing(library)
+    print(f"{label} library index_add_: {_fmt(lib)}")
     return float(err.max()), k, p, lib
 
 
-def check_train_kernels(dev, scene):
-    """K7 forward (bitwise) and the K3 and K7 backward kernels (within the
-    atomics' bound of a float64 plain sum) at the training path's shapes."""
+def check_k7(label: str, planes, idx, time_it: bool = True, texels=None):
+    """K7 against its plain version on (planes, idx), bitwise; with
+    `time_it` also timed beside its plain version and `torch.index_select`
+    on the clipped indices; with `texels` the kernel reads that interleaved
+    copy.  Returns (kernel, plain, bound, library) or None."""
+    import torch
+
+    from pim_tpu_torch.render import table_gather as tg
+
+    c, t = planes.shape
+    k, n = idx.shape
+    out_k = tg.gather_texels(planes, idx, parts=1, texels=texels)
+    out_p = tg.gather_texels_plain(planes, idx)
+    torch.cuda.synchronize()
+    same = _bits_equal(out_k, out_p)
+    print(f"K7 gather_texels[{label}] planes {tuple(planes.shape)} x [{k}, {n}]: "
+          f"bitwise_equal={same}")
+    if not same:
+        raise AssertionError(f"K7 differs from its plain version on the {label}")
+    if not time_it:
+        return None
+    k_p = _time_pair(f"K7 time[{label}]", lambda: tg.gather_texels(planes, idx, texels=texels),
+                     lambda: tg.gather_texels_plain(planes, idx), batches=DEVICE_BATCHES,
+                     cold=True)
+    idx_in = idx.clamp(0, t - 1).to(torch.int64).reshape(-1)
+    lib = _timing(lambda: torch.index_select(planes, 1, idx_in), batches=DEVICE_BATCHES,
+                  cold=True)
+    # indices read, the texels they reach, the [C, K, N] output written
+    bound = _bound(k * n * 4 + _touched_bytes(idx_in, c * 4) + c * k * n * 4, 0.0)
+    print(f"K7 library index_select[{label}]: {_fmt(lib)}; bound {bound['bound_ms']:.4f} ms")
+    return (*k_p, bound, lib)
+
+
+def check_train_kernels(dev, scene, main_idx):
+    """K7 forward (bitwise; on random and on the main path's indices) and
+    the K3 and K7 backward kernels (within the atomics' bound of a float64
+    plain sum) at the training path's shapes."""
     import numpy as np
     import torch
 
@@ -715,28 +986,36 @@ def check_train_kernels(dev, scene):
     def cuda(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
+    # the main path reads the atlas from its interleaved copy (the sky has
+    # three planes, staged); the atlas planes' direct read is timed beside it
     k7 = {}
-    for label, planes, k in (("atlas", arrays.atlas_planes, 12),
-                             ("sky", arrays.sky.reshape(-1, 3).T.contiguous(), 4)):
+    sky_planes = arrays.sky.reshape(-1, 3).T.contiguous()
+    for label, planes, texels, k in (("atlas", arrays.atlas_planes, arrays.atlas_texels, 12),
+                                     ("sky", sky_planes, None, 4)):
         c, t = planes.shape
         idx = rs.integers(0, t, (k, N_RAYS)).astype(np.int32)
         idx[0, :2] = [-1, t]
         idx = cuda(idx)
-        out_k = tg.gather_texels(planes, idx, parts=1)
-        out_p = tg.gather_texels_plain(planes, idx)
-        torch.cuda.synchronize()
-        same = _bits_equal(out_k, out_p)
-        print(f"K7 gather_texels[{label}] planes {tuple(planes.shape)} x [{k}, {N_RAYS}]: "
-              f"bitwise_equal={same}")
-        if not same:
-            raise AssertionError(f"K7 differs from its plain version on the {label}")
-        times = _time_pair(f"K7 time[{label}]", lambda: tg.gather_texels(planes, idx),
-                           lambda: tg.gather_texels_plain(planes, idx))
-        idx_in = idx.clamp(0, t - 1).to(torch.int64).reshape(-1)
-        lib = _time_ms(lambda: torch.index_select(planes, 1, idx_in))
-        print(f"K7 library index_select[{label}]: {lib[0]:.4f} ms")
-        k7[label] = (*times, _bound(k * N_RAYS * 4 + c * t * 4 + c * k * N_RAYS * 4, 0.0), lib)
+        k7[label] = check_k7(label, planes, idx, texels=texels)
+        k7[f"main_{label}"] = check_k7(f"{label} main-path", planes, main_idx[label],
+                                       texels=texels)
+        # 3 x (N_RAYS - 1) queries: the scalar path, from an aligned and a
+        # misaligned pointer
+        for copy in ((None,) if texels is None else (texels, None)):
+            tag = "" if copy is None else ", interleaved copy"
+            check_k7(f"{label} 3x(N-1){tag}", planes, idx[:3, :-1].contiguous(), False,
+                     texels=copy)
+            check_k7(f"{label} 3x(N-1) misaligned{tag}", planes,
+                     idx.reshape(-1)[1 : 1 + 3 * (N_RAYS - 1)].view(3, N_RAYS - 1), False,
+                     texels=copy)
+        if texels is not None:
+            k7["planes"] = check_k7(f"{label}, planes", planes, idx)
+            k7["planes_main"] = check_k7(f"{label} main-path, planes", planes, main_idx[label])
+            copy_t = _timing(lambda: tg.interleave_texels(planes))
+            print(f"K7 interleaved copy of the atlas planes (made at the build and once per "
+                  f"training step): {_fmt(copy_t)}")
 
+        idx_in = idx.clamp(0, t - 1).to(torch.int64).reshape(-1)
         g = cuda(rs.standard_normal((c, k, N_RAYS)).astype(np.float32))
         buf = torch.zeros((c, t), dtype=torch.float32, device=dev)
         g_flat = g.reshape(c, -1)
@@ -747,7 +1026,12 @@ def check_train_kernels(dev, scene):
             results["gather_texels_bwd"] = _row(
                 err, kb, pb, _bound(c * k * N_RAYS * 4 + k * N_RAYS * 4 + c * t * 4,
                                     c * k * N_RAYS), libb)
-    results["gather_texels"] = _row(0.0, *k7["atlas"])
+    row = _row(0.0, *k7["atlas"])
+    row["texels_copy_ms"] = copy_t["ms"]
+    for key in ("sky", "main_atlas", "main_sky", "planes", "planes_main"):
+        row.update({f"{key}_{name}": v for name, v in _row(0.0, *k7[key]).items()
+                    if name != "max_abs_err"})
+    results["gather_texels"] = row
 
     k3b = {}
     tt = arrays.tri_table
@@ -1042,15 +1326,17 @@ def main() -> int:
     print(f"build: {info.path} nvcc {info.seconds:.2f} s (total {time.perf_counter() - t0:.2f} s)")
     for ln in ptxas:
         print(f"  ptxas: {ln}")
+    print(f"device memory copy rate: {_copy_rate(dev) / 1e12:.3f} TB/s (the bounds assume "
+          f"{HBM_BYTES_PER_S / 1e12:.2f}; the same model of card has differed between machines)")
 
     t0 = time.perf_counter()
     kernels, cornell_launches, cornell_cpu = run_cornell(dev)
     print(f"cornell phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    e1m1_kernels, e1m1_launches, e1m1_scene = run_e1m1(dev)
+    e1m1_kernels, e1m1_launches, e1m1_scene, main_idx = run_e1m1(dev)
     print(f"e1m1 phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    train_kernels, train_launches = run_training(dev, cornell_cpu, e1m1_scene)
+    train_kernels, train_launches = run_training(dev, cornell_cpu, e1m1_scene, main_idx)
     print(f"training phases: {time.perf_counter() - t0:.1f} s")
     # K3 runs on both paths: its row keeps the Cornell times and adds the
     # e1m1 tri table's; its error is the larger of the two checks

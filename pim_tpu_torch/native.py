@@ -31,6 +31,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("dense_isect.cu", "gather_cols.cu", "cluster_isect.cu", "gather_bilinear.cu",
            "gather_texels.cu")
+HEADERS = ("gather_tiles.cuh",)  # included by the sources; in the build hash
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "pim_tpu_torch")
 LIB_NAME = "libpim_tpu_torch.so"
 # --fmad=false: the intersection kernels must round every product and sum
@@ -75,7 +76,7 @@ def _nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
@@ -135,11 +136,21 @@ def load() -> ctypes.CDLL:
         lib.pim_dense_anyhit.argtypes = ray_args + [i, p, p]
         lib.pim_dense_anyhit.restype = i
         # table (or gradient), f, t, idx, n, out (or gradient table), stream
-        for fn in (lib.pim_gather_cols_i32, lib.pim_gather_cols_i64,
-                   lib.pim_gather_cols_bwd_i32, lib.pim_gather_cols_bwd_i64,
-                   lib.pim_gather_texels, lib.pim_gather_texels_bwd):
+        for fn in (lib.pim_gather_cols_bwd_i32, lib.pim_gather_cols_bwd_i64,
+                   lib.pim_gather_texels_bwd):
             fn.argtypes = [p, i, i, p, ll, p, p]
             fn.restype = i
+        # ... with the variant (staged, wide, vec) before the stream
+        for fn in (lib.pim_gather_cols_i32, lib.pim_gather_cols_i64, lib.pim_gather_texels):
+            fn.argtypes = [p, i, i, p, ll, p, i, i, i, p]
+            fn.restype = i
+        # row-major table copy, f, t, idx, n, out, wide, vec, stream
+        for fn in (lib.pim_gather_cols_rows_i32, lib.pim_gather_cols_rows_i64):
+            fn.argtypes = [p, i, i, p, ll, p, i, i, p]
+            fn.restype = i
+        # interleaved texels, t, idx, k * n, out, wide, vec, stream
+        lib.pim_gather_texels_interleaved.argtypes = [p, i, p, ll, p, i, i, p]
+        lib.pim_gather_texels_interleaved.restype = i
         # scb, spad, clb, n_sc, tris, stride, then the ray arguments
         cluster_args = [p, i, p, i, p, i] + [p] * 6 + [f, p, f, i]
         lib.pim_cluster_isect.argtypes = cluster_args + [p, p, p]

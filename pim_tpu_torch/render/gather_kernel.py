@@ -7,13 +7,50 @@ tensors `gather_cols` launches csrc/gather_cols.cu, for every table size
 and batch size, and its gradient launches the scatter-add of the same file;
 for CPU tensors both run their plain versions.  The forward moves the
 stored float32 values unchanged.  `idx` gets no gradient.
+
+`gather_variant` picks the kernel's variant from the shapes and the index
+pointer: the table staged in shared memory (up to STAGE_MAX_BYTES) or read
+directly, 32- or 64-bit offsets, the 16-byte vector path or the scalar one.
+A caller may pass `rows`, a row-major [T, F] copy of the table
+(`table_rows`), which the forward reads instead when the table is too
+large to stage (F a multiple of 4): a lane's row group then comes in two
+16-byte loads from one sector instead of 8 scattered ones.  The gradient
+still goes to `table_t`.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from pim_tpu_torch import native
+
+# csrc/gather_tiles.cuh: a table up to kStageMaxBytes is staged in shared
+# memory; a block covers kTileLanes lanes per tile
+STAGE_MAX_BYTES = 200 * 1024
+TILE_LANES = 1024
+_OFFSET_LIMIT = 2**31 - 1
+
+
+class Variant(NamedTuple):
+    """Which form of a gather kernel a call launches."""
+
+    staged: bool  # the table (planes) in shared memory
+    wide: bool    # 64-bit offsets
+    vec: bool     # 16-byte index loads and output stores
+
+
+def gather_variant(table_elems: int, out_elems: int, lanes: int, idx_ptr: int) -> Variant:
+    """The variant of K3 or K7 for a table of `table_elems` floats, an
+    output of `out_elems` floats over `lanes` lanes (queries), and indices
+    at address `idx_ptr`: staged up to STAGE_MAX_BYTES; 32-bit offsets
+    while every offset and lane tile fits in int32; the vector path when
+    the lane count is a multiple of 4 and the indices are 16-byte aligned
+    (each output row then starts 16-byte aligned too)."""
+    return Variant(staged=table_elems * 4 <= STAGE_MAX_BYTES,
+                   wide=max(table_elems, out_elems) + TILE_LANES > _OFFSET_LIMIT,
+                   vec=lanes % 4 == 0 and idx_ptr % 16 == 0)
 
 
 def gather_cols_plain(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -21,6 +58,20 @@ def gather_cols_plain(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     t = table_t.shape[1]
     ok = (idx >= 0) & (idx < t)
     out = table_t[:, torch.where(ok, idx, 0).to(torch.int64)]
+    return torch.where(ok[None, :], out, 0.0)
+
+
+def table_rows(table_t: torch.Tensor) -> torch.Tensor:
+    """The row-major [T, F] copy of a [F, T] table that `gather_cols` may
+    read (no gradient flows through the copy)."""
+    return table_t.detach().T.contiguous()
+
+
+def gather_rows_plain(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain K3 read from the row-major copy: [F, N], 0 outside [0, T)."""
+    t = rows.shape[0]
+    ok = (idx >= 0) & (idx < t)
+    out = rows[torch.where(ok, idx, 0).to(torch.int64)].T
     return torch.where(ok[None, :], out, 0.0)
 
 
@@ -41,8 +92,10 @@ def _check_idx(name: str, idx: torch.Tensor, dev) -> int:
     return n
 
 
-def gather_cols_fwd(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table_t [F, T] f32, idx [N] i32/i64 -> [F, N] f32 (no autograd)."""
+def gather_cols_fwd(table_t: torch.Tensor, idx: torch.Tensor,
+                    rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """table_t [F, T] f32, idx [N] i32/i64 -> [F, N] f32 (no autograd);
+    with `rows`, a table too large to stage is read from that [T, F] copy."""
     if table_t.device.type == "cpu":
         return gather_cols_plain(table_t, idx)
     dev = table_t.device
@@ -55,9 +108,20 @@ def gather_cols_fwd(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if n == 0 or f == 0:
         return out
     lib = native.load()
-    fn = lib.pim_gather_cols_i32 if idx.dtype == torch.int32 else lib.pim_gather_cols_i64
-    rc = fn(table_t.data_ptr(), f, t, idx.data_ptr(), n, out.data_ptr(),
-            native.stream_ptr(dev))
+    v = gather_variant(f * t, f * n, n, idx.data_ptr())
+    i32 = idx.dtype == torch.int32
+    if rows is None or v.staged:
+        fn = lib.pim_gather_cols_i32 if i32 else lib.pim_gather_cols_i64
+        rc = fn(table_t.data_ptr(), f, t, idx.data_ptr(), n, out.data_ptr(), v.staged, v.wide,
+                v.vec, native.stream_ptr(dev))
+    else:
+        native.require_cuda("gather_cols.rows", rows, torch.float32, (t, f), dev)
+        if f % 4 or rows.data_ptr() % 16:
+            raise ValueError(f"gather_cols.rows: F = {f} must be a multiple of 4 and the copy "
+                             "16-byte aligned")
+        fn = lib.pim_gather_cols_rows_i32 if i32 else lib.pim_gather_cols_rows_i64
+        rc = fn(rows.data_ptr(), f, t, idx.data_ptr(), n, out.data_ptr(), v.wide, v.vec,
+                native.stream_ptr(dev))
     native.check(lib, rc, "gather_cols")
     native.launches["gather_cols"] += 1
     return out
@@ -86,20 +150,22 @@ def gather_cols_bwd(g: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
 
 class _GatherCols(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table_t, idx):
+    def forward(ctx, table_t, idx, rows):
         ctx.save_for_backward(idx)
         ctx.t = table_t.shape[1]
-        return gather_cols_fwd(table_t, idx)
+        return gather_cols_fwd(table_t, idx, rows)
 
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return gather_cols_bwd(g.contiguous(), idx, ctx.t), None
+        return gather_cols_bwd(g.contiguous(), idx, ctx.t), None, None
 
 
-def gather_cols(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_cols(table_t: torch.Tensor, idx: torch.Tensor,
+                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """table_t [F, T] f32, idx [N] i32/i64 -> [F, N] f32, differentiable in
-    table_t when it requires grad."""
+    table_t when it requires grad.  `rows`, when given, must hold
+    `table_rows(table_t)`: CUDA calls may read it instead of table_t."""
     if table_t.requires_grad and torch.is_grad_enabled():
-        return _GatherCols.apply(table_t, idx)
-    return gather_cols_fwd(table_t, idx)
+        return _GatherCols.apply(table_t, idx, rows)
+    return gather_cols_fwd(table_t, idx, rows)

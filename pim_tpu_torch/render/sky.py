@@ -258,18 +258,23 @@ def sample_sky_cubemap_soa(corners: torch.Tensor, size: int, rd: V3, active=None
     return V3(filt[0, 0], filt[1, 0], filt[2, 0])
 
 
-def sample_sky_cubemap_planes(cube: torch.Tensor, rd: V3) -> V3:
-    """Bilinear-clamp cubemap fetch of V3 directions, differentiable in the
-    cube [6, S, S, 3]: the four corners through ONE K7 call on its [3, 6*S*S]
-    planes, then the JAX package's lerp, t00 + (t10 - t00) tx, ..."""
-    size = cube.shape[1]
+def cube_corner_idx(size: int, rd: V3):
+    """The four bilinear-clamp corners of V3 directions in a [6*S*S] cube
+    (idx [4, N] i32 in the order 00, 10, 01, 11) and the lerp weights."""
     f, x0, y0, tx, ty = _cube_texel(size, rd)
     x1 = torch.clamp_max(x0 + 1, size - 1)
     y1 = torch.clamp_max(y0 + 1, size - 1)
     base = f.to(torch.int32) * (size * size)
     row0 = base + y0 * size
     row1 = base + y1 * size
-    idx = torch.stack([row0 + x0, row0 + x1, row1 + x0, row1 + x1], dim=0)
+    return torch.stack([row0 + x0, row0 + x1, row1 + x0, row1 + x1], dim=0), tx, ty
+
+
+def sample_sky_cubemap_planes(cube: torch.Tensor, rd: V3) -> V3:
+    """Bilinear-clamp cubemap fetch of V3 directions, differentiable in the
+    cube [6, S, S, 3]: the four corners through ONE K7 call on its [3, 6*S*S]
+    planes, then the JAX package's lerp, t00 + (t10 - t00) tx, ..."""
+    idx, tx, ty = cube_corner_idx(cube.shape[1], rd)
     tex = gather_texels(cube.reshape(-1, 3).T.contiguous(), idx)  # [3, 4, N]
     out = []
     for ch in range(3):

@@ -47,12 +47,12 @@ TRAIN_BOUNCES = 3  # make_render_fn's default
 GROUPS = (
     ("K1 dense_isect", ("dense_isect_kernel",)),
     ("K2 dense_anyhit", ("dense_anyhit_kernel",)),
-    ("K3 gather_cols", ("gather_cols_kernel",)),
+    ("K3 gather_cols", ("gather_cols_kernel", "gather_cols_rows_kernel")),
     ("K3-bwd gather_cols_bwd", ("gather_cols_bwd_kernel",)),
     ("K4 cluster_isect", ("cluster_isect_kernel",)),
     ("K5 cluster_anyhit", ("cluster_anyhit_kernel",)),
     ("K6 gather_bilinear", ("gather_bilinear_kernel",)),
-    ("K7 gather_texels", ("gather_texels_kernel",)),
+    ("K7 gather_texels", ("gather_texels_kernel", "gather_texels_interleaved_kernel")),
     ("K7-bwd gather_texels_bwd", ("gather_texels_bwd_kernel",)),
     ("torch index/gather/scatter", ("index", "scatter", "gather")),
     ("torch sort/scan", ("sort", "scan", "radix")),
