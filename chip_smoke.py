@@ -31,17 +31,19 @@ exits non-zero:
      queries, C=3) against their plain versions, bitwise; K3 on the four
      tables the frame fetches from (the [48, 81552] tri table, the [5, 71]
      texture records, the light table over the grid's cells and the
-     [24, 600] emissive table), indices including -1 and T, bitwise; the
-     tri table also from its row-major copy, as the main path reads it, and
-     on the main path's indices (K4's tri ids for the same rays in
-     raysort's order, clamped as surface.py passes them); the build's
-     parts timed; the 128^2, 16-spp frame gated by the CPU-anchored `e1m1_128`
+     [24, 600] emissive table; the tri table the wrapper reads from its
+     row-major copy), indices including -1 and T, bitwise; the tri table
+     also on the main path's indices (K4's tri ids for the same rays in
+     raysort's order, clamped as surface.py passes them); every variant of
+     K3 and K7 with 64-bit offsets, launched through the library's C
+     interface at the main path's tables, and one K3 call of 2^28 lanes
+     whose output passes 2^31 floats, through the wrapper, bitwise; the
+     build's parts timed; the 128^2, 16-spp frame gated by the CPU-anchored `e1m1_128`
      band of pim_tpu_torch/render/gate_bands.json (the 512^2 mean is printed
      beside the reference's TPU drift band, for information only); a 32^2,
      3-bounce frame on the card against the same frame on the CPU;
   5. the differentiable path (pim_tpu_torch.render.diff): K7 (12 x 262,144
-     indices into the e1m1 atlas, read from its interleaved copy as the
-     main path reads it and from its planes; 4 x 262,144 into the sky
+     indices into the e1m1 atlas planes; 4 x 262,144 into the sky
      planes; 3 x 262,143 from an aligned and a misaligned pointer; the main
      path's atlas and sky corner indices at the hits of phase 4) against
      its plain version, bitwise; K7's and K3's backward kernels
@@ -419,19 +421,18 @@ def _touched_bytes(cols, row_bytes: int) -> int:
     return int(torch.unique(cols).numel()) * row_bytes
 
 
-def check_k3(label: str, table, idx, time_it: bool = True, rows=None):
+def check_k3(label: str, table, idx, time_it: bool = True):
     """K3 against its plain version on (table, idx), bitwise; with `time_it`
     also timed beside its plain version and `torch.index_select` on the
-    indices clipped into range (it raises on the others); with `rows` the
-    kernel reads that row-major copy.  Returns (max abs error, (kernel,
-    plain, bound, library) or None)."""
+    indices clipped into range (it raises on the others).  Returns (max abs
+    error, (kernel, plain, bound, library) or None)."""
     import torch
 
     from pim_tpu_torch.render import gather_kernel as gk
 
     f, t = table.shape
     n = idx.shape[0]
-    out_k = gk.gather_cols(table, idx, rows)
+    out_k = gk.gather_cols(table, idx)
     out_p = gk.gather_cols_plain(table, idx)
     torch.cuda.synchronize()
     same = _bits_equal(out_k, out_p)
@@ -442,7 +443,7 @@ def check_k3(label: str, table, idx, time_it: bool = True, rows=None):
     err = float((out_k - out_p).abs().max())
     if not time_it:
         return err, None
-    k, p = _time_pair(f"K3 time[{label}]", lambda: gk.gather_cols(table, idx, rows),
+    k, p = _time_pair(f"K3 time[{label}]", lambda: gk.gather_cols(table, idx),
                       lambda: gk.gather_cols_plain(table, idx), batches=DEVICE_BATCHES,
                       cold=True)
     idx_in = idx.clamp(0, t - 1).to(torch.int64)
@@ -742,28 +743,83 @@ def check_e1m1_kernels(dev, scene):
         "emissive_table": arrays.emissive_table,
     }
     k3_err, k3_times = check_gather_cols(dev, "e1m1", tables, rs)
-    # the main path reads the tri table from its row-major copy; the
-    # direct read of the [F, T] table is timed beside it
     mp = main_path_indices(scene, sro, srd, stf)
-    tt, rows = arrays.tri_table, arrays.tri_rows
-    idx = torch.from_numpy(rs.integers(-1, tt.shape[1] + 1, N_RAYS).astype(np.int32)).to(dev)
-    errs = [k3_err]
-    for key, label, ix, copy in (("rows", "row-major copy", idx, rows),
-                                 ("main", "main-path, row-major copy", mp["tri"], rows),
-                                 ("main_direct", "main-path", mp["tri"], None)):
-        e, k3_times[key] = check_k3(f"e1m1 tri_table {label}", tt, ix, rows=copy)
-        errs.append(e)
-    check_k3("e1m1 tri_table N-1 misaligned, row-major copy", tt, idx[1:], False, rows=rows)
-    copy = _timing(lambda: gk.table_rows(tt))
-    print(f"K3 row-major copy of the e1m1 tri table (made at the build and once per training "
-          f"step): {_fmt(copy)}")
-    row = _row(max(errs), *k3_times["rows"])
+    tt = arrays.tri_table
+    e, k3_times["main"] = check_k3("e1m1 tri_table main-path", tt, mp["tri"])
+    # the wrapper's copy of the tri table, made on the table's first call
+    copy = _timing(lambda: tt.T.contiguous())
+    print(f"K3 row-major copy of the e1m1 tri table (made on the table's first K3 call: after "
+          f"the build and once per training step): {_fmt(copy)}")
+    check_wide_offsets(dev, {"staged": arrays.emissive_table, "direct": tables["light_table"],
+                             "rows": tt},
+                       {"staged": arrays.sky.reshape(-1, 3).T.contiguous(),
+                        "direct": arrays.atlas_planes}, rs)
+    row = _row(max(k3_err, e), *k3_times["tri_table"])
     row["rows_copy_ms"] = copy["ms"]
-    for key, name in (("main", "main"), ("tri_table", "direct"), ("main_direct", "direct_main")):
-        row.update({f"{name}_{k}": v for k, v in _row(0.0, *k3_times[key]).items()
-                    if k != "max_abs_err"})
+    row.update({f"main_{k}": v for k, v in _row(0.0, *k3_times["main"]).items()
+                if k != "max_abs_err"})
     results["gather_cols"] = row
     return results, mp
+
+
+WIDE_LANES = 1 << 28  # the large K3 call: 8 rows x 2^28 lanes = 2^31 output floats
+WIDE_CHUNK = 1 << 24  # lanes compared with the plain version at a time
+
+
+def check_wide_offsets(dev, k3_tables, k7_planes, rs):
+    """The 64-bit-offset variants, which the main paths do not reach: each
+    form of K3 (int32 and int64 indices) and K7 at the main path's tables,
+    on the vector and the scalar path, launched through the library's C
+    interface with 64-bit offsets forced; then one K3 call through the
+    wrapper whose [8, WIDE_LANES] output passes 2^31 floats, so that the
+    wrapper itself picks 64-bit offsets.  Each bitwise against the plain
+    version."""
+    import numpy as np
+    import torch
+
+    from pim_tpu_torch import native
+    from pim_tpu_torch.render import gather_kernel as gk
+    from pim_tpu_torch.render import table_gather as tg
+    from pim_tpu_torch.tools.gather_variants import launcher
+
+    lib = native.load()
+    checked = 0
+    for kind, tables in (("k3", k3_tables), ("k7", k7_planes)):
+        for form, table in tables.items():
+            t = table.shape[1]
+            shape = (N_RAYS,) if kind == "k3" else (4, N_RAYS)
+            base = torch.from_numpy(rs.integers(-1, t + 1, shape).astype(np.int32)).to(dev)
+            for dtype in ((torch.int32, torch.int64) if kind == "k3" else (torch.int32,)):
+                for vec in (True, False):
+                    idx = base.to(dtype) if vec else base.to(dtype).reshape(-1)[1:]
+                    if kind == "k7" and not vec:
+                        idx = idx[: 3 * (N_RAYS - 1)].view(3, N_RAYS - 1)
+                    plain = (gk.gather_cols_plain(table, idx) if kind == "k3"
+                             else tg.gather_texels_plain(table, idx))
+                    out = torch.empty_like(plain)
+                    launcher(lib, kind, form, table, idx, out, wide=True, vec=vec)()
+                    torch.cuda.synchronize()
+                    if not _bits_equal(out, plain):
+                        raise AssertionError(f"{kind.upper()} {form}, 64-bit offsets, "
+                                             f"{str(dtype)[6:]}, vec={vec}: differs from plain")
+                    checked += 1
+    print(f"64-bit offsets: {checked} forced launches of K3 (staged, direct, row-major copy; "
+          f"int32, int64) and K7 (staged, direct), vector and scalar paths: bitwise_equal=True")
+    table = torch.from_numpy(rs.standard_normal((8, 1000)).astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    idx = torch.randint(-1, 1001, (WIDE_LANES,), generator=gen, device=dev, dtype=torch.int32)
+    v = gk.gather_variant(table.numel(), 8 * WIDE_LANES, WIDE_LANES, idx.data_ptr())
+    if not v.wide:
+        raise AssertionError(f"the wrapper did not pick 64-bit offsets: {v}")
+    out = gk.gather_cols(table, idx)
+    same = all(_bits_equal(out[:, s : s + WIDE_CHUNK],
+                           gk.gather_cols_plain(table, idx[s : s + WIDE_CHUNK]))
+               for s in range(0, WIDE_LANES, WIDE_CHUNK))
+    print(f"K3 gather_cols (8, 1000) x {WIDE_LANES} int32 ({8 * WIDE_LANES} output floats, "
+          f"variant {tuple(v)}): bitwise_equal={same}")
+    if not same:
+        raise AssertionError("K3 with 64-bit offsets differs from its plain version")
+    del out, idx
 
 
 def main_path_indices(scene, sro, srd, stf) -> dict:
@@ -935,18 +991,18 @@ def _check_scatter(label: str, kernel, bwd_plain, g, idx, t, library):
     return float(err.max()), k, p, lib
 
 
-def check_k7(label: str, planes, idx, time_it: bool = True, texels=None):
+def check_k7(label: str, planes, idx, time_it: bool = True):
     """K7 against its plain version on (planes, idx), bitwise; with
     `time_it` also timed beside its plain version and `torch.index_select`
-    on the clipped indices; with `texels` the kernel reads that interleaved
-    copy.  Returns (kernel, plain, bound, library) or None."""
+    on the clipped indices.  Returns (kernel, plain, bound, library) or
+    None."""
     import torch
 
     from pim_tpu_torch.render import table_gather as tg
 
     c, t = planes.shape
     k, n = idx.shape
-    out_k = tg.gather_texels(planes, idx, parts=1, texels=texels)
+    out_k = tg.gather_texels(planes, idx, parts=1)
     out_p = tg.gather_texels_plain(planes, idx)
     torch.cuda.synchronize()
     same = _bits_equal(out_k, out_p)
@@ -956,7 +1012,7 @@ def check_k7(label: str, planes, idx, time_it: bool = True, texels=None):
         raise AssertionError(f"K7 differs from its plain version on the {label}")
     if not time_it:
         return None
-    k_p = _time_pair(f"K7 time[{label}]", lambda: tg.gather_texels(planes, idx, texels=texels),
+    k_p = _time_pair(f"K7 time[{label}]", lambda: tg.gather_texels(planes, idx),
                      lambda: tg.gather_texels_plain(planes, idx), batches=DEVICE_BATCHES,
                      cold=True)
     idx_in = idx.clamp(0, t - 1).to(torch.int64).reshape(-1)
@@ -986,34 +1042,20 @@ def check_train_kernels(dev, scene, main_idx):
     def cuda(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-    # the main path reads the atlas from its interleaved copy (the sky has
-    # three planes, staged); the atlas planes' direct read is timed beside it
     k7 = {}
     sky_planes = arrays.sky.reshape(-1, 3).T.contiguous()
-    for label, planes, texels, k in (("atlas", arrays.atlas_planes, arrays.atlas_texels, 12),
-                                     ("sky", sky_planes, None, 4)):
+    for label, planes, k in (("atlas", arrays.atlas_planes, 12), ("sky", sky_planes, 4)):
         c, t = planes.shape
         idx = rs.integers(0, t, (k, N_RAYS)).astype(np.int32)
         idx[0, :2] = [-1, t]
         idx = cuda(idx)
-        k7[label] = check_k7(label, planes, idx, texels=texels)
-        k7[f"main_{label}"] = check_k7(f"{label} main-path", planes, main_idx[label],
-                                       texels=texels)
+        k7[label] = check_k7(label, planes, idx)
+        k7[f"main_{label}"] = check_k7(f"{label} main-path", planes, main_idx[label])
         # 3 x (N_RAYS - 1) queries: the scalar path, from an aligned and a
         # misaligned pointer
-        for copy in ((None,) if texels is None else (texels, None)):
-            tag = "" if copy is None else ", interleaved copy"
-            check_k7(f"{label} 3x(N-1){tag}", planes, idx[:3, :-1].contiguous(), False,
-                     texels=copy)
-            check_k7(f"{label} 3x(N-1) misaligned{tag}", planes,
-                     idx.reshape(-1)[1 : 1 + 3 * (N_RAYS - 1)].view(3, N_RAYS - 1), False,
-                     texels=copy)
-        if texels is not None:
-            k7["planes"] = check_k7(f"{label}, planes", planes, idx)
-            k7["planes_main"] = check_k7(f"{label} main-path, planes", planes, main_idx[label])
-            copy_t = _timing(lambda: tg.interleave_texels(planes))
-            print(f"K7 interleaved copy of the atlas planes (made at the build and once per "
-                  f"training step): {_fmt(copy_t)}")
+        check_k7(f"{label} 3x(N-1)", planes, idx[:3, :-1].contiguous(), False)
+        check_k7(f"{label} 3x(N-1) misaligned", planes,
+                 idx.reshape(-1)[1 : 1 + 3 * (N_RAYS - 1)].view(3, N_RAYS - 1), False)
 
         idx_in = idx.clamp(0, t - 1).to(torch.int64).reshape(-1)
         g = cuda(rs.standard_normal((c, k, N_RAYS)).astype(np.float32))
@@ -1027,8 +1069,7 @@ def check_train_kernels(dev, scene, main_idx):
                 err, kb, pb, _bound(c * k * N_RAYS * 4 + k * N_RAYS * 4 + c * t * 4,
                                     c * k * N_RAYS), libb)
     row = _row(0.0, *k7["atlas"])
-    row["texels_copy_ms"] = copy_t["ms"]
-    for key in ("sky", "main_atlas", "main_sky", "planes", "planes_main"):
+    for key in ("sky", "main_atlas", "main_sky"):
         row.update({f"{key}_{name}": v for name, v in _row(0.0, *k7[key]).items()
                     if name != "max_abs_err"})
     results["gather_texels"] = row

@@ -21,14 +21,18 @@
 // writes out[f, r:r+4] with one 16-byte store a row (a scalar path with
 // coalesced 4-byte accesses takes any other N).  The grid's second axis is
 // the row group, so enough blocks are in flight at N = 262,144.  No integer
-// division, and 32-bit offsets whenever F*N and F*T fit.  A table of up to
-// kStageMaxBytes (the Cornell tri and light tables, the emissive table, the
-// texture records) is staged: each block copies its row group's slice into
-// shared memory once, with 16-byte loads, walks tiles from there, and the
-// grid holds no more blocks than stay resident.  Larger tables are read
-// directly through the read-only cache.  gather_cols_rows_kernel reads a
-// row-major [T, F] copy of the table instead (F a multiple of 4): a lane's
-// values in a row group are two 16-byte loads from one 32-byte sector.
+// division, and 32-bit offsets whenever F*N and F*T fit: the 64-bit form
+// took 1.22x as long on random e1m1 tri-table indices and 1.17x on the
+// light table's (pim_tpu_torch/tools/gather_variants.py, NVIDIA H100 80GB
+// HBM3, 700.00 W).  A table of up to kStageMaxBytes (the Cornell tri and
+// light tables, the emissive table, the texture records) is staged: each
+// block copies its row group's slice into shared memory once, with 16-byte
+// loads, walks tiles from there, and the grid holds no more blocks than
+// stay resident.  Larger tables are read
+// directly through the read-only cache, or, when F is a multiple of 4, by
+// gather_cols_rows_kernel from a row-major [T, F] copy of the table that the
+// wrapper keeps beside it: a lane's values in a row group are then two
+// 16-byte loads from one 32-byte sector instead of 8 scattered ones.
 // Values move as plain 32-bit loads and stores, so the gather is exact by
 // construction: the TPU kernel's bf16 three-way split, domain gate and size
 // thresholds have no counterpart here.

@@ -23,18 +23,19 @@
 // multiple of 4 and the pointer is aligned), clamps them once, loads its
 // channels' values before any store, and writes each channel with one
 // 16-byte store (a scalar path with coalesced 4-byte accesses takes any
-// other K*N).  32-bit offsets whenever C*K*N and C*T fit.  Planes of up to
-// kStageMaxBytes (the sky) are staged in shared memory once per block, with
-// 16-byte loads, and the grid holds no more blocks than stay resident.
+// other K*N).  32-bit offsets whenever C*K*N and C*T fit: the 64-bit form
+// took 1.42x as long on random atlas indices and 1.12x on the sky's
+// (pim_tpu_torch/tools/gather_variants.py, NVIDIA H100 80GB HBM3, 700.00 W).
+// Planes of up to kStageMaxBytes (the sky) are staged in shared memory once per block,
+// with 16-byte loads, and the grid holds no more blocks than stay resident.
 // Larger planes (the atlas) are read through the read-only cache one plane
 // per row of blocks (grid y = C): the blocks that run together then share
-// one 128 KiB atlas plane in their SMs' L1 instead of all four.  gather_texels_interleaved_kernel
-// reads a texel-interleaved [T, 4] copy of four planes instead: one 16-byte
-// load from one sector per query.  The forward reads f32, so it is exact:
-// the TPU kernel's one-hot MXU contraction and its bf16 split (parts = 1, 2,
-// 3) exist only because the MXU multiplies bf16.  The backward adds with
-// float atomicAdd into a zeroed output that the wrapper allocates, so the
-// last bits of a texel's gradient vary from run to run with the order of adds.
+// one 128 KiB atlas plane in their SMs' L1 instead of all four.  The
+// forward reads f32, so it is exact: the TPU kernel's one-hot MXU
+// contraction and its bf16 split (parts = 1, 2, 3) exist only because the
+// MXU multiplies bf16.  The backward adds with float atomicAdd into a
+// zeroed output that the wrapper allocates, so the last bits of a texel's
+// gradient vary from run to run with the order of adds.
 
 #include <cuda_runtime.h>
 
@@ -147,31 +148,6 @@ gather_texels_kernel(const float* __restrict__ planes, int c, int t,
   }
 }
 
-// The same gather of four channels from a texel-interleaved [T, 4] copy.
-template <typename Off, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-gather_texels_interleaved_kernel(const float4* __restrict__ texels, int t,
-                                 const int32_t* __restrict__ idx, long long kn_ll,
-                                 float* __restrict__ out) {
-  const Off kn = static_cast<Off>(kn_ll);
-  const Off tiles = (kn + kTileLanes - 1) / kTileLanes;
-  for (Off tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    Off col[kLanes];
-    load_texels<Off, kVec>(idx, tile, kn, t, col);
-    float4 v[kLanes];
-#pragma unroll
-    for (int j = 0; j < kLanes; ++j) {
-      v[j] = __ldg(texels + col[j]);
-    }
-#pragma unroll
-    for (int ch = 0; ch < 4; ++ch) {
-      const float w[kLanes] = {pim_gather::component(v[0], ch), pim_gather::component(v[1], ch),
-                               pim_gather::component(v[2], ch), pim_gather::component(v[3], ch)};
-      store_queries<Off, kVec>(out + static_cast<Off>(ch) * kn, tile, kn, w);
-    }
-  }
-}
-
 template <typename Off, bool kStaged, bool kVec>
 int launch_texels(const float* planes, int c, int t, const int32_t* idx, long long kn,
                   float* out, cudaStream_t stream) {
@@ -185,16 +161,6 @@ int launch_texels(const float* planes, int c, int t, const int32_t* idx, long lo
                           : pim_gather::direct_blocks(tiles),
                   kStaged ? 1 : c);
   kernel<<<grid, kThreads, smem, stream>>>(planes, c, t, idx, kn, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename Off, bool kVec>
-int launch_interleaved(const float* texels, int t, const int32_t* idx, long long kn, float* out,
-                       cudaStream_t stream) {
-  const long long tiles = (kn + kTileLanes - 1) / kTileLanes;
-  gather_texels_interleaved_kernel<Off, kVec><<<pim_gather::direct_blocks(tiles), kThreads, 0,
-                                                stream>>>(
-      reinterpret_cast<const float4*>(texels), t, idx, kn, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -232,18 +198,6 @@ int pim_gather_texels(const float* planes, int c, int t, const int32_t* idx, lon
     case 6: return launch_texels<long long, true, false>(planes, c, t, idx, kn, out, stream);
     default: return launch_texels<long long, true, true>(planes, c, t, idx, kn, out, stream);
   }
-}
-
-// texels [T, 4] (16-byte aligned); wide, vec as above.
-int pim_gather_texels_interleaved(const float* texels, int t, const int32_t* idx, long long kn,
-                                  float* out, int wide, int vec, void* stream_ptr) {
-  const auto stream = static_cast<cudaStream_t>(stream_ptr);
-  if (wide) {
-    return vec ? launch_interleaved<long long, true>(texels, t, idx, kn, out, stream)
-               : launch_interleaved<long long, false>(texels, t, idx, kn, out, stream);
-  }
-  return vec ? launch_interleaved<int, true>(texels, t, idx, kn, out, stream)
-             : launch_interleaved<int, false>(texels, t, idx, kn, out, stream);
 }
 
 int pim_gather_texels_bwd(const float* g, int c, int t, const int32_t* idx, long long kn,

@@ -148,9 +148,6 @@ def load() -> ctypes.CDLL:
         for fn in (lib.pim_gather_cols_rows_i32, lib.pim_gather_cols_rows_i64):
             fn.argtypes = [p, i, i, p, ll, p, i, i, p]
             fn.restype = i
-        # interleaved texels, t, idx, k * n, out, wide, vec, stream
-        lib.pim_gather_texels_interleaved.argtypes = [p, i, p, ll, p, i, i, p]
-        lib.pim_gather_texels_interleaved.restype = i
         # scb, spad, clb, n_sc, tris, stride, then the ray arguments
         cluster_args = [p, i, p, i, p, i] + [p] * 6 + [f, p, f, i]
         lib.pim_cluster_isect.argtypes = cluster_args + [p, p, p]

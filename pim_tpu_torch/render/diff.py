@@ -39,11 +39,9 @@ from pim_tpu_torch.core import rng
 from pim_tpu_torch.render import fetch as F
 from pim_tpu_torch.render import lights as L
 from pim_tpu_torch.render.camera import CameraArrays, generate_primary_rays
-from pim_tpu_torch.render.gather_kernel import table_rows
 from pim_tpu_torch.render.integrator import trace_rays
 from pim_tpu_torch.render.scene import SceneArrays, SceneMeta
 from pim_tpu_torch.render.sky import bake_sky_cubemap, earth_atmosphere, sky_corner_planes
-from pim_tpu_torch.render.table_gather import interleave_texels
 
 # optax.adam's defaults
 ADAM_BETAS = (0.9, 0.999)
@@ -113,10 +111,7 @@ def apply_params(meta: SceneMeta, arrays: SceneArrays, cam: CameraArrays, params
     rom_flat = (tt[F.ROME_TEX] < 0.0)[None, :]
     tt = _set_rows(tt, F.ALBEDO, torch.where(alb_flat, alb_rows, tt[F.ALBEDO]))
     tt = _set_rows(tt, F.ROME, torch.where(rom_flat, rom_rows, tt[F.ROME]))
-    # the copies the gathers read, made once per update (no gradient)
-    arrays = dataclasses.replace(arrays, tri_table=tt, tri_rows=table_rows(tt),
-                                 atlas_planes=params.atlas_planes,
-                                 atlas_texels=interleave_texels(params.atlas_planes))
+    arrays = dataclasses.replace(arrays, tri_table=tt, atlas_planes=params.atlas_planes)
 
     if meta.emissive_count > 0:
         et = arrays.emissive_table

@@ -15,11 +15,10 @@ from pim_tpu_torch.math.vec3 import V3
 from pim_tpu_torch.render.gather_kernel import gather_cols
 
 
-def fetch_cols(table_t: torch.Tensor, idx: torch.Tensor, rows=None) -> torch.Tensor:
+def fetch_cols(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table_t [F, T], idx int [N] -> [F, N] (columns of the table; 0 for
-    an index outside [0, T)); `rows`, the table's row-major copy, if the
-    caller keeps one (gather_kernel.table_rows)."""
-    return gather_cols(table_t, idx, rows)
+    an index outside [0, T))."""
+    return gather_cols(table_t, idx)
 
 
 # ---------------------------------------------------------------------------

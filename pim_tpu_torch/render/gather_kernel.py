@@ -11,18 +11,20 @@ stored float32 values unchanged.  `idx` gets no gradient.
 `gather_variant` picks the kernel's variant from the shapes and the index
 pointer: the table staged in shared memory (up to STAGE_MAX_BYTES) or read
 directly, 32- or 64-bit offsets, the 16-byte vector path or the scalar one.
-A caller may pass `rows`, a row-major [T, F] copy of the table
-(`table_rows`), which the forward reads instead when the table is too
-large to stage (F a multiple of 4): a lane's row group then comes in two
-16-byte loads from one sector instead of 8 scattered ones.  The gradient
-still goes to `table_t`.
+A CUDA call on a table too large to stage, with F a multiple of 4
+(`reads_rows`: the e1m1 tri table), reads the table's row-major [T, F]
+copy instead (`table_rows`): a lane's row group then comes in two 16-byte
+loads from one sector instead of 8 scattered ones.  The copy is made on the
+table's first such call, kept as long as the table lives, and made again
+after the table changes in place; the gradient still goes to `table_t`.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from pim_tpu_torch import native
 
@@ -31,6 +33,8 @@ from pim_tpu_torch import native
 STAGE_MAX_BYTES = 200 * 1024
 TILE_LANES = 1024
 _OFFSET_LIMIT = 2**31 - 1
+# table -> (its version counter when copied, its row-major copy)
+_ROWS = WeakIdKeyDictionary()
 
 
 class Variant(NamedTuple):
@@ -61,18 +65,22 @@ def gather_cols_plain(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(ok[None, :], out, 0.0)
 
 
+def reads_rows(f: int, t: int) -> bool:
+    """Whether a CUDA call on a [F, T] table reads its row-major copy: a
+    table too large to stage, with F a multiple of 4."""
+    return f * t * 4 > STAGE_MAX_BYTES and f % 4 == 0
+
+
 def table_rows(table_t: torch.Tensor) -> torch.Tensor:
-    """The row-major [T, F] copy of a [F, T] table that `gather_cols` may
-    read (no gradient flows through the copy)."""
-    return table_t.detach().T.contiguous()
-
-
-def gather_rows_plain(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain K3 read from the row-major copy: [F, N], 0 outside [0, T)."""
-    t = rows.shape[0]
-    ok = (idx >= 0) & (idx < t)
-    out = rows[torch.where(ok, idx, 0).to(torch.int64)].T
-    return torch.where(ok[None, :], out, 0.0)
+    """The row-major [T, F] copy of a [F, T] table (no gradient flows
+    through it): made once per table, and again after the table changes in
+    place; it lives as long as the table."""
+    version = table_t._version
+    kept = _ROWS.get(table_t)
+    if kept is None or kept[0] != version:
+        kept = (version, table_t.detach().T.contiguous())
+        _ROWS[table_t] = kept
+    return kept[1]
 
 
 def gather_cols_bwd_plain(g: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
@@ -92,10 +100,8 @@ def _check_idx(name: str, idx: torch.Tensor, dev) -> int:
     return n
 
 
-def gather_cols_fwd(table_t: torch.Tensor, idx: torch.Tensor,
-                    rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """table_t [F, T] f32, idx [N] i32/i64 -> [F, N] f32 (no autograd);
-    with `rows`, a table too large to stage is read from that [T, F] copy."""
+def gather_cols_fwd(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table_t [F, T] f32, idx [N] i32/i64 -> [F, N] f32 (no autograd)."""
     if table_t.device.type == "cpu":
         return gather_cols_plain(table_t, idx)
     dev = table_t.device
@@ -110,18 +116,15 @@ def gather_cols_fwd(table_t: torch.Tensor, idx: torch.Tensor,
     lib = native.load()
     v = gather_variant(f * t, f * n, n, idx.data_ptr())
     i32 = idx.dtype == torch.int32
-    if rows is None or v.staged:
-        fn = lib.pim_gather_cols_i32 if i32 else lib.pim_gather_cols_i64
-        rc = fn(table_t.data_ptr(), f, t, idx.data_ptr(), n, out.data_ptr(), v.staged, v.wide,
-                v.vec, native.stream_ptr(dev))
-    else:
-        native.require_cuda("gather_cols.rows", rows, torch.float32, (t, f), dev)
-        if f % 4 or rows.data_ptr() % 16:
-            raise ValueError(f"gather_cols.rows: F = {f} must be a multiple of 4 and the copy "
-                             "16-byte aligned")
+    if reads_rows(f, t):
+        rows = table_rows(table_t)
         fn = lib.pim_gather_cols_rows_i32 if i32 else lib.pim_gather_cols_rows_i64
         rc = fn(rows.data_ptr(), f, t, idx.data_ptr(), n, out.data_ptr(), v.wide, v.vec,
                 native.stream_ptr(dev))
+    else:
+        fn = lib.pim_gather_cols_i32 if i32 else lib.pim_gather_cols_i64
+        rc = fn(table_t.data_ptr(), f, t, idx.data_ptr(), n, out.data_ptr(), v.staged, v.wide,
+                v.vec, native.stream_ptr(dev))
     native.check(lib, rc, "gather_cols")
     native.launches["gather_cols"] += 1
     return out
@@ -150,22 +153,20 @@ def gather_cols_bwd(g: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
 
 class _GatherCols(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table_t, idx, rows):
+    def forward(ctx, table_t, idx):
         ctx.save_for_backward(idx)
         ctx.t = table_t.shape[1]
-        return gather_cols_fwd(table_t, idx, rows)
+        return gather_cols_fwd(table_t, idx)
 
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return gather_cols_bwd(g.contiguous(), idx, ctx.t), None, None
+        return gather_cols_bwd(g.contiguous(), idx, ctx.t), None
 
 
-def gather_cols(table_t: torch.Tensor, idx: torch.Tensor,
-                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+def gather_cols(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table_t [F, T] f32, idx [N] i32/i64 -> [F, N] f32, differentiable in
-    table_t when it requires grad.  `rows`, when given, must hold
-    `table_rows(table_t)`: CUDA calls may read it instead of table_t."""
+    table_t when it requires grad."""
     if table_t.requires_grad and torch.is_grad_enabled():
-        return _GatherCols.apply(table_t, idx, rows)
-    return gather_cols_fwd(table_t, idx, rows)
+        return _GatherCols.apply(table_t, idx)
+    return gather_cols_fwd(table_t, idx)

@@ -187,8 +187,7 @@ def sample_light(meta: SceneMeta, arrays: SceneArrays, light_table, p: V3,
         alb, rom = sample_atlas_bilinear_multi(
             arrays.atlas_planes, arrays.tex_rec_t,
             [(a_tex, uv, (0, 0, 0, 0)), (r_tex, uv, (0, 0, 0, 0))],
-            atlas_corners=None if meta.differentiable else arrays.atlas_corners, active=active,
-            atlas_texels=arrays.atlas_texels)
+            atlas_corners=None if meta.differentiable else arrays.atlas_corners, active=active)
         albedo = where3(a_tex >= 0, V3(alb[0], alb[1], alb[2]), albedo)
         emit_a = torch.where(r_tex >= 0, rom[3], emit_a)
     emission = albedo * (emit_a * emit_a * K_EMISSION_SCALE)

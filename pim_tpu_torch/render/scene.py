@@ -46,10 +46,8 @@ from pim_tpu_torch.math.sampling import hammersley_2d, sample_bary_coord, sample
 from pim_tpu_torch.math.vec3 import MILLI, RCP_EPS, V3, cross, dot, f32, where3
 from pim_tpu_torch.render import fetch as F
 from pim_tpu_torch.render.dense_kernels import intersect_dense_raw, occluded_dense, pack_tris
-from pim_tpu_torch.render.gather_kernel import table_rows
 from pim_tpu_torch.render.raysort import sorted_rays, unsort_rows
 from pim_tpu_torch.render.sky import sky_corner_planes
-from pim_tpu_torch.render.table_gather import interleave_texels
 
 # Past this many triangles the cluster kernels (K4/K5) take over from the
 # dense ones (K1/K2).  This is the reference's crossover, measured on a TPU
@@ -106,7 +104,6 @@ class SceneArrays:
     positions: torch.Tensor       # [V, 3] f32 triangle soup
     tris12: torch.Tensor          # [Tpad, 12] f32 Baldwin-Weber rows (pack_tris)
     tri_table: torch.Tensor       # [48, T] f32 fused attribute table (fetch.py rows)
-    tri_rows: torch.Tensor        # [T, 48] f32 its row-major copy, which K3 reads
     tri_to_emit: torch.Tensor     # [T] i32, -1 when not emissive
     emit_tris: torch.Tensor       # [E] i64 triangle of each emissive
     emissive_table: torch.Tensor  # [24, E] f32 compact NEE table (lights.E_* rows)
@@ -118,7 +115,6 @@ class SceneArrays:
     cl_scb: torch.Tensor          # [8, Spad] f32 supercluster boxes
     atlas_corners: torch.Tensor   # [16, H*W] f32 atlas corner planes (K6, C = 4)
     atlas_planes: torch.Tensor    # [4, H*W] f32 atlas channel planes (K7)
-    atlas_texels: torch.Tensor    # [H*W, 4] f32 their interleaved copy, which K7 reads
     tex_rec_t: torch.Tensor       # [5, Ntex] f32 (x0, y0, w, h, atlas width)
     sky: torch.Tensor             # [6, R, R, 3] f32 sky cube (R = 1, zeros: none)
     sky_corners: torch.Tensor     # [12, 6*R*R] f32 its corner planes (K6, C = 3)
@@ -154,7 +150,7 @@ def _mt_soa(ro: V3, rd: V3, a: V3, e1: V3, e2: V3):
 
 def _finalize_hit_fused(arrays: SceneArrays, t, tri, ro: V3, rd: V3) -> Hit:
     """Hit completion from one fused tri-table fetch (K3)."""
-    rows = F.fetch_cols(arrays.tri_table, torch.clamp_min(tri, 0), arrays.tri_rows)
+    rows = F.fetch_cols(arrays.tri_table, torch.clamp_min(tri, 0))
     a = F.v3_rows(rows, F.PA)
     b = F.v3_rows(rows, F.PB)
     c = F.v3_rows(rows, F.PC)
@@ -384,7 +380,7 @@ def bake_light_grid(meta: SceneMeta, arrays: SceneArrays) -> Tuple[torch.Tensor,
             rep(centers.z) + (oz * 3.0 - 1.5) * radius,
         )
         tri = arrays.emit_tris.repeat(gc).repeat_interleave(s)  # [Gc*E*S]
-        rows = F.fetch_cols(arrays.tri_table, tri, arrays.tri_rows)
+        rows = F.fetch_cols(arrays.tri_table, tri)
         a = F.v3_rows(rows, F.PA)
         b = F.v3_rows(rows, F.PB)
         c = F.v3_rows(rows, F.PC)
@@ -544,13 +540,10 @@ def build_scene(
     cluster = CL.build_clusters(flat.positions) if backend == "cluster" \
         else CL.dummy_cluster_arrays()
     g = grid_len(grid)
-    tri_table = dev_t(F.build_tri_table(flat, flat.materials, tri_to_emit, atlas, tex_rec))
-    atlas_planes = dev_t(np.ascontiguousarray(atlas.reshape(-1, 4).T))
     arrays = SceneArrays(
         positions=dev_t(flat.positions),
         tris12=dev_t(pack_tris(flat.positions)),
-        tri_table=tri_table,
-        tri_rows=table_rows(tri_table),
+        tri_table=dev_t(F.build_tri_table(flat, flat.materials, tri_to_emit, atlas, tex_rec)),
         tri_to_emit=dev_t(tri_to_emit[: max(tri_count, 1)], torch.int32),
         emit_tris=dev_t(emissive_tris, torch.int64),
         emissive_table=dev_t(build_emissive_table(flat, atlas, tex_rec, emissive_tris)),
@@ -561,8 +554,7 @@ def build_scene(
         cl_clb=dev_t(cluster.clb),
         cl_scb=dev_t(cluster.scb),
         atlas_corners=dev_t(build_atlas_corner_planes(atlas, tex_rec)),
-        atlas_planes=atlas_planes,
-        atlas_texels=interleave_texels(atlas_planes),
+        atlas_planes=dev_t(np.ascontiguousarray(atlas.reshape(-1, 4).T)),
         tex_rec_t=dev_t(texture_records_t(atlas, tex_rec)),
         sky=sky_t,
         sky_corners=sky_corner_planes(sky_t),
@@ -616,13 +608,10 @@ def from_jax_scene(meta_fields: dict, arrays_np: dict, lights_np: dict,
         sort_rays=bool(meta_fields["sort_rays"]),
     )
     sky = dev_t(arrays_np["sky"])
-    tri_table = dev_t(arrays_np["tri_table"])
-    atlas_planes = dev_t(arrays_np["atlas_planes"])
     arrays = SceneArrays(
         positions=dev_t(arrays_np["positions"]),
         tris12=dev_t(arrays_np["tris9"]),
-        tri_table=tri_table,
-        tri_rows=table_rows(tri_table),
+        tri_table=dev_t(arrays_np["tri_table"]),
         tri_to_emit=dev_t(arrays_np["tri_to_emit"], torch.int32),
         emit_tris=dev_t(np.asarray(arrays_np["emit_to_tri_f"])[0, :e], torch.int64),
         emissive_table=dev_t(arrays_np["emissive_table"]),
@@ -633,8 +622,7 @@ def from_jax_scene(meta_fields: dict, arrays_np: dict, lights_np: dict,
         cl_clb=dev_t(arrays_np["cl_clb"]),
         cl_scb=dev_t(arrays_np["cl_scb"]),
         atlas_corners=dev_t(arrays_np["atlas_corners"]),
-        atlas_planes=atlas_planes,
-        atlas_texels=interleave_texels(atlas_planes),
+        atlas_planes=dev_t(arrays_np["atlas_planes"]),
         tex_rec_t=dev_t(arrays_np["tex_rec_t"]),
         sky=sky,
         sky_corners=sky_corner_planes(sky),

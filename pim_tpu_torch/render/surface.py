@@ -97,8 +97,7 @@ def _bilinear_out(corners, tx, ty, missing, default):
     return out
 
 
-def sample_atlas_bilinear_multi(atlas_planes, rec_t, fetches, atlas_corners=None, active=None,
-                                atlas_texels=None):
+def sample_atlas_bilinear_multi(atlas_planes, rec_t, fetches, atlas_corners=None, active=None):
     """Bilinear-wrap fetch of several texture-id sets in ONE table fetch.
 
     fetches: list of (tex_id [N] i32, uv V2, default 4-tuple); returns a
@@ -107,13 +106,12 @@ def sample_atlas_bilinear_multi(atlas_planes, rec_t, fetches, atlas_corners=None
     outside `active` (when given) get 0 there, as on the reference's kernel
     path (their values are never consumed).  Without, ONE K7 call gathers
     the four corners of every set from `atlas_planes` [4, H*W] and the lerp
-    runs in torch, differentiable in the planes and the uvs (K7 reads
-    `atlas_texels`, the planes' interleaved copy, when given); `active` is
+    runs in torch, differentiable in the planes and the uvs; `active` is
     not used."""
     setups = [_bilinear_setup(rec_t, tex_id, uv) for tex_id, uv, _ in fetches]
     if atlas_corners is None:
         tex = gather_texels(atlas_planes, torch.cat([s[0] for s in setups], dim=0),
-                            parts=1, texels=atlas_texels)  # [4, 4F, N]
+                            parts=1)  # [4, 4F, N]
         return [_bilinear_out([tuple(tex[c, 4 * fi + k] for k in range(4)) for c in range(4)],
                               tx, ty, tex_id < 0, default)
                 for fi, ((tex_id, _, default), (_, tx, ty)) in enumerate(zip(fetches, setups))]
@@ -144,8 +142,7 @@ class HitAttribs(NamedTuple):
 
 def fetch_hit_attribs(meta, arrays, hit) -> HitAttribs:
     """Fused fetch + interpolation for a Hit batch."""
-    rows = F.fetch_cols(arrays.tri_table, torch.clamp_min(hit.tri, 0),
-                        arrays.tri_rows)  # [48, N]
+    rows = F.fetch_cols(arrays.tri_table, torch.clamp_min(hit.tri, 0))  # [48, N]
     return attribs_from_rows(meta, arrays, rows, hit)
 
 
@@ -193,7 +190,7 @@ def attribs_from_rows(meta, arrays, rows, hit) -> HitAttribs:
         smps = sample_atlas_bilinear_multi(
             arrays.atlas_planes, arrays.tex_rec_t, fetches,
             atlas_corners=None if meta.differentiable else arrays.atlas_corners,
-            active=hit.tri >= 0, atlas_texels=arrays.atlas_texels)
+            active=hit.tri >= 0)
         if meta.textured:
             albedo = [torch.where(a_tex >= 0, smps[0][c], albedo[c]) for c in range(3)]
             rome = [torch.where(r_tex >= 0, smps[1][c], rome[c]) for c in range(4)]

@@ -29,16 +29,10 @@ parts = 1 the atlas texels are bf16 values already, so the TPU gives the
 same numbers).  `gather_texels` goes through its autograd Function only
 when `planes` needs a gradient; the kernel's variant (planes staged in
 shared memory, offset width, vector path) comes from
-`gather_kernel.gather_variant`.  A caller may pass `texels`, a
-texel-interleaved [T, 4] copy of four planes (`interleave_texels`), which
-the forward reads instead when the planes are too large to stage: one
-16-byte load a query instead of four scattered ones.  The gradient still
-goes to `planes`.
+`gather_kernel.gather_variant`.
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 
@@ -97,18 +91,6 @@ def gather_texels_plain(planes: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
     return planes[:, torch.clamp(idx, 0, t - 1).to(torch.int64)]
 
 
-def interleave_texels(planes: torch.Tensor) -> torch.Tensor:
-    """The texel-interleaved [T, C] copy of [C, T] planes that
-    `gather_texels` may read for C = 4 (no gradient flows through it)."""
-    return planes.detach().T.contiguous()
-
-
-def gather_interleaved_plain(texels: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain K7 read from the interleaved copy: [C, K, N]."""
-    t = texels.shape[0]
-    return texels[torch.clamp(idx, 0, t - 1).to(torch.int64)].permute(2, 0, 1)
-
-
 def gather_texels_bwd_plain(g: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
     """Plain K7 backward: g [C, K, N] added into a zero [C, t] at the
     clipped index."""
@@ -126,11 +108,8 @@ def _check_texel_idx(name: str, idx: torch.Tensor, dev):
     return k, n
 
 
-def gather_texels_fwd(planes: torch.Tensor, idx: torch.Tensor,
-                      texels: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """planes [C, T] f32, idx [K, N] i32 -> [C, K, N] f32 (no autograd);
-    with `texels` (C = 4), planes too large to stage are read from that
-    [T, 4] copy."""
+def gather_texels_fwd(planes: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """planes [C, T] f32, idx [K, N] i32 -> [C, K, N] f32 (no autograd)."""
     if planes.device.type == "cpu":
         return gather_texels_plain(planes, idx)
     dev = planes.device
@@ -144,18 +123,8 @@ def gather_texels_fwd(planes: torch.Tensor, idx: torch.Tensor,
         return out
     lib = native.load()
     v = gather_variant(c * t, c * k * n, k * n, idx.data_ptr())
-    if texels is None or v.staged:
-        rc = lib.pim_gather_texels(planes.data_ptr(), c, t, idx.data_ptr(), k * n,
-                                   out.data_ptr(), v.staged, v.wide, v.vec,
-                                   native.stream_ptr(dev))
-    else:
-        native.require_cuda("gather_texels.texels", texels, torch.float32, (t, 4), dev)
-        if c != 4 or texels.data_ptr() % 16:
-            raise ValueError(f"gather_texels.texels: needs C = 4 (got {c}) and a 16-byte "
-                             "aligned copy")
-        rc = lib.pim_gather_texels_interleaved(texels.data_ptr(), t, idx.data_ptr(), k * n,
-                                               out.data_ptr(), v.wide, v.vec,
-                                               native.stream_ptr(dev))
+    rc = lib.pim_gather_texels(planes.data_ptr(), c, t, idx.data_ptr(), k * n, out.data_ptr(),
+                               v.staged, v.wide, v.vec, native.stream_ptr(dev))
     native.check(lib, rc, "gather_texels")
     native.launches["gather_texels"] += 1
     return out
@@ -182,25 +151,23 @@ def gather_texels_bwd(g: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tenso
 
 class _GatherTexels(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, planes, idx, texels):
+    def forward(ctx, planes, idx):
         ctx.save_for_backward(idx)
         ctx.t = planes.shape[1]
-        return gather_texels_fwd(planes, idx, texels)
+        return gather_texels_fwd(planes, idx)
 
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return gather_texels_bwd(g.contiguous(), idx, ctx.t), None, None
+        return gather_texels_bwd(g.contiguous(), idx, ctx.t), None
 
 
-def gather_texels(planes: torch.Tensor, idx: torch.Tensor, parts: int = 3,
-                  texels: Optional[torch.Tensor] = None) -> torch.Tensor:
+def gather_texels(planes: torch.Tensor, idx: torch.Tensor, parts: int = 3) -> torch.Tensor:
     """planes [C, T] f32, idx [K, N] i32 -> [C, K, N] f32, differentiable in
     `planes` when it requires grad.  `parts` is the TPU kernel's bf16 split
-    and has no effect here (see the module note).  `texels`, when given,
-    must hold `interleave_texels(planes)`: CUDA calls may read it instead."""
+    and has no effect here (see the module note)."""
     if parts not in (1, 2, 3):
         raise ValueError(f"gather_texels: parts {parts}, expected 1, 2 or 3")
     if planes.requires_grad and torch.is_grad_enabled():
-        return _GatherTexels.apply(planes, idx, texels)
-    return gather_texels_fwd(planes, idx, texels)
+        return _GatherTexels.apply(planes, idx)
+    return gather_texels_fwd(planes, idx)

@@ -81,20 +81,31 @@ def profiler_ms(fn) -> float:
     raise RuntimeError(f"{PROFILER_TRIES} traces in a row held no device time")
 
 
-def _launcher(lib, kind, form, table, rows, idx, out, wide):
-    """fn() launching one variant of K3 or K7 into `out`."""
+def launcher(lib, kind, form, table, idx, out, wide: bool, vec: bool = True):
+    """fn() launching one variant of K3 (`kind` "k3"; `form` "staged",
+    "direct" or "rows", the last on gather_kernel.table_rows(table)) or K7
+    ("k7"; "staged" or "direct") on `table` and `idx` into `out`, with
+    64-bit offsets if `wide` and on the vector path if `vec` (which needs a
+    lane count that is a multiple of 4 and 16-byte aligned indices)."""
     from pim_tpu_torch import native
+    from pim_tpu_torch.render.gather_kernel import table_rows
 
     s = native.stream_ptr(table.device)
     a, t = table.shape
     n = idx.numel()
+    i32 = idx.dtype == torch.int32
     if kind == "k3" and form == "rows":
-        return lambda: native.check(lib, lib.pim_gather_cols_rows_i32(
-            rows.data_ptr(), a, t, idx.data_ptr(), n, out.data_ptr(), wide, 1, s), "rows")
-    staged = int(form == "staged")
-    fn = lib.pim_gather_cols_i32 if kind == "k3" else lib.pim_gather_texels
+        rows = table_rows(table)
+        fn = lib.pim_gather_cols_rows_i32 if i32 else lib.pim_gather_cols_rows_i64
+        return lambda: native.check(lib, fn(rows.data_ptr(), a, t, idx.data_ptr(), n,
+                                            out.data_ptr(), wide, vec, s), "rows")
+    staged = form == "staged"
+    if kind == "k3":
+        fn = lib.pim_gather_cols_i32 if i32 else lib.pim_gather_cols_i64
+    else:
+        fn = lib.pim_gather_texels
     return lambda: native.check(lib, fn(table.data_ptr(), a, t, idx.data_ptr(), n,
-                                        out.data_ptr(), staged, wide, 1, s), form)
+                                        out.data_ptr(), staged, wide, vec, s), form)
 
 
 def main(argv=None) -> None:
@@ -117,7 +128,6 @@ def main(argv=None) -> None:
     results = []
     for name, kind, (a, t), k in CASES:
         table = torch.randn((a, t), generator=gen).to(dev)
-        rows = table.T.contiguous()
         rand = torch.randint(-1, t + 1, (k, N), generator=gen, dtype=torch.int32)
         rand[0, :2] = torch.tensor([-1, t], dtype=torch.int32)
         staged = a * t * 4 <= gk.STAGE_MAX_BYTES
@@ -141,7 +151,7 @@ def main(argv=None) -> None:
                 fns, times = {}, {0: [], 1: []}
                 for wide in (0, 1):
                     out = torch.empty_like(plain)
-                    fns[wide] = _launcher(lib, kind, form, table, rows, idx, out, wide)
+                    fns[wide] = launcher(lib, kind, form, table, idx, out, bool(wide))
                     fns[wide]()
                     torch.cuda.synchronize()
                     if not torch.equal(out.view(torch.int32), plain.view(torch.int32)):

@@ -52,7 +52,7 @@ GROUPS = (
     ("K4 cluster_isect", ("cluster_isect_kernel",)),
     ("K5 cluster_anyhit", ("cluster_anyhit_kernel",)),
     ("K6 gather_bilinear", ("gather_bilinear_kernel",)),
-    ("K7 gather_texels", ("gather_texels_kernel", "gather_texels_interleaved_kernel")),
+    ("K7 gather_texels", ("gather_texels_kernel",)),
     ("K7-bwd gather_texels_bwd", ("gather_texels_bwd_kernel",)),
     ("torch index/gather/scatter", ("index", "scatter", "gather")),
     ("torch sort/scan", ("sort", "scan", "radix")),

@@ -8,13 +8,15 @@ wrappers decide on the CPU, and the layout helpers.
   both sides of each threshold, and on real index tensors (a slice that
   starts one element in is misaligned); its constants are the ones
   csrc/gather_tiles.cuh compiles in.
-- The row-major tri-table copy and the texel-interleaved atlas copy give,
-  through their plain readers, the plain gathers' outputs bit for bit on
-  the same indices (out of range ones included, N not a multiple of 4).
+- `reads_rows` sends a table too large to stage, with F a multiple of 4,
+  to its row-major copy; the copy gives, through a plain reader, the plain
+  gather's output bit for bit on the same indices (out of range ones
+  included, N not a multiple of 4), is made once per table, and is made
+  again after the table changes in place.
 - `gather_texels` skips its autograd Function when `planes` needs no
   gradient, and with one still returns K7-bwd's gradient (plain versions
-  here), also when the forward reads the interleaved copy; the same for
-  `gather_cols` and its row-major copy.  Nothing launches on the CPU.
+  here); `gather_cols` keeps the table's gradient, and the row-major copy
+  carries none.  Nothing launches on the CPU.
 """
 
 import os
@@ -85,6 +87,25 @@ def test_variant_constants_match_the_kernels():
     assert "gather_tiles.cuh" in native.HEADERS
 
 
+def _rows_plain(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain K3 read from the row-major copy: [F, N], 0 outside [0, T)."""
+    t = rows.shape[0]
+    ok = (idx >= 0) & (idx < t)
+    out = rows[torch.where(ok, idx, 0).to(torch.int64)].T
+    return torch.where(ok[None, :], out, 0.0)
+
+
+@pytest.mark.parametrize("f,t,want", [
+    (48, 81552, True),   # the e1m1 tri table
+    (98, 867, False),    # the e1m1 light table: F not a multiple of 4
+    (48, 108, False),    # the Cornell tri table: staged
+    (4, LIMIT // 4, False),
+    (4, LIMIT // 4 + 1, True),
+])
+def test_reads_rows(f, t, want):
+    assert gk.reads_rows(f, t) == want
+
+
 @pytest.mark.parametrize("f,t,n,dtype", [(48, 108, 4096, torch.int32), (48, 900, 3001, torch.int64),
                                          (12, 37, 1023, torch.int32)])
 def test_row_major_copy_gathers_bitwise(f, t, n, dtype):
@@ -94,43 +115,42 @@ def test_row_major_copy_gathers_bitwise(f, t, n, dtype):
     idx[:2] = torch.tensor([-1, t])
     rows = gk.table_rows(table)
     assert rows.shape == (t, f) and rows.is_contiguous()
-    got = gk.gather_rows_plain(rows, idx)
+    got = _rows_plain(rows, idx)
     want = gk.gather_cols_plain(table, idx)
     np.testing.assert_array_equal(got.numpy().view(np.int32), want.numpy().view(np.int32))
 
 
-@pytest.mark.parametrize("t,k,n", [(32768, 12, 1024), (3000, 3, 1023), (50, 4, 7)])
-def test_interleaved_copy_gathers_bitwise(t, k, n):
-    rs = np.random.default_rng(t + k * n)
-    planes = torch.from_numpy(rs.standard_normal((4, t)).astype(np.float32))
-    idx = torch.from_numpy(rs.integers(-3, t + 3, (k, n)).astype(np.int32))
-    idx[0, :2] = torch.tensor([-1, t], dtype=torch.int32)
-    texels = tg.interleave_texels(planes)
-    assert texels.shape == (t, 4) and texels.is_contiguous()
-    got = tg.gather_interleaved_plain(texels, idx)
-    want = tg.gather_texels_plain(planes, idx)
-    assert got.shape == (4, k, n)
-    np.testing.assert_array_equal(got.numpy().view(np.int32), want.numpy().view(np.int32))
+@pytest.mark.parametrize("change", ["none", "in place", "new table"])
+def test_row_major_copy_follows_its_table(change):
+    rs = np.random.default_rng(5)
+    table = torch.from_numpy(rs.standard_normal((8, 40)).astype(np.float32))
+    first = gk.table_rows(table)
+    if change == "in place":
+        table.mul_(2.0)
+    elif change == "new table":
+        table = table * 2.0
+    rows = gk.table_rows(table)
+    assert (rows is first) == (change == "none")
+    assert torch.equal(rows, table.T)
 
 
-@pytest.mark.parametrize("interleaved", [False, True])
-def test_gather_texels_autograd_only_when_planes_need_it(interleaved):
+@pytest.mark.parametrize("c,t", [(4, 60), (3, 50)])
+def test_gather_texels_autograd_only_when_planes_need_it(c, t):
     rs = np.random.default_rng(3)
-    planes = torch.from_numpy(rs.standard_normal((4, 60)).astype(np.float32))
-    idx = torch.from_numpy(rs.integers(-2, 62, (8, 301)).astype(np.int32))
-    g = torch.from_numpy(rs.standard_normal((4, 8, 301)).astype(np.float32))
-    texels = tg.interleave_texels(planes) if interleaved else None
+    planes = torch.from_numpy(rs.standard_normal((c, t)).astype(np.float32))
+    idx = torch.from_numpy(rs.integers(-2, t + 2, (8, 301)).astype(np.int32))
+    g = torch.from_numpy(rs.standard_normal((c, 8, 301)).astype(np.float32))
     before = dict(native.launches)
-    out = tg.gather_texels(planes, idx, parts=1, texels=texels)
+    out = tg.gather_texels(planes, idx, parts=1)
     assert out.grad_fn is None
     assert torch.equal(out, tg.gather_texels_plain(planes, idx))
     p = planes.clone().requires_grad_(True)
-    out = tg.gather_texels(p, idx, parts=1, texels=texels)
+    out = tg.gather_texels(p, idx, parts=1)
     assert out.grad_fn is not None
     (out * g).sum().backward()
-    assert torch.equal(p.grad, tg.gather_texels_bwd_plain(g, idx, 60))
+    assert torch.equal(p.grad, tg.gather_texels_bwd_plain(g, idx, t))
     with torch.no_grad():
-        assert tg.gather_texels(p, idx, texels=texels).grad_fn is None
+        assert tg.gather_texels(p, idx).grad_fn is None
     assert native.launches == before
 
 
@@ -140,7 +160,8 @@ def test_gather_cols_row_major_copy_keeps_the_table_gradient():
     idx = torch.from_numpy(rs.integers(-2, 42, 203)).to(torch.int64)
     g = torch.from_numpy(rs.standard_normal((8, 203)).astype(np.float32))
     before = dict(native.launches)
-    out = gk.gather_cols(table, idx, gk.table_rows(table))
+    assert not gk.table_rows(table).requires_grad
+    out = gk.gather_cols(table, idx)
     assert torch.equal(out.detach(), gk.gather_cols_plain(table.detach(), idx))
     (out * g).sum().backward()
     assert torch.equal(table.grad, gk.gather_cols_bwd_plain(g, idx, 40))
@@ -156,7 +177,7 @@ def test_gather_cols_row_major_copy_keeps_the_table_gradient():
      "K3-bwd gather_cols_bwd"),
     ("void (anonymous namespace)::gather_texels_kernel<int, false, true>(float const*, ...)",
      "K7 gather_texels"),
-    ("void (anonymous namespace)::gather_texels_interleaved_kernel<int, true>(float4 const*, ...)",
+    ("void (anonymous namespace)::gather_texels_kernel<int, true, false>(float const*, ...)",
      "K7 gather_texels"),
     ("(anonymous namespace)::gather_texels_bwd_kernel(float const*, int, int, ...)",
      "K7-bwd gather_texels_bwd"),

@@ -123,9 +123,6 @@ def test_from_jax_scene_round_trips_every_field(jax_scene):
             want = arrays_np["emit_to_tri_f"][0].astype(np.int64)
         elif f.name == "sky_corners":
             want = sky_corner_planes(torch.from_numpy(np.array(arrays_np["sky"]))).numpy()
-        elif f.name in ("tri_rows", "atlas_texels"):  # the gathers' layout copies
-            src = {"tri_rows": "tri_table", "atlas_texels": "atlas_planes"}[f.name]
-            want = np.ascontiguousarray(np.asarray(arrays_np[src]).T)
         else:
             want = arrays_np[jax_name.get(f.name, f.name)]
         assert got.shape == want.shape, f.name
