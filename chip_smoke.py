@@ -23,12 +23,24 @@ exits non-zero:
   4. the e1m1 slice: its main path (the map built on the card, sky and
      light grid included, then the 512^2, 10-bounce, 1-spp-per-step frame
      for 16 steps with the exposure pass), counted as above; the frame must
-     be finite and K3-K6 must have launched during it.  Then K4/K5
-     (262,144 rays from the e1m1 camera and one seeded bounce, ~10% dead
-     lanes and one fully dead run; the brute-force plain versions on the
-     first PLAIN_LANES lanes, timed over PLAIN_RUNS runs) and K6 (atlas:
-     K=2 x 262,144 queries, C=4; sky: the [12, 6*32*32] cube, 262,144
-     queries, C=3) against their plain versions, bitwise; K3 on the four
+     be finite and K3-K6 must have launched during it.  Then K4/K5 on
+     three sets of rays: 262,144 from the e1m1 camera and one seeded
+     bounce (~10% dead lanes and one fully dead run; the brute-force plain
+     versions timed over PLAIN_RUNS runs on the first PLAIN_LANES lanes);
+     the main path's own, the bounce-1 (K4) and NEE shadow (K5) rays of a
+     512^2 1-spp step as the wrappers receive them, in raysort's order; and
+     a tie scene (duplicated triangles, so equal t, and an all-padding
+     supercluster; 32-lane groups all dead and all blocked at once).  On
+     each, bitwise against the plain version (on the first PLAIN_LANES
+     lanes), against both of the kernel's ways of testing a cluster and
+     against the walk replay of tools/cluster_variants.py on every lane,
+     which also counts per ray the clusters and real-slot tests a
+     traversal needs (the bound) and the slot tests a warp-union walk
+     (every lane runs all 128 slots of each cluster any lane of its warp
+     enters) and this kernel issue; K6 (atlas: K=2 x 262,144
+     queries, C=4; sky: the [12, 6*32*32] cube, 262,144 queries, C=3)
+     against its plain version, bitwise, and timed beside one
+     `embedding_bag` of the corner rows; K3 on the four
      tables the frame fetches from (the [48, 81552] tri table, the [5, 71]
      texture records, the light table over the grid's cells and the
      [24, 600] emissive table; the tri table the wrapper reads from its
@@ -70,15 +82,17 @@ ONE call from an idle device (CUDA events around it after a synchronise;
 median, min, max of TIMING_RUNS), which holds the host's work in the call.
 K3 and K7 (kernel and library call) are timed DEVICE_BATCHES times, and
 also L2-cold (`cold_ms`: each call after a 96 MB read, the reads' own time
-taken off).  The brute-force K4/K5 plain versions wait on the device
-themselves, so their `plain_ms` holds their host time too.
+taken off); K4/K5 L2-cold on the main path's rays.  The brute-force
+K4/K5 plain versions wait on the device themselves, so their `plain_ms`
+holds their host time too.
 Before the last line come a JSON object of per-kernel results (`launches`
 summed over the main paths that run the kernel, each path's count in
 `launches_by_path`; `ms`, `call_ms`, `plain_ms`, `plain_call_ms`,
 `library_ms`, `library_call_ms`; `bound_ms`, the least time the card could
 take, from this run's inputs; `library_ms` is one PyTorch call computing
 the same function, or null; K3 and K7 also carry their other shapes and
-the main-path indices under prefixed keys) and the card's nvidia-smi name
+the main-path indices under prefixed keys, K4 and K5 the main path's rays
+and the walk's counts per ray) and the card's nvidia-smi name
 and power limit; the last line is `{"ok": true, "device": {...}}`.  Imports
 nothing of JAX.
 """
@@ -636,76 +650,31 @@ def check_e1m1_kernels(dev, scene):
     import numpy as np
     import torch
 
-    from pim_tpu_torch.math.vec3 import V3
     from pim_tpu_torch.render import cluster as CL
-    from pim_tpu_torch.render import gather_kernel as gk
     from pim_tpu_torch.render import table_gather as tg
     from pim_tpu_torch.render.lights import make_light_table
     from pim_tpu_torch.render.raysort import sorted_rays
+    from pim_tpu_torch.tools.cluster_variants import main_path_wavefronts
 
     meta, arrays, lights = scene
     cl = CL.ClusterArrays(tris=arrays.cl_tris, clb=arrays.cl_clb, scb=arrays.cl_scb)
     ro, rd, t_far, t_short = _e1m1_rays(dev, scene)
-    dead = t_far <= 0.0
-    sub = slice(0, PLAIN_LANES)
-    ro_s, rd_s = V3(*(c[sub] for c in ro)), V3(*(c[sub] for c in rd))
+    waves = main_path_wavefronts(scene)
     print(f"e1m1 hierarchy: tris {tuple(cl.tris.shape)} clb {tuple(cl.clb.shape)} "
-          f"scb {tuple(cl.scb.shape)}; rays {N_RAYS}, dead {int(dead.sum())}, "
-          f"plain compared on lanes [0, {PLAIN_LANES})")
-    results = {}
-
-    t_k, tri_k = CL.cluster_isect(cl, ro, rd, 0.0, t_far)
-    t_p, tri_p = CL.cluster_isect_plain(cl, ro_s, rd_s, 0.0, t_far[sub])
-    torch.cuda.synchronize()
-    tri_diff = int((tri_k[sub] != tri_p).sum())
-    t_diff = int((t_k[sub].view(torch.int32) != t_p.view(torch.int32)).sum())
-    print(f"K4 cluster_isect: hits={int((tri_k >= 0).sum())} tri_id_diffs={tri_diff} "
-          f"t_bit_diffs={t_diff} (on {PLAIN_LANES} lanes) dead_misses="
-          f"{int(((tri_k == -1) & dead).sum())}/{int(dead.sum())}")
-    if tri_diff or t_diff:
-        raise AssertionError(f"K4 differs from its plain version: {tri_diff} ids, {t_diff} t")
-    if not bool(((tri_k == -1) & (t_k == -1.0))[dead].all()):
-        raise AssertionError("K4: a dead lane reported a hit")
-    times = _time_pair("K4 time", lambda: CL.cluster_isect(cl, ro, rd, 0.0, t_far),
-                       lambda: CL.cluster_isect_plain(cl, ro_s, rd_s, 0.0, t_far[sub]),
-                       PLAIN_RUNS, plain_queued=False)
-    # a live ray must test every cluster whose slab it enters no farther
-    # than its result (its hit, else t_far); box tests are not counted
-    cl_bytes = sum(x.numel() * 4 for x in (cl.tris, cl.clb, cl.scb))
-    ray_bytes = N_RAYS * (6 * 4 + 4)
-    need = _clusters_needed(cl, ro, rd, t_far, torch.where(tri_k >= 0, t_k, t_far))
-    results["cluster_isect"] = _row(float((t_k[sub] - t_p).abs().max()), *times,
-                                    _bound(ray_bytes + cl_bytes + N_RAYS * 8,
-                                           need * CL.CB * BW_TEST_FLOPS))
+          f"scb {tuple(cl.scb.shape)}, {int((cl.tris[12] >= 0).sum())} real slots; random rays "
+          f"{N_RAYS}, dead {int((t_far <= 0.0).sum())}; main path: the bounce-1 and NEE shadow "
+          f"rays of a {WIDTH}^2 1-spp step, sorted; plain compared on lanes [0, {PLAIN_LANES})")
+    results = {"cluster_isect": check_cluster_pair(cl, False, (ro, rd, 0.0, t_far),
+                                                   waves["bounce"]),
+               "cluster_anyhit": check_cluster_pair(cl, True, (ro, rd, 0.0, t_short),
+                                                    waves["shadow"])}
+    check_tie_scene(dev)
     sro, srd, stf, _ = sorted_rays(meta.grid_spec(), ro, rd, t_far)
-    k_sorted = _timing(lambda: CL.cluster_isect(cl, sro, srd, 0.0, stf))
-    print(f"K4 time on the same rays sorted by raysort: {_fmt(k_sorted)}")
-
-    h_k = CL.cluster_anyhit(cl, ro, rd, 0.0, t_short)
-    h_p = CL.cluster_anyhit_plain(cl, ro_s, rd_s, 0.0, t_short[sub])
-    torch.cuda.synchronize()
-    flag_diff = int((h_k[sub] != h_p).sum())
-    print(f"K5 cluster_anyhit: blocked={int(h_k.sum())} flag_diffs={flag_diff} (on "
-          f"{PLAIN_LANES} lanes) dead_reporting_1={int(h_k[dead].sum())}/{int(dead.sum())}")
-    if flag_diff:
-        raise AssertionError(f"K5 differs from its plain version on {flag_diff} rays")
-    if bool(h_k[dead].any()):
-        raise AssertionError("K5: a dead lane reported a hit")
-    times = _time_pair("K5 time", lambda: CL.cluster_anyhit(cl, ro, rd, 0.0, t_short),
-                       lambda: CL.cluster_anyhit_plain(cl, ro_s, rd_s, 0.0, t_short[sub]),
-                       PLAIN_RUNS, plain_queued=False)
-    # an unblocked live ray must test every cluster it enters before
-    # t_far; a blocked one at least the cluster that blocks it
-    blocked = h_k > 0
-    need = (_clusters_needed(cl, ro, rd, torch.where(blocked, 0.0, t_short), t_short)
-            + int((blocked & ~dead).sum()))
-    results["cluster_anyhit"] = _row(float((h_k[sub] - h_p).abs().max()), *times,
-                                     _bound(ray_bytes + cl_bytes + N_RAYS * 4,
-                                            need * CL.CB * BW_TEST_FLOPS))
 
     rs = np.random.default_rng(77)
     k6_err = 0.0
     k6_times = {}
+    k6_lib = {}
     for label, planes, c, k in (("atlas", arrays.atlas_corners, 4, 2),
                                 ("sky", arrays.sky_corners, 3, 1)):
         t = planes.shape[1]
@@ -728,12 +697,33 @@ def check_e1m1_kernels(dev, scene):
         k6_times[label] = _time_pair(f"K6 time[{label}]",
                                      lambda: tg.gather_bilinear(planes, *args, c=c),
                                      lambda: tg.gather_bilinear_plain(planes, *args, c=c))
+        # the library call: one embedding_bag of the four corners' rows of
+        # row-major planes, weighted by the sanitised weights (0 where the
+        # query is invalid); its inputs are made before it is timed
+        i = args[0].clamp(0, t - 1).to(torch.int64).reshape(-1)
+        idx4 = torch.stack([i, i + t, i + 2 * t, i + 3 * t], dim=1)
+        ok = args[3].reshape(-1)
+        tx_v = torch.where(ok, args[1].reshape(-1), 0.0)
+        ty_v = torch.where(ok, args[2].reshape(-1), 0.0)
+        w = torch.stack([torch.where(ok, (1.0 - tx_v) * (1.0 - ty_v), 0.0), tx_v * (1.0 - ty_v),
+                         (1.0 - tx_v) * ty_v, tx_v * ty_v], dim=1)
+        planes_t = planes.reshape(4, c, t).permute(0, 2, 1).reshape(4 * t, c).contiguous()
+
+        def bag():
+            return torch.nn.functional.embedding_bag(idx4, planes_t, per_sample_weights=w,
+                                                     mode="sum")
+
+        lib_diff = float((bag().T.reshape(c, k, N_RAYS) - out_k).abs().max())
+        k6_lib[label] = _timing(bag)
+        print(f"K6 library embedding_bag[{label}]: {_fmt(k6_lib[label])}; largest difference "
+              f"from K6 {lib_diff:.3e}")
         if label == "atlas":
             # a query reads its index, two weights and a flag and writes C
             # values; a valid one makes 6 weight operations and 7 per channel
             k6_bound = _bound(k * N_RAYS * (13 + 4 * c) + planes.numel() * 4,
                               int(valid.sum()) * (6 + 7 * c))
-    results["gather_bilinear"] = _row(k6_err, *k6_times["atlas"], k6_bound)
+    results["gather_bilinear"] = _row(k6_err, *k6_times["atlas"], k6_bound, k6_lib["atlas"])
+    results["gather_bilinear"]["sky_library_ms"] = k6_lib["sky"]["ms"]
 
     # K3 on the four tables the e1m1 frame fetches from
     tables = {
@@ -822,6 +812,156 @@ def check_wide_offsets(dev, k3_tables, k7_planes, rs):
     del out, idx
 
 
+def _outs(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def check_cluster(label: str, cl, args, anyhit: bool, plain_lanes: int = PLAIN_LANES):
+    """K4 (K5 with `anyhit`) on rays `args` (ro, rd, t_near, t_far): the
+    wrapper bit for bit against the plain version on the first
+    `plain_lanes` lanes, and on every lane against both of the kernel's ways
+    of testing a cluster (lane_loop_min 1: every lane its own ray; 33: ray
+    by ray), launched through the C interface, and against the walk replay
+    (`walk_counts`); dead lanes report a miss.  Prints the walk's counts per
+    ray; returns (those counts, the largest difference from the plain
+    version)."""
+    import torch
+
+    from pim_tpu_torch import native
+    from pim_tpu_torch.math.vec3 import V3
+    from pim_tpu_torch.render import cluster as CL
+    from pim_tpu_torch.tools.cluster_variants import launcher, walk_counts
+
+    ro, rd, t_near, t_far = args
+    n = ro.x.shape[0]
+    tf = CL._per_ray_t_far(t_far, n, ro.x.device)
+    sub = slice(0, plain_lanes)
+    wrap, plain = ((CL.cluster_anyhit, CL.cluster_anyhit_plain) if anyhit
+                   else (CL.cluster_isect, CL.cluster_isect_plain))
+    got = _outs(wrap(cl, ro, rd, t_near, t_far))
+    want = _outs(plain(cl, V3(*(c[sub] for c in ro)), V3(*(c[sub] for c in rd)), t_near, tf[sub]))
+    lib = native.load()
+    ways = {k: _outs(launcher(lib, anyhit, cl, ro, rd, t_near, t_far, k)()) for k in (1, 33)}
+    walk = walk_counts(cl, ro, rd, t_near, t_far, anyhit, CL.LANE_LOOP_MIN)
+    replay = (walk["hit"],) if anyhit else (walk["t"], walk["tri"])
+    torch.cuda.synchronize()
+    same = {f"plain on {min(plain_lanes, n)} lanes": all(_bits_equal(a[sub], b)
+                                                        for a, b in zip(got, want)),
+            "lane_loop_min 1": all(_bits_equal(a, b) for a, b in zip(got, ways[1])),
+            "lane_loop_min 33": all(_bits_equal(a, b) for a, b in zip(got, ways[33])),
+            "walk replay": all(_bits_equal(a, b) for a, b in zip(got, replay))}
+    dead = tf <= 0.0
+    if anyhit:
+        dead_ok = not bool(got[0][dead].any())
+        what = f"blocked={int(got[0].sum())}"
+    else:
+        dead_ok = bool(((got[1] == -1) & (got[0] == -1.0))[dead].all())
+        what = f"hits={int((got[1] >= 0).sum())}"
+    per = {k: walk[k] / n for k in ("needed_clusters", "needed_tests", "union_tests",
+                                    "kernel_tests", "slab_tests")}
+    print(f"{label}: {n} rays, {int(dead.sum())} dead, {what}; bitwise equal: "
+          + ", ".join(f"{k} {v}" for k, v in same.items()) + f"; dead lanes miss: {dead_ok}")
+    print(f"{label} per ray: needed clusters {per['needed_clusters']:.3f}, needed real-slot "
+          f"tests {per['needed_tests']:.2f}; slot tests issued: a warp-union walk "
+          f"{per['union_tests']:.1f}, this kernel {per['kernel_tests']:.1f}; slab tests, both "
+          f"walks, {per['slab_tests']:.1f} (lanes entering a "
+          f"cluster a warp enters: {walk['entering_lanes'] / max(walk['warp_clusters'], 1):.2f} "
+          f"of 32; warp-clusters per warp {32 * walk['warp_clusters'] / n:.2f})")
+    if not all(same.values()):
+        raise AssertionError(f"{label} differs: {same}")
+    if not dead_ok:
+        raise AssertionError(f"{label}: a dead lane reported a hit")
+    err = max(float((a[sub].double() - b.double()).abs().max()) for a, b in zip(got, want))
+    return {k: v for k, v in walk.items() if not torch.is_tensor(v)}, err
+
+
+def check_cluster_pair(cl, anyhit: bool, random_args, main_args) -> dict:
+    """K4 (K5 with `anyhit`) checked (`check_cluster`) and timed on the
+    seeded random rays, beside its plain version on PLAIN_LANES lanes, and
+    on the main path's wavefront (L2-cold too).  The bound counts the real
+    slots of every (ray, cluster) pair a traversal needs, 31 operations a
+    test.  Returns the JSON row (the main path's numbers prefixed main_)."""
+    import torch
+
+    from pim_tpu_torch.math.vec3 import V3
+    from pim_tpu_torch.render import cluster as CL
+
+    name = "K5 cluster_anyhit" if anyhit else "K4 cluster_isect"
+    wrap, plain = ((CL.cluster_anyhit, CL.cluster_anyhit_plain) if anyhit
+                   else (CL.cluster_isect, CL.cluster_isect_plain))
+    cl_bytes = sum(x.numel() * 4 for x in (cl.tris, cl.clb, cl.scb))
+    row = {}
+    for which, args in (("random", random_args), ("main", main_args)):
+        ro, rd, t_near, t_far = args
+        n = ro.x.shape[0]
+        counts, err = check_cluster(f"{name} [{which}]", cl, args, anyhit)
+        k = _timing(lambda: wrap(cl, ro, rd, t_near, t_far), cold=True)
+        out_bytes = n * (4 if anyhit else 8)
+        bound = _bound(n * (6 * 4 + (4 if torch.is_tensor(t_far) else 0)) + cl_bytes + out_bytes,
+                       counts["needed_tests"] * BW_TEST_FLOPS)
+        if which == "random":
+            sub = slice(0, PLAIN_LANES)
+            pargs = (V3(*(c[sub] for c in ro)), V3(*(c[sub] for c in rd)), t_near, t_far[sub])
+            p = _timing(lambda: plain(cl, *pargs), PLAIN_RUNS, queued=False)
+            print(f"{name} time [random]: kernel {_fmt(k)}; plain {_fmt(p)} ({PLAIN_RUNS} runs "
+                  f"on {PLAIN_LANES} lanes); bound {bound['bound_ms']:.4f} ms")
+            row.update(_row(err, k, p, bound))
+        else:
+            print(f"{name} time [main path]: {_fmt(k)}; bound {bound['bound_ms']:.4f} ms")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row.update({f"main_{key}": v for key, v in _row(err, k, k, bound).items()
+                        if not key.startswith(("plain", "library"))})
+        prefix = "" if which == "random" else "main_"
+        row.update({f"{prefix}{key}_per_ray": v / n for key, v in counts.items()})
+    return row
+
+
+TIE_COPIES = 200      # copies of each triangle of the tie scene
+TIE_DISTINCT = 40     # distinct triangles of the tie scene
+TIE_LANES = 32768     # rays of the tie scene, all compared with the plain versions
+
+
+def check_tie_scene(dev) -> None:
+    """K4 and K5 on a scene where equal t occurs: TIE_DISTINCT triangles,
+    each TIE_COPIES times in shuffled slots of different clusters, with one
+    supercluster of padding slots only (its boxes the whole scene's)
+    inserted after the first; TIE_LANES rays aimed at the triangles, with
+    ~10% dead lanes, a 32-lane group all dead, one of 32 equal rays (all
+    blocked at once) and one half dead.  Bit for bit on every lane
+    (`check_cluster`)."""
+    import numpy as np
+    import torch
+
+    from pim_tpu_torch.math.vec3 import V3
+    from pim_tpu_torch.render import cluster as CL
+    from pim_tpu_torch.tools.cluster_variants import (
+        aimed_rays,
+        tie_soup,
+        with_padding_supercluster,
+    )
+
+    soup, base = tie_soup(TIE_DISTINCT, TIE_COPIES, seed=12)
+    built = CL.build_clusters(soup)
+    cl = CL.ClusterArrays(*(torch.from_numpy(x).to(dev)
+                            for x in with_padding_supercluster(*built, at=1)))
+    ro, rd, t_far = aimed_rays(base, TIE_LANES, seed=13)
+    t_far[:32] = 0.0
+    ro[:, 32:64], rd[:, 32:64], t_far[32:64] = ro[:, 32:33], rd[:, 32:33], 1e6
+    t_far[64:96:2] = 0.0
+    rs = np.random.default_rng(14)
+    t_short = np.where(t_far > 0.0, rs.uniform(0.5, 15.0, TIE_LANES), 0.0).astype(np.float32)
+    t_short[32:64] = 1e6
+
+    def cuda(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    rays = (V3(*(cuda(c) for c in ro)), V3(*(cuda(c) for c in rd)), 0.0)
+    print(f"tie scene: {TIE_DISTINCT} triangles x {TIE_COPIES} copies, tris "
+          f"{tuple(cl.tris.shape)}, an all-padding supercluster at 1")
+    check_cluster("K4 cluster_isect [tie scene]", cl, (*rays, cuda(t_far)), False, TIE_LANES)
+    check_cluster("K5 cluster_anyhit [tie scene]", cl, (*rays, cuda(t_short)), True, TIE_LANES)
+
+
 def main_path_indices(scene, sro, srd, stf) -> dict:
     """The indices the main path hands K3 and K7 at the hits of rays in
     raysort's order: "tri", K4's tri ids clamped as surface.py passes them
@@ -852,25 +992,6 @@ def main_path_indices(scene, sro, srd, stf) -> dict:
           f"({int(torch.unique(atlas).numel())} distinct texels); sky {tuple(sky.shape)} "
           f"({int(torch.unique(sky).numel())} distinct texels)")
     return {"tri": tri_idx.contiguous(), "atlas": atlas.contiguous(), "sky": sky.contiguous()}
-
-
-def _clusters_needed(cl, ro, rd, t_far, t_stop) -> int:
-    """The (ray, cluster) pairs a traversal must test: live rays (t_far > 0)
-    and the clusters whose supercluster and cluster slabs they enter no
-    farther than t_stop."""
-    import torch
-
-    from pim_tpu_torch.math.vec3 import V3
-    from pim_tpu_torch.render import cluster as CL
-
-    total = 0
-    for r0 in range(0, N_RAYS, PLAIN_LANES):
-        sl = slice(r0, r0 + PLAIN_LANES)
-        cand, entry = CL._cluster_cull(cl, V3(*(c[sl] for c in ro)), V3(*(c[sl] for c in rd)),
-                                       0.0, t_far[sl])
-        need = cand & (entry <= t_stop[sl][:, None]) & (t_far[sl] > 0.0)[:, None]
-        total += int(need.sum())
-    return total
 
 
 def time_e1m1_build(dev, scene) -> None:

@@ -148,8 +148,8 @@ def load() -> ctypes.CDLL:
         for fn in (lib.pim_gather_cols_rows_i32, lib.pim_gather_cols_rows_i64):
             fn.argtypes = [p, i, i, p, ll, p, i, i, p]
             fn.restype = i
-        # scb, spad, clb, n_sc, tris, stride, then the ray arguments
-        cluster_args = [p, i, p, i, p, i] + [p] * 6 + [f, p, f, i]
+        # scb, spad, clb, n_sc, tris, stride, the ray arguments, lane_loop_min
+        cluster_args = [p, i, p, i, p, i] + [p] * 6 + [f, p, f, i, i]
         lib.pim_cluster_isect.argtypes = cluster_args + [p, p, p]
         lib.pim_cluster_isect.restype = i
         lib.pim_cluster_anyhit.argtypes = cluster_args + [p, p]

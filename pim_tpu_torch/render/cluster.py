@@ -40,6 +40,13 @@ CB = 128           # triangles per cluster
 CPS = 16           # clusters per supercluster
 _BIG = 3.0e38
 _PLAIN_RAY_CHUNK = 4096
+# The kernels test a cluster ray by ray (each lane its own slots, the ray
+# broadcast) while fewer than this many of a warp's lanes enter it, and lane
+# by lane (each lane its own ray over every real slot) from this many on.
+# Both give the same bits; tools/cluster_variants.py --sweep times each
+# value on e1m1's primary, bounce and shadow rays, where 24 came within
+# 0.8% of the fastest value on each (PERF.md).
+LANE_LOOP_MIN = 24
 _PLAIN_CLUSTER_CHUNK = 8
 
 
@@ -321,7 +328,7 @@ def cluster_isect(cl: ClusterArrays, ro: V3, rd: V3, t_near: float, t_far):
     if n == 0:
         return t, tri
     lib = native.load()
-    rc = lib.pim_cluster_isect(*head, *args, n, t.data_ptr(), tri.data_ptr(),
+    rc = lib.pim_cluster_isect(*head, *args, n, LANE_LOOP_MIN, t.data_ptr(), tri.data_ptr(),
                                native.stream_ptr(dev))
     native.check(lib, rc, "cluster_isect")
     native.launches["cluster_isect"] += 1
@@ -339,7 +346,8 @@ def cluster_anyhit(cl: ClusterArrays, ro: V3, rd: V3, t_near: float, t_far):
     if n == 0:
         return hit
     lib = native.load()
-    rc = lib.pim_cluster_anyhit(*head, *args, n, hit.data_ptr(), native.stream_ptr(dev))
+    rc = lib.pim_cluster_anyhit(*head, *args, n, LANE_LOOP_MIN, hit.data_ptr(),
+                                native.stream_ptr(dev))
     native.check(lib, rc, "cluster_anyhit")
     native.launches["cluster_anyhit"] += 1
     return hit

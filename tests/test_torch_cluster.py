@@ -12,6 +12,13 @@ pim_tpu.
   F5): there it stays within 2 eps of the cancellation scale
   (|d| + sum|n_i o_i|) / |den| + |t| sum|n_i d_i| / |den|, and that scale
   stays below SCALE_CAP on every such lane.
+- The cases the CUDA kernels rely on, plain against Pallas: duplicated
+  triangles in different slots and clusters (equal t; the lowest slot wins
+  and its tri id is the reference's), a hierarchy with a partly filled last
+  cluster and an all-padding supercluster, and 32-lane groups all dead or
+  all blocked at once; the layout the kernels read (each cluster's real
+  slots first, then padding with id -1 and zero rows) from both builders;
+  the walk replay that chip_smoke.py counts with equals the plain versions.
 - Ray-sort keys bitwise; the inverse permutation restores the order.
 """
 
@@ -32,6 +39,8 @@ from pim_tpu_torch.math.grid import make_grid
 from pim_tpu_torch.math.vec3 import V3
 from pim_tpu_torch.render import cluster as pc
 from pim_tpu_torch.render import raysort
+from pim_tpu_torch.render.dense_kernels import _bw_test_plain
+from pim_tpu_torch.tools import cluster_variants as cv
 
 torch.set_num_threads(2)
 
@@ -192,3 +201,135 @@ def test_sort_keys_bitwise_and_unsort(per_ray_t_far):
     np.testing.assert_array_equal(back[0].numpy(), ro[0])
     np.testing.assert_array_equal(back[1].numpy(), rd[2])
     np.testing.assert_array_equal(back[2].numpy(), np.arange(n))
+
+
+def _jax_arrays(tris, clb, scb):
+    """The JAX package's cluster arrays from numpy ones."""
+    ids = tris[12].astype(np.int32)
+    return CL.ClusterArrays(tris=jnp.asarray(tris), slot_tri=jnp.asarray(ids),
+                            clb=jnp.asarray(clb), scb=jnp.asarray(scb))
+
+
+def _both(jcl, cl, ro, rd, t_far):
+    """(K4 t, K4 tri, K5 flag) of the interpret-mode Pallas kernels and of
+    the port's plain versions, as numpy."""
+    with pallas_interpret():
+        jt, jtri = CL.intersect_cluster_raw(jcl, jnp.asarray(ro.T), jnp.asarray(rd.T), 0.0,
+                                            jnp.asarray(t_far))
+        jocc = CL.occluded_cluster(jcl, jnp.asarray(ro.T), jnp.asarray(rd.T), 0.0,
+                                   jnp.asarray(t_far))
+    tro, trd = V3(*map(torch.from_numpy, ro)), V3(*map(torch.from_numpy, rd))
+    tf = torch.from_numpy(t_far)
+    t, tri = pc.cluster_isect_plain(cl, tro, trd, 0.0, tf)
+    flag = pc.cluster_anyhit_plain(cl, tro, trd, 0.0, tf)
+    return ((np.asarray(jt), np.asarray(jtri), np.asarray(jocc).astype(np.int32)),
+            (t.numpy(), tri.numpy(), flag.numpy()))
+
+
+def test_cluster_ties_lowest_slot():
+    soup, base = cv.tie_soup(8, 200, seed=4)
+    built = pc.build_clusters(soup)
+    ro, rd, t_far = cv.aimed_rays(base, 1024, seed=8)
+    (jt, jtri, jocc), (t, tri, flag) = _both(_jax_arrays(*built), _port(built), ro, rd, t_far)
+    np.testing.assert_array_equal(tri, jtri)
+    np.testing.assert_array_equal(flag, jocc)
+    # every slot, op by op: the winner is the lowest slot at the ray's t
+    tris = torch.from_numpy(built.tris)
+    ts, ok = _bw_test_plain(tris[:12].T, V3(*map(torch.from_numpy, ro)),
+                            V3(*map(torch.from_numpy, rd)), 0.0)
+    ok = (ok & (ts < torch.from_numpy(t_far)[None, :])).numpy()
+    ts = ts.numpy()
+    hit = tri >= 0
+    assert hit.sum() > 0.5 * len(tri)
+    at_t = ok[:, hit] & (ts[:, hit].view(np.int32) == t[hit].view(np.int32)[None, :])
+    lowest = np.argmax(at_t, axis=0)
+    np.testing.assert_array_equal(built.tris[12, lowest].astype(np.int32), tri[hit])
+    ties = at_t.sum(axis=0)
+    assert (ties >= 2).mean() > 0.9                       # equal t really occurred
+    ids = built.tris[12].astype(np.int64)
+    cluster_of = np.arange(ids.size) // pc.CB
+    spread = [len(set(cluster_of[at_t[:, i]])) for i in range(at_t.shape[1])]
+    assert max(spread) >= 2                               # ... across clusters too
+    assert (t[~hit] == -1.0).all()
+
+
+def test_cluster_padding_supercluster(soup3k):
+    built = pc.build_clusters(soup3k)
+    padded = cv.with_padding_supercluster(*built, at=1)
+    real = cv.real_slots(_port(padded)).numpy()
+    assert (real[pc.CPS : 2 * pc.CPS] == 0).all()         # the inserted supercluster
+    filled = real[real > 0]
+    assert filled[-1] < pc.CB                             # a partly filled last cluster
+    jbuilt = CL.build_clusters(soup3k)
+    jpadded = cv.with_padding_supercluster(*(np.asarray(x) for x in
+                                             (jbuilt.tris, jbuilt.clb, jbuilt.scb)), at=1)
+    for a, b in zip(padded, jpadded):
+        np.testing.assert_array_equal(a, b)
+    ro, rd, t_far = _rays(9, 1024)
+    (jt, jtri, jocc), (t, tri, flag) = _both(_jax_arrays(*jpadded), _port(padded), ro, rd, t_far)
+    assert (tri != jtri).sum() <= MAX_CULL_LANES
+    assert (flag != jocc).sum() <= MAX_CULL_LANES
+    # the padding changes no result of the plain versions
+    tro, trd = V3(*map(torch.from_numpy, ro)), V3(*map(torch.from_numpy, rd))
+    tf = torch.from_numpy(t_far)
+    t0, tri0 = pc.cluster_isect_plain(_port(built), tro, trd, 0.0, tf)
+    np.testing.assert_array_equal(t.view(np.int32), t0.numpy().view(np.int32))
+    np.testing.assert_array_equal(tri, tri0.numpy())
+    np.testing.assert_array_equal(flag, pc.cluster_anyhit_plain(_port(built), tro, trd, 0.0,
+                                                                tf).numpy())
+
+
+def test_cluster_dead_and_blocked_groups():
+    soup, base = cv.tie_soup(6, 40, seed=5)
+    built = pc.build_clusters(soup)
+    ro, rd, t_far = cv.aimed_rays(base, 512, seed=10)
+    t_far[:32] = 0.0                                      # a group all dead
+    ro[:, 32:64], rd[:, 32:64], t_far[32:64] = ro[:, 32:33], rd[:, 32:33], 1e6
+    t_far[64:96:2] = 0.0                                  # a group half dead
+    (jt, jtri, jocc), (t, tri, flag) = _both(_jax_arrays(*built), _port(built), ro, rd, t_far)
+    np.testing.assert_array_equal(tri, jtri)
+    np.testing.assert_array_equal(flag, jocc)
+    dead = t_far <= 0.0
+    assert (tri[dead] == -1).all() and (t[dead] == -1.0).all() and (flag[dead] == 0).all()
+    assert (flag[32:64] == 1).all() and (tri[32:64] == tri[32]).all() and tri[32] >= 0
+    assert (t[32:64] == t[32]).all()
+
+
+@pytest.mark.parametrize("case", ["port soup3k", "port map", "jax soup3k", "jax ties"])
+def test_cluster_layout_real_slots_first(soup3k, case):
+    who, what = case.split()
+    pos = {"soup3k": lambda: soup3k, "map": _map_positions,
+           "ties": lambda: cv.tie_soup(8, 200, seed=4)[0]}[what]()
+    tris = np.asarray((pc if who == "port" else CL).build_clusters(pos).tris)
+    ids = tris[12].reshape(-1, pc.CB)
+    rows = tris[:12].reshape(12, -1, pc.CB)
+    n_real = (ids >= 0).sum(axis=1)
+    first = np.arange(pc.CB)[None, :] < n_real[:, None]
+    np.testing.assert_array_equal(ids >= 0, first)        # real slots first
+    assert (ids[~first] == -1.0).all()
+    assert (rows[:, ~first] == 0.0).all()                 # padding: n = 0, so t is NaN
+    assert n_real.sum() == len(pos) // 3
+    real = cv.real_slots(pc.ClusterArrays(torch.from_numpy(tris.copy()), None, None))
+    np.testing.assert_array_equal(real.numpy(), n_real)
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_walk_counts_replays_plain(soup3k, anyhit):
+    cl = _port(pc.build_clusters(soup3k))
+    ro, rd, t_far = _rays(11, 1024)
+    tro, trd = V3(*map(torch.from_numpy, ro)), V3(*map(torch.from_numpy, rd))
+    tf = torch.from_numpy(t_far)
+    w = cv.walk_counts(cl, tro, trd, 0.0, tf, anyhit, pc.LANE_LOOP_MIN)
+    if anyhit:
+        np.testing.assert_array_equal(w["hit"].numpy(),
+                                      pc.cluster_anyhit_plain(cl, tro, trd, 0.0, tf).numpy())
+    else:
+        t, tri = pc.cluster_isect_plain(cl, tro, trd, 0.0, tf)
+        np.testing.assert_array_equal(w["t"].numpy().view(np.int32), t.numpy().view(np.int32))
+        np.testing.assert_array_equal(w["tri"].numpy(), tri.numpy())
+        assert w["kernel_tests"] <= w["union_tests"]
+    assert 0 < w["needed_clusters"] <= w["entering_lanes"]
+    assert w["needed_tests"] <= w["kernel_tests"]
+    assert w["warp_clusters"] <= w["entering_lanes"] <= 32 * w["warp_clusters"]
+    n_sc = cl.clb.shape[0] // 6
+    assert 0 < w["slab_tests"] <= 1024 // 32 * 32 * n_sc * (1 + pc.CPS)
