@@ -33,9 +33,10 @@ exits non-zero:
      supercluster; 32-lane groups all dead and all blocked at once).  On
      each, bitwise against the plain version (on the first PLAIN_LANES
      lanes), against both of the kernel's ways of testing a cluster and
-     against the walk replay of tools/cluster_variants.py on every lane,
-     which also counts per ray the clusters and real-slot tests a
-     traversal needs (the bound) and the slot tests a warp-union walk
+     against the walk replay of tools/cluster_check.py on every lane,
+     which also counts per ray the clusters and slot tests a traversal
+     needs (the bound: the real slots of each needed cluster, one test for
+     a blocked shadow ray) and the slot tests a warp-union walk
      (every lane runs all 128 slots of each cluster any lane of its warp
      enters) and this kernel issue; K6 (atlas: K=2 x 262,144
      queries, C=4; sky: the [12, 6*32*32] cube, 262,144 queries, C=3)
@@ -654,7 +655,7 @@ def check_e1m1_kernels(dev, scene):
     from pim_tpu_torch.render import table_gather as tg
     from pim_tpu_torch.render.lights import make_light_table
     from pim_tpu_torch.render.raysort import sorted_rays
-    from pim_tpu_torch.tools.cluster_variants import main_path_wavefronts
+    from pim_tpu_torch.tools.cluster_check import main_path_wavefronts
 
     meta, arrays, lights = scene
     cl = CL.ClusterArrays(tris=arrays.cl_tris, clb=arrays.cl_clb, scb=arrays.cl_scb)
@@ -812,10 +813,6 @@ def check_wide_offsets(dev, k3_tables, k7_planes, rs):
     del out, idx
 
 
-def _outs(x) -> tuple:
-    return x if isinstance(x, tuple) else (x,)
-
-
 def check_cluster(label: str, cl, args, anyhit: bool, plain_lanes: int = PLAIN_LANES):
     """K4 (K5 with `anyhit`) on rays `args` (ro, rd, t_near, t_far): the
     wrapper bit for bit against the plain version on the first
@@ -827,29 +824,21 @@ def check_cluster(label: str, cl, args, anyhit: bool, plain_lanes: int = PLAIN_L
     version)."""
     import torch
 
-    from pim_tpu_torch import native
-    from pim_tpu_torch.math.vec3 import V3
     from pim_tpu_torch.render import cluster as CL
-    from pim_tpu_torch.tools.cluster_variants import launcher, walk_counts
+    from pim_tpu_torch.tools import cluster_check as cc
 
     ro, rd, t_near, t_far = args
     n = ro.x.shape[0]
     tf = CL._per_ray_t_far(t_far, n, ro.x.device)
-    sub = slice(0, plain_lanes)
-    wrap, plain = ((CL.cluster_anyhit, CL.cluster_anyhit_plain) if anyhit
-                   else (CL.cluster_isect, CL.cluster_isect_plain))
-    got = _outs(wrap(cl, ro, rd, t_near, t_far))
-    want = _outs(plain(cl, V3(*(c[sub] for c in ro)), V3(*(c[sub] for c in rd)), t_near, tf[sub]))
-    lib = native.load()
-    ways = {k: _outs(launcher(lib, anyhit, cl, ro, rd, t_near, t_far, k)()) for k in (1, 33)}
-    walk = walk_counts(cl, ro, rd, t_near, t_far, anyhit, CL.LANE_LOOP_MIN)
+    got, plain_same, err = cc.against_plain(cl, args, anyhit, plain_lanes)
+    ways = {k: cc.launcher(anyhit, cl, *args, k)() for k in (1, 33)}
+    walk = cc.walk_counts(cl, ro, rd, t_near, t_far, anyhit, CL.LANE_LOOP_MIN)
     replay = (walk["hit"],) if anyhit else (walk["t"], walk["tri"])
     torch.cuda.synchronize()
-    same = {f"plain on {min(plain_lanes, n)} lanes": all(_bits_equal(a[sub], b)
-                                                        for a, b in zip(got, want)),
-            "lane_loop_min 1": all(_bits_equal(a, b) for a, b in zip(got, ways[1])),
-            "lane_loop_min 33": all(_bits_equal(a, b) for a, b in zip(got, ways[33])),
-            "walk replay": all(_bits_equal(a, b) for a, b in zip(got, replay))}
+    same = {f"plain on {min(plain_lanes, n)} lanes": plain_same,
+            "lane_loop_min 1": cc.same_bits(got, ways[1]),
+            "lane_loop_min 33": cc.same_bits(got, ways[33]),
+            "walk replay": cc.same_bits(got, replay)}
     dead = tf <= 0.0
     if anyhit:
         dead_ok = not bool(got[0][dead].any())
@@ -861,7 +850,7 @@ def check_cluster(label: str, cl, args, anyhit: bool, plain_lanes: int = PLAIN_L
                                     "kernel_tests", "slab_tests")}
     print(f"{label}: {n} rays, {int(dead.sum())} dead, {what}; bitwise equal: "
           + ", ".join(f"{k} {v}" for k, v in same.items()) + f"; dead lanes miss: {dead_ok}")
-    print(f"{label} per ray: needed clusters {per['needed_clusters']:.3f}, needed real-slot "
+    print(f"{label} per ray: needed clusters {per['needed_clusters']:.3f}, needed "
           f"tests {per['needed_tests']:.2f}; slot tests issued: a warp-union walk "
           f"{per['union_tests']:.1f}, this kernel {per['kernel_tests']:.1f}; slab tests, both "
           f"walks, {per['slab_tests']:.1f} (lanes entering a "
@@ -871,7 +860,6 @@ def check_cluster(label: str, cl, args, anyhit: bool, plain_lanes: int = PLAIN_L
         raise AssertionError(f"{label} differs: {same}")
     if not dead_ok:
         raise AssertionError(f"{label}: a dead lane reported a hit")
-    err = max(float((a[sub].double() - b.double()).abs().max()) for a, b in zip(got, want))
     return {k: v for k, v in walk.items() if not torch.is_tensor(v)}, err
 
 
@@ -879,8 +867,9 @@ def check_cluster_pair(cl, anyhit: bool, random_args, main_args) -> dict:
     """K4 (K5 with `anyhit`) checked (`check_cluster`) and timed on the
     seeded random rays, beside its plain version on PLAIN_LANES lanes, and
     on the main path's wavefront (L2-cold too).  The bound counts the real
-    slots of every (ray, cluster) pair a traversal needs, 31 operations a
-    test.  Returns the JSON row (the main path's numbers prefixed main_)."""
+    slots of every (ray, cluster) pair a traversal needs, but one test for a
+    ray that K5 finds blocked, 31 operations a test (`walk_counts`).
+    Returns the JSON row (the main path's numbers prefixed main_)."""
     import torch
 
     from pim_tpu_torch.math.vec3 import V3
@@ -934,7 +923,7 @@ def check_tie_scene(dev) -> None:
 
     from pim_tpu_torch.math.vec3 import V3
     from pim_tpu_torch.render import cluster as CL
-    from pim_tpu_torch.tools.cluster_variants import (
+    from pim_tpu_torch.tools.cluster_check import (
         aimed_rays,
         tie_soup,
         with_padding_supercluster,

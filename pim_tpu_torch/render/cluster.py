@@ -45,7 +45,10 @@ _PLAIN_RAY_CHUNK = 4096
 # by lane (each lane its own ray over every real slot) from this many on.
 # Both give the same bits; tools/cluster_variants.py --sweep times each
 # value on e1m1's primary, bounce and shadow rays, where 24 came within
-# 0.8% of the fastest value on each (PERF.md).
+# 0.8% of the fastest value on each (PERF.md).  It is an argument of the
+# kernels, not a constant of the .cu, so that chip_smoke.py can hold each
+# way alone to the plain version on every ray set: on the tie scene most
+# clusters would take one way only.
 LANE_LOOP_MIN = 24
 _PLAIN_CLUSTER_CHUNK = 8
 

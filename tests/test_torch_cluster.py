@@ -18,7 +18,8 @@ pim_tpu.
   cluster and an all-padding supercluster, and 32-lane groups all dead or
   all blocked at once; the layout the kernels read (each cluster's real
   slots first, then padding with id -1 and zero rows) from both builders;
-  the walk replay that chip_smoke.py counts with equals the plain versions.
+  the walk replay that chip_smoke.py counts with equals the plain versions,
+  and its count of needed tests (the bound) gives a blocked shadow ray one.
 - Ray-sort keys bitwise; the inverse permutation restores the order.
 """
 
@@ -40,7 +41,7 @@ from pim_tpu_torch.math.vec3 import V3
 from pim_tpu_torch.render import cluster as pc
 from pim_tpu_torch.render import raysort
 from pim_tpu_torch.render.dense_kernels import _bw_test_plain
-from pim_tpu_torch.tools import cluster_variants as cv
+from pim_tpu_torch.tools import cluster_check as cc
 
 torch.set_num_threads(2)
 
@@ -227,9 +228,9 @@ def _both(jcl, cl, ro, rd, t_far):
 
 
 def test_cluster_ties_lowest_slot():
-    soup, base = cv.tie_soup(8, 200, seed=4)
+    soup, base = cc.tie_soup(8, 200, seed=4)
     built = pc.build_clusters(soup)
-    ro, rd, t_far = cv.aimed_rays(base, 1024, seed=8)
+    ro, rd, t_far = cc.aimed_rays(base, 1024, seed=8)
     (jt, jtri, jocc), (t, tri, flag) = _both(_jax_arrays(*built), _port(built), ro, rd, t_far)
     np.testing.assert_array_equal(tri, jtri)
     np.testing.assert_array_equal(flag, jocc)
@@ -255,13 +256,13 @@ def test_cluster_ties_lowest_slot():
 
 def test_cluster_padding_supercluster(soup3k):
     built = pc.build_clusters(soup3k)
-    padded = cv.with_padding_supercluster(*built, at=1)
-    real = cv.real_slots(_port(padded)).numpy()
+    padded = cc.with_padding_supercluster(*built, at=1)
+    real = cc.real_slots(_port(padded)).numpy()
     assert (real[pc.CPS : 2 * pc.CPS] == 0).all()         # the inserted supercluster
     filled = real[real > 0]
     assert filled[-1] < pc.CB                             # a partly filled last cluster
     jbuilt = CL.build_clusters(soup3k)
-    jpadded = cv.with_padding_supercluster(*(np.asarray(x) for x in
+    jpadded = cc.with_padding_supercluster(*(np.asarray(x) for x in
                                              (jbuilt.tris, jbuilt.clb, jbuilt.scb)), at=1)
     for a, b in zip(padded, jpadded):
         np.testing.assert_array_equal(a, b)
@@ -280,9 +281,9 @@ def test_cluster_padding_supercluster(soup3k):
 
 
 def test_cluster_dead_and_blocked_groups():
-    soup, base = cv.tie_soup(6, 40, seed=5)
+    soup, base = cc.tie_soup(6, 40, seed=5)
     built = pc.build_clusters(soup)
-    ro, rd, t_far = cv.aimed_rays(base, 512, seed=10)
+    ro, rd, t_far = cc.aimed_rays(base, 512, seed=10)
     t_far[:32] = 0.0                                      # a group all dead
     ro[:, 32:64], rd[:, 32:64], t_far[32:64] = ro[:, 32:33], rd[:, 32:33], 1e6
     t_far[64:96:2] = 0.0                                  # a group half dead
@@ -299,7 +300,7 @@ def test_cluster_dead_and_blocked_groups():
 def test_cluster_layout_real_slots_first(soup3k, case):
     who, what = case.split()
     pos = {"soup3k": lambda: soup3k, "map": _map_positions,
-           "ties": lambda: cv.tie_soup(8, 200, seed=4)[0]}[what]()
+           "ties": lambda: cc.tie_soup(8, 200, seed=4)[0]}[what]()
     tris = np.asarray((pc if who == "port" else CL).build_clusters(pos).tris)
     ids = tris[12].reshape(-1, pc.CB)
     rows = tris[:12].reshape(12, -1, pc.CB)
@@ -309,7 +310,7 @@ def test_cluster_layout_real_slots_first(soup3k, case):
     assert (ids[~first] == -1.0).all()
     assert (rows[:, ~first] == 0.0).all()                 # padding: n = 0, so t is NaN
     assert n_real.sum() == len(pos) // 3
-    real = cv.real_slots(pc.ClusterArrays(torch.from_numpy(tris.copy()), None, None))
+    real = cc.real_slots(pc.ClusterArrays(torch.from_numpy(tris.copy()), None, None))
     np.testing.assert_array_equal(real.numpy(), n_real)
 
 
@@ -319,7 +320,7 @@ def test_walk_counts_replays_plain(soup3k, anyhit):
     ro, rd, t_far = _rays(11, 1024)
     tro, trd = V3(*map(torch.from_numpy, ro)), V3(*map(torch.from_numpy, rd))
     tf = torch.from_numpy(t_far)
-    w = cv.walk_counts(cl, tro, trd, 0.0, tf, anyhit, pc.LANE_LOOP_MIN)
+    w = cc.walk_counts(cl, tro, trd, 0.0, tf, anyhit, pc.LANE_LOOP_MIN)
     if anyhit:
         np.testing.assert_array_equal(w["hit"].numpy(),
                                       pc.cluster_anyhit_plain(cl, tro, trd, 0.0, tf).numpy())
@@ -333,3 +334,31 @@ def test_walk_counts_replays_plain(soup3k, anyhit):
     assert w["warp_clusters"] <= w["entering_lanes"] <= 32 * w["warp_clusters"]
     n_sc = cl.clb.shape[0] // 6
     assert 0 < w["slab_tests"] <= 1024 // 32 * 32 * n_sc * (1 + pc.CPS)
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_walk_counts_needed_tests(anyhit):
+    """The bound's count: a shadow ray that is blocked needs one slot test;
+    any other live ray the real slots of every cluster its slabs enter no
+    farther than its result (K4: its hit, else t_far; K5: t_far)."""
+    soup, base = cc.tie_soup(6, 40, seed=5)
+    cl = _port(pc.build_clusters(soup))
+    ro, rd, t_far = cc.aimed_rays(base, 512, seed=10)
+    t_far[1::3] = np.where(t_far[1::3] > 0.0, 2.0, 0.0)   # some end before their triangle
+    tro, trd = V3(*map(torch.from_numpy, ro)), V3(*map(torch.from_numpy, rd))
+    tf = torch.from_numpy(t_far)
+    w = cc.walk_counts(cl, tro, trd, 0.0, tf, anyhit, pc.LANE_LOOP_MIN)
+    cand, entry = pc._cluster_cull(cl, tro, trd, 0.0, tf)
+    cand = cand & (tf > 0.0)[:, None]
+    real = cc.real_slots(cl)[None, :]
+    if anyhit:
+        blocked = pc.cluster_anyhit_plain(cl, tro, trd, 0.0, tf).bool()
+        assert 0 < int(blocked.sum()) < int((tf > 0.0).sum())
+        need = cand & ~blocked[:, None]
+        want = int(blocked.sum() + need.sum()), int(blocked.sum() + (need * real).sum())
+    else:
+        t, tri = pc.cluster_isect_plain(cl, tro, trd, 0.0, tf)
+        need = cand & (entry <= torch.where(tri >= 0, t, tf)[:, None])
+        want = int(need.sum()), int((need * real).sum())
+    assert (w["needed_clusters"], w["needed_tests"]) == want
+    assert w["needed_tests"] < int((cand * real).sum())
