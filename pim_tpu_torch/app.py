@@ -100,24 +100,31 @@ def bench_camera(scene_name: str, width: int, height: int) -> CameraArrays:
 
 def render_step(scene, cam: CameraArrays, width: int, height: int, bounces: int,
                 spp: int, step: int) -> TraceResult:
-    """One progressive step: the mean of `spp` one-sample traces with
-    sample ids step*spp .. step*spp + spp-1.  rays_traced is the step's
-    total (float64, on the device)."""
+    """One progressive step of `spp` one-sample traces with sample ids
+    step*spp .. step*spp + spp-1, as the reference's frame step folds them:
+    the mean of their color, albedo and normal; the sum of their light
+    histograms, wrapped to 32 bits as the reference's uint32 sum; and
+    rays_traced, the step's total (float64, on the device)."""
     meta, arrays, lights = scene
     dev = arrays.tri_table.device
     n = width * height
     pix = torch.arange(n, dtype=torch.int64, device=dev)
-    acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    color, albedo, normal = (torch.zeros((n, 3), dtype=torch.float32, device=dev)
+                             for _ in range(3))
+    live = torch.zeros(lights.live.shape, dtype=torch.int64, device=dev)
     rays = torch.zeros((), dtype=torch.float64, device=dev)
     for i in range(spp):
         state = rng.make_state(pix, step * spp + i)
         state, ro, rd = generate_primary_rays(cam, width, height, state)
         res = trace_rays(meta, arrays, lights, ro, rd, state, bounces)
-        acc = acc + res.color
+        color = color + res.color
+        albedo = albedo + res.albedo
+        normal = normal + res.normal
+        live = live + res.live
         rays = rays + res.rays_traced.to(torch.float64)
-    z = torch.zeros_like(acc)
-    return TraceResult(color=acc * (1.0 / spp), albedo=z, normal=z, live=res.live,
-                       rays_traced=rays)
+    inv = 1.0 / spp
+    return TraceResult(color=color * inv, albedo=albedo * inv, normal=normal * inv,
+                       live=live & 0xFFFFFFFF, rays_traced=rays)
 
 
 @dataclass

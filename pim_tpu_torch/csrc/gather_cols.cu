@@ -272,30 +272,253 @@ int launch_rows(const float* rows_tf, int f, int t, const Index* idx, long long 
              : launch_rows_as<Index, int, false>(rows_tf, f, t, idx, n, out, stream);
 }
 
-template <typename Index>
-__global__ void __launch_bounds__(kThreads)
-gather_cols_bwd_kernel(const float* __restrict__ g, int f, int t, const Index* __restrict__ idx,
-                       long long n, float* __restrict__ grad) {
-  const long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (e >= static_cast<long long>(f) * n) {
-    return;
+// ---- the backward: the column scatter-add ----------------------------------
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// Runs of equal columns along a warp's lanes, found once per lane tile.  A
+// thread holds L consecutive lanes of one strip of 32 * L lanes (the vector
+// path: L = 4; the scalar path: four strips of L = 1).  key is the lane's
+// column, or -1 for a lane that adds nothing.
+template <typename Off, int L>
+struct Runs {
+  Off key[L];
+  bool head[L];  // the lane starts a run
+  bool tail[L];  // the lane ends one: it makes the run's add
+  bool lead[L];  // the lane's run starts in an earlier thread
+  bool opens;    // a run starts among this thread's lanes
+};
+
+template <typename Off, int L>
+__device__ __forceinline__ void find_runs(Runs<Off, L>& r) {
+  const int lane = threadIdx.x & 31;
+  const Off prev = __shfl_up_sync(kFull, r.key[L - 1], 1);
+  const Off next = __shfl_down_sync(kFull, r.key[0], 1);
+  bool open = false;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    r.head[j] = j == 0 ? (lane == 0 || r.key[0] != prev) : r.key[j] != r.key[j - 1];
+    r.tail[j] = j == L - 1 ? (lane == 31 || r.key[L - 1] != next) : r.key[j + 1] != r.key[j];
+    open = open || r.head[j];
+    r.lead[j] = !open;
   }
-  const long long row = e / n;
-  const long long r = e - row * n;
-  const long long i = static_cast<long long>(idx[r]);
-  if (i >= 0 && i < t) {
-    atomicAdd(&grad[row * t + i], g[e]);
+  r.opens = open;
+}
+
+// Sums v over each run (a segmented scan: in the thread, then across the
+// warp by shuffles), then the run's tail lane adds the sum into row[key]
+// unless it is 0.  Every thread of the warp calls it.
+template <typename Off, int L>
+__device__ __forceinline__ void add_runs(float* row, const Runs<Off, L>& r, float (&v)[L]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 1; j < L; ++j) {
+    if (!r.head[j]) v[j] += v[j - 1];
+  }
+  float x = v[L - 1];
+  bool f = r.opens;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float y = __shfl_up_sync(kFull, x, d);
+    const bool g = __shfl_up_sync(kFull, static_cast<int>(f), d) != 0;
+    if (lane >= d) {
+      if (!f) x += y;
+      f = f || g;
+    }
+  }
+  const float carry = __shfl_up_sync(kFull, x, 1);
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const float s = r.lead[j] && lane > 0 ? carry + v[j] : v[j];
+    if (r.tail[j] && r.key[j] >= 0 && s != 0.0f) atomicAdd(row + r.key[j], s);
   }
 }
 
+// The same sums with the lanes of a column found by __match_any_sync (one
+// lane a thread, a strip of 32): a tree over the peers in lane order, the
+// lowest peer adding.
+template <typename Off>
+struct Peers {
+  Off key;
+  int rank;    // position among the peers, in lane order
+  int src[5];  // the peer 2^k positions on, or -1
+};
+
+template <typename Off>
+__device__ __forceinline__ void find_peers(Peers<Off>& p) {
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(kFull, p.key);
+  p.rank = __popc(peers & ((1u << lane) - 1u));
+  const unsigned above = lane == 31 ? 0u : peers & ~((2u << lane) - 1u);
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    unsigned m = above;
+    for (int i = 1; i < (1 << k); ++i) m &= m - 1u;
+    p.src[k] = m ? __ffs(m) - 1 : -1;
+  }
+}
+
+template <typename Off>
+__device__ __forceinline__ void add_peers(float* row, const Peers<Off>& p, float v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const float y = __shfl_sync(kFull, v, p.src[k] >= 0 ? p.src[k] : lane);
+    if (p.src[k] >= 0 && (p.rank & ((2 << k) - 1)) == 0) v += y;
+  }
+  if (p.rank == 0 && p.key >= 0 && v != 0.0f) atomicAdd(row + p.key, v);
+}
+
+// grad[f, idx[r]] += g[f, r].  A block takes kRows rows of g (grid y) and
+// walks lane tiles; a thread loads its four lanes' indices once, then their
+// values row by row.  kStaged: the block adds into its rows of grad held in
+// shared memory and adds each nonzero entry into grad at the end; kMatch:
+// __match_any_sync finds a column's lanes (scalar layout only).
+template <typename Index, typename Off, bool kStaged, bool kVec, bool kMatch>
+__global__ void __launch_bounds__(kThreads)
+gather_cols_bwd_kernel(const float* __restrict__ g, int f, int t, const Index* __restrict__ idx,
+                       long long n_ll, float* __restrict__ grad) {
+  static_assert(!(kVec && kMatch), "the match form takes the scalar layout");
+  extern __shared__ float4 stage4[];
+  const Off n = static_cast<Off>(n_ll);
+  const int f0 = blockIdx.y * kRows;
+  const int rows = min(kRows, f - f0);
+  float* out = grad + static_cast<Off>(f0) * t;
+  if constexpr (kStaged) {
+    float* stage = reinterpret_cast<float*>(stage4);
+    for (int e = threadIdx.x; e < rows * t; e += kThreads) stage[e] = 0.0f;
+    __syncthreads();
+    out = stage;
+  }
+  const float* src = g + static_cast<Off>(f0) * n;
+  const Off tiles = (n + kTileLanes - 1) / kTileLanes;
+  for (Off tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    Off col[kLanes];
+    bool ok[kLanes];
+    load_cols<Index, Off, kVec>(idx, tile, n, t, col, ok);
+    float v[kRows][kLanes];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      if (q < rows) {
+        const float* row = src + static_cast<Off>(q) * n;
+        if (kVec) {
+          const Off r0 = pim_gather::lane<true>(tile, 0);
+          const float4 w = r0 < n ? __ldg(reinterpret_cast<const float4*>(row + r0))
+                                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          v[q][0] = w.x;
+          v[q][1] = w.y;
+          v[q][2] = w.z;
+          v[q][3] = w.w;
+        } else {
+#pragma unroll
+          for (int j = 0; j < kLanes; ++j) {
+            const Off r = pim_gather::lane<false>(tile, j);
+            v[q][j] = r < n ? __ldg(row + r) : 0.0f;
+          }
+        }
+      }
+    }
+    if constexpr (kMatch) {
+      Peers<Off> p[kLanes];
+#pragma unroll
+      for (int j = 0; j < kLanes; ++j) {
+        p[j].key = ok[j] ? col[j] : static_cast<Off>(-1);
+        find_peers(p[j]);
+      }
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) {
+        if (q < rows) {
+#pragma unroll
+          for (int j = 0; j < kLanes; ++j) add_peers(out + static_cast<Off>(q) * t, p[j], v[q][j]);
+        }
+      }
+    } else if constexpr (kVec) {
+      Runs<Off, kLanes> r;
+#pragma unroll
+      for (int j = 0; j < kLanes; ++j) r.key[j] = ok[j] ? col[j] : static_cast<Off>(-1);
+      find_runs(r);
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) {
+        if (q < rows) add_runs<Off, kLanes>(out + static_cast<Off>(q) * t, r, v[q]);
+      }
+    } else {
+      Runs<Off, 1> r[kLanes];
+#pragma unroll
+      for (int j = 0; j < kLanes; ++j) {
+        r[j].key[0] = ok[j] ? col[j] : static_cast<Off>(-1);
+        find_runs(r[j]);
+      }
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) {
+        if (q < rows) {
+#pragma unroll
+          for (int j = 0; j < kLanes; ++j) {
+            float w[1] = {v[q][j]};
+            add_runs<Off, 1>(out + static_cast<Off>(q) * t, r[j], w);
+          }
+        }
+      }
+    }
+  }
+  if constexpr (kStaged) {
+    __syncthreads();
+    float* dst = grad + static_cast<Off>(f0) * t;
+    for (int e = threadIdx.x; e < rows * t; e += kThreads) {
+      const float s = out[e];
+      if (s != 0.0f) atomicAdd(dst + e, s);
+    }
+  }
+}
+
+template <typename Index, typename Off, bool kStaged, bool kVec, bool kMatch>
+int launch_bwd_as(const float* g, int f, int t, const Index* idx, long long n, float* grad,
+                  cudaStream_t stream) {
+  const long long tiles = (n + kTileLanes - 1) / kTileLanes;
+  const int blocks_y = (f + kRows - 1) / kRows;
+  const size_t smem = kStaged ? sizeof(float) * (f < kRows ? f : kRows) * t : 0;
+  auto kernel = gather_cols_bwd_kernel<Index, Off, kStaged, kVec, kMatch>;
+  if (const int rc = pim_gather::allow_smem(kernel, smem)) {
+    return rc;
+  }
+  const dim3 grid(kStaged ? pim_gather::staged_blocks(tiles, blocks_y, smem)
+                          : pim_gather::direct_blocks(tiles),
+                  blocks_y);
+  kernel<<<grid, kThreads, smem, stream>>>(g, f, t, idx, n, grad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// staged: grad's row slices summed in shared memory; wide: 64-bit offsets;
+// vec: 16-byte index and gradient loads (N % 4 == 0, idx and g aligned).
 template <typename Index>
 int launch_bwd(const float* g, int f, int t, const Index* idx, long long n, float* grad,
-               void* stream) {
-  const long long total = static_cast<long long>(f) * n;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  gather_cols_bwd_kernel<Index><<<static_cast<unsigned int>(blocks), kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(g, f, t, idx, n, grad);
-  return static_cast<int>(cudaGetLastError());
+               int staged, int wide, int vec, int match, void* stream_ptr) {
+  const auto stream = static_cast<cudaStream_t>(stream_ptr);
+  if (match) {
+    const int pick = (staged ? 2 : 0) | (wide ? 1 : 0);
+    switch (pick) {
+      case 0: return launch_bwd_as<Index, int, false, false, true>(g, f, t, idx, n, grad, stream);
+      case 1: return launch_bwd_as<Index, long long, false, false, true>(g, f, t, idx, n, grad,
+                                                                         stream);
+      case 2: return launch_bwd_as<Index, int, true, false, true>(g, f, t, idx, n, grad, stream);
+      default: return launch_bwd_as<Index, long long, true, false, true>(g, f, t, idx, n, grad,
+                                                                         stream);
+    }
+  }
+  const int pick = (staged ? 4 : 0) | (wide ? 2 : 0) | (vec ? 1 : 0);
+  switch (pick) {
+    case 0: return launch_bwd_as<Index, int, false, false, false>(g, f, t, idx, n, grad, stream);
+    case 1: return launch_bwd_as<Index, int, false, true, false>(g, f, t, idx, n, grad, stream);
+    case 2: return launch_bwd_as<Index, long long, false, false, false>(g, f, t, idx, n, grad,
+                                                                        stream);
+    case 3: return launch_bwd_as<Index, long long, false, true, false>(g, f, t, idx, n, grad,
+                                                                       stream);
+    case 4: return launch_bwd_as<Index, int, true, false, false>(g, f, t, idx, n, grad, stream);
+    case 5: return launch_bwd_as<Index, int, true, true, false>(g, f, t, idx, n, grad, stream);
+    case 6: return launch_bwd_as<Index, long long, true, false, false>(g, f, t, idx, n, grad,
+                                                                       stream);
+    default: return launch_bwd_as<Index, long long, true, true, false>(g, f, t, idx, n, grad,
+                                                                       stream);
+  }
 }
 
 }  // namespace
@@ -323,13 +546,15 @@ int pim_gather_cols_rows_i64(const float* rows_tf, int f, int t, const int64_t* 
 }
 
 int pim_gather_cols_bwd_i32(const float* g, int f, int t, const int32_t* idx, long long n,
-                            float* grad, void* stream) {
-  return launch_bwd<int32_t>(g, f, t, idx, n, grad, stream);
+                            float* grad, int staged, int wide, int vec, int match,
+                            void* stream) {
+  return launch_bwd<int32_t>(g, f, t, idx, n, grad, staged, wide, vec, match, stream);
 }
 
 int pim_gather_cols_bwd_i64(const float* g, int f, int t, const int64_t* idx, long long n,
-                            float* grad, void* stream) {
-  return launch_bwd<int64_t>(g, f, t, idx, n, grad, stream);
+                            float* grad, int staged, int wide, int vec, int match,
+                            void* stream) {
+  return launch_bwd<int64_t>(g, f, t, idx, n, grad, staged, wide, vec, match, stream);
 }
 
 }  // extern "C"

@@ -135,10 +135,13 @@ def load() -> ctypes.CDLL:
         lib.pim_dense_isect.restype = i
         lib.pim_dense_anyhit.argtypes = ray_args + [i, p, p]
         lib.pim_dense_anyhit.restype = i
-        # table (or gradient), f, t, idx, n, out (or gradient table), stream
-        for fn in (lib.pim_gather_cols_bwd_i32, lib.pim_gather_cols_bwd_i64,
-                   lib.pim_gather_texels_bwd):
-            fn.argtypes = [p, i, i, p, ll, p, p]
+        # gradient, c, t, idx, k * n, gradient table, stream
+        lib.pim_gather_texels_bwd.argtypes = [p, i, i, p, ll, p, p]
+        lib.pim_gather_texels_bwd.restype = i
+        # gradient, f, t, idx, n, gradient table, the variant (staged, wide,
+        # vec, match), stream
+        for fn in (lib.pim_gather_cols_bwd_i32, lib.pim_gather_cols_bwd_i64):
+            fn.argtypes = [p, i, i, p, ll, p, i, i, i, i, p]
             fn.restype = i
         # ... with the variant (staged, wide, vec) before the stream
         for fn in (lib.pim_gather_cols_i32, lib.pim_gather_cols_i64, lib.pim_gather_texels):
@@ -154,8 +157,8 @@ def load() -> ctypes.CDLL:
         lib.pim_cluster_isect.restype = i
         lib.pim_cluster_anyhit.argtypes = cluster_args + [p, p]
         lib.pim_cluster_anyhit.restype = i
-        # planes, c, t, idx, tx, ty, valid, k * n, out, stream
-        lib.pim_gather_bilinear.argtypes = [p, i, i, p, p, p, p, ll, p, p]
+        # texel rows, c, t, idx, tx, ty, valid, k * n, out, bf16, vec, stream
+        lib.pim_gather_bilinear.argtypes = [p, i, i, p, p, p, p, ll, p, i, i, p]
         lib.pim_gather_bilinear.restype = i
         lib.pim_cuda_error_string.argtypes = [i]
         lib.pim_cuda_error_string.restype = ctypes.c_char_p

@@ -33,6 +33,9 @@ from pim_tpu_torch import native
 STAGE_MAX_BYTES = 200 * 1024
 TILE_LANES = 1024
 _OFFSET_LIMIT = 2**31 - 1
+# K3-bwd finds a column's lanes in a warp by head flags between neighbour
+# lanes (0) or by __match_any_sync (1)
+BWD_MATCH = 0
 # table -> (its version counter when copied, its row-major copy)
 _ROWS = WeakIdKeyDictionary()
 
@@ -55,6 +58,16 @@ def gather_variant(table_elems: int, out_elems: int, lanes: int, idx_ptr: int) -
     return Variant(staged=table_elems * 4 <= STAGE_MAX_BYTES,
                    wide=max(table_elems, out_elems) + TILE_LANES > _OFFSET_LIMIT,
                    vec=lanes % 4 == 0 and idx_ptr % 16 == 0)
+
+
+def gather_bwd_variant(f: int, t: int, n: int, idx_ptr: int, g_ptr: int) -> Variant:
+    """The variant of K3-bwd for a gradient g [F, N] at address `g_ptr`
+    added into [F, t] at indices at address `idx_ptr`: as `gather_variant`
+    with the [F, t] sum in the table's place (staged in shared memory up
+    to STAGE_MAX_BYTES), and the vector path only where g is 16-byte
+    aligned too."""
+    v = gather_variant(f * t, f * n, n, idx_ptr)
+    return v._replace(vec=v.vec and g_ptr % 16 == 0)
 
 
 def gather_cols_plain(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -144,8 +157,10 @@ def gather_cols_bwd(g: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
     if n == 0 or f == 0:
         return grad
     lib = native.load()
+    v = gather_bwd_variant(f, t, n, idx.data_ptr(), g.data_ptr())
     fn = lib.pim_gather_cols_bwd_i32 if idx.dtype == torch.int32 else lib.pim_gather_cols_bwd_i64
-    rc = fn(g.data_ptr(), f, t, idx.data_ptr(), n, grad.data_ptr(), native.stream_ptr(dev))
+    rc = fn(g.data_ptr(), f, t, idx.data_ptr(), n, grad.data_ptr(), v.staged, v.wide, v.vec,
+            BWD_MATCH, native.stream_ptr(dev))
     native.check(lib, rc, "gather_cols_bwd")
     native.launches["gather_cols_bwd"] += 1
     return grad

@@ -4,9 +4,16 @@ against pim_tpu's on the identical (converted) scene and seed.
 At least 97% of pixels must agree at rtol 1e-4 / atol 1e-5: the rest are
 paths that diverged after an ulp-level compare flip (light slot, Russian
 roulette).  The image means must agree within 2% and rays_traced within
-1%.  The camera's primary rays (with the DoF draws) agree at rtol 1e-6."""
+1%.  The camera's primary rays (with the DoF draws) agree at rtol 1e-6.
+
+The app's frame step at SPP_STEP samples folds them as the reference's
+frame step does: its light histogram is bit for bit the 32-bit-wrapped sum
+of the reference's per-sample histograms for the same sample ids, and its
+AOVs are the samples' mean (the pixel tolerance above).  Media raise, and
+say which queue item brings them."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +37,8 @@ torch.set_num_threads(2)
 W = H = 16
 BOUNCES = 3
 SAMPLE = 5
+SPP_STEP = 2
+STEP = 3  # the frame step's sample ids: STEP * SPP_STEP + i
 
 
 @pytest.fixture(scope="module")
@@ -58,17 +67,36 @@ def _rays(enable_dof=True):
     return (js, jro, jrd), (ts, tro, trd)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_trace(jm):
+    # one executable, finished before anything else is dispatched (see
+    # pallas_interpret)
+    return jax.jit(lambda a, l, ro, rd, s: jint.trace_rays(jm, a, l, ro, rd, s, BOUNCES))
+
+
 @pytest.fixture(scope="module")
 def frames(scenes):
     (jm, ja, jl), (m, a, l) = scenes
     (js, jro, jrd), (ts, tro, trd) = _rays()
-    # one executable, finished before anything else is dispatched (see
-    # pallas_interpret)
-    trace = jax.jit(lambda a, l, ro, rd, s: jint.trace_rays(jm, a, l, ro, rd, s, BOUNCES))
     with pallas_interpret():
-        jres = jax.block_until_ready(trace(ja, jl, jro, jrd, js))
+        jres = jax.block_until_ready(_jax_trace(jm)(ja, jl, jro, jrd, js))
     tres = integrator.trace_rays(m, a, l, tro, trd, ts, BOUNCES)
     return jres, tres
+
+
+@pytest.fixture(scope="module")
+def frame_step(scenes):
+    """(the reference's per-sample trace results, the app's frame step) for
+    the sample ids STEP * SPP_STEP + i, i < SPP_STEP."""
+    (jm, ja, jl), port = scenes
+    jca, tca = _cams()
+    jres = []
+    for i in range(SPP_STEP):
+        js = jrng.make_state(jnp.arange(W * H, dtype=jnp.uint32), STEP * SPP_STEP + i)
+        js, jro, jrd = jcam.generate_primary_rays(jca, W, H, js)
+        with pallas_interpret():
+            jres.append(jax.block_until_ready(_jax_trace(jm)(ja, jl, jro, jrd, js)))
+    return jres, app.render_step(port, tca, W, H, BOUNCES, SPP_STEP, STEP)
 
 
 @pytest.mark.parametrize("enable_dof", [True, False])
@@ -138,3 +166,49 @@ def test_app_main_prints_the_frame_report(capsys):
     assert float(lines["image mean"]) > 0 and float(lines["rays traced"]) > 2 * 64
     assert lines["launches"] == " ".join(f"{k}=0" for k in native.launches)
     assert "dense_isect=0" in lines["launches"] and "gather_cols=0" in lines["launches"]
+
+
+def test_frame_step_sums_the_light_histograms(frame_step):
+    jres, tres = frame_step
+    want = np.zeros(np.asarray(jres[0].live).shape, np.uint32)
+    for r in jres:
+        want = want + np.asarray(r.live, np.uint32)  # the reference's wrapping uint32 sum
+    assert tres.live.dtype == torch.int64 and int(want.sum()) > 0
+    np.testing.assert_array_equal(tres.live.numpy(), want.astype(np.int64))
+
+
+def test_frame_step_wraps_the_histogram_sum_to_32_bits(scenes, monkeypatch):
+    _, port = scenes
+    near = np.uint32(2**32 - 3)
+    jl = port[2].live
+
+    def trace(meta, arrays, lights, ro, rd, state, bounces):
+        n = ro.x.shape[0]
+        z = torch.zeros((n, 3))
+        return integrator.TraceResult(color=z, albedo=z, normal=z,
+                                      live=torch.full(jl.shape, int(near), dtype=torch.int64),
+                                      rays_traced=torch.tensor(float(n)))
+
+    monkeypatch.setattr(app, "trace_rays", trace)
+    res = app.render_step(port, _cams(4, 4)[1], 4, 4, 1, SPP_STEP, 0)
+    want = np.full(jl.shape, near, np.uint32) + np.full(jl.shape, near, np.uint32)
+    np.testing.assert_array_equal(res.live.numpy(), want.astype(np.int64))
+
+
+@pytest.mark.parametrize("aov", ["color", "albedo", "normal"])
+def test_frame_step_means_the_samples(frame_step, aov):
+    jres, tres = frame_step
+    want = np.asarray(jres[0]._asdict()[aov]) + np.asarray(jres[1]._asdict()[aov])
+    want = want * np.float32(1.0 / SPP_STEP)
+    got = getattr(tres, aov).numpy()
+    assert got.shape == want.shape == (W * H, 3) and np.abs(want).sum() > 0
+    close = np.all(np.isclose(got, want, rtol=1e-4, atol=1e-5), axis=-1)
+    assert close.mean() >= 0.97, close.mean()
+
+
+def test_media_error_names_the_queue_item(scenes):
+    _, (m, a, l) = scenes
+    (_, _, _), (ts, tro, trd) = _rays()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue item 19"):
+        integrator.trace_rays(dataclasses.replace(m, media_enabled=True), a, l, tro, trd, ts,
+                              BOUNCES)
