@@ -39,9 +39,11 @@ exits non-zero:
      a blocked shadow ray) and the slot tests a warp-union walk
      (every lane runs all 128 slots of each cluster any lane of its warp
      enters) and this kernel issue; K6 (atlas: K=2 x 262,144
-     queries, C=4; sky: the [12, 6*32*32] cube, 262,144 queries, C=3)
-     against its plain version, bitwise, and timed beside one
-     `embedding_bag` of the corner rows; K3 on the four
+     queries, C=4; sky: the [12, 6*32*32] cube, 262,144 queries, C=3; and
+     every atlas and sky call of one 512^2, 10-bounce serving step as the
+     wrapper receives it, recorded by tools/fetch_check.py) against its
+     plain version, bitwise, and timed beside one `embedding_bag` of the
+     corner rows (on the main path, its first atlas and sky calls); K3 on the four
      tables the frame fetches from (the [48, 81552] tri table, the [5, 71]
      texture records, the light table over the grid's cells and the
      [24, 600] emissive table; the tri table the wrapper reads from its
@@ -63,7 +65,12 @@ exits non-zero:
      (K3-bwd on the [48, 81552] tri table at 262,144 lanes and on the
      [4, 208] material graft at 81,552) against their plain versions summed
      in float64, within gamma(adds - 1) * sum |g| per output, the bound of
-     any summation order (float atomics reorder the adds); then its main
+     any summation order (float atomics reorder the adds), and the same on
+     every call one e1m1 512^2, 3-bounce training step hands them (recorded
+     by tools/fetch_check.py; each timed beside one `index_add_`, and each
+     K3-bwd call's lanes at column 0 and with a zero gradient printed);
+     every form of K3-bwd with 64-bit offsets, through the C interface,
+     within the same bound; then its main
      paths, counted as above: TRAIN_STEPS Adam steps of the e1m1 512^2,
      3-bounce, 1-spp render with all six groups trainable against a target
      rendered with perturbed parameters (finite loss, finite nonzero
@@ -646,6 +653,48 @@ def _e1m1_rays(dev, scene):
             t_far, t_far_short)
 
 
+def check_k6(label: str, planes, idx, tx, ty, valid, c: int, time_it: bool = True):
+    """K6 against its plain version on one call's arguments, bitwise; with
+    `time_it` also timed beside its plain version and one `embedding_bag`
+    (`fetch_check.embedding_bag_call`).  Returns (max abs error, kernel,
+    plain, bound, library) or (max abs error,)."""
+    import torch
+
+    from pim_tpu_torch.render import table_gather as tg
+    from pim_tpu_torch.tools.fetch_check import embedding_bag_call
+
+    k, n = idx.shape
+    out_k = tg.gather_bilinear(planes, idx, tx, ty, valid, c=c)
+    out_p = tg.gather_bilinear_plain(planes, idx, tx, ty, valid, c=c)
+    torch.cuda.synchronize()
+    same = _bits_equal(out_k, out_p)
+    if time_it or not same:
+        print(f"K6 gather_bilinear[{label}] planes {tuple(planes.shape)} x [{k}, {n}] C={c}: "
+              f"bitwise_equal={same} finite={bool(torch.isfinite(out_k).all())} "
+              f"valid={int(valid.sum())}")
+    if not same:
+        raise AssertionError(f"K6 differs from its plain version on the {label}")
+    err = float((out_k - out_p).abs().max())
+    if not time_it:
+        return (err,)
+    times = _time_pair(f"K6 time[{label}]", lambda: tg.gather_bilinear(planes, idx, tx, ty, valid,
+                                                                        c=c),
+                       lambda: tg.gather_bilinear_plain(planes, idx, tx, ty, valid, c=c))
+    bag = embedding_bag_call(planes, idx, tx, ty, valid, c)
+    lib = _timing(bag)
+    lib_diff = float((bag().T.reshape(c, k, n) - out_k).abs().max())
+    # a query reads its index, two weights and a flag and writes C values;
+    # the texels its valid queries reach are read once; a valid query makes
+    # 6 weight operations and 7 per channel
+    ok = valid.reshape(-1)
+    texels = idx.reshape(-1)[ok].clamp(0, planes.shape[1] - 1)
+    bound = _bound(k * n * (13 + 4 * c) + _touched_bytes(texels, 4 * c * 4),
+                   int(ok.sum()) * (6 + 7 * c))
+    print(f"K6 library embedding_bag[{label}]: {_fmt(lib)}; largest difference from K6 "
+          f"{lib_diff:.3e}; bound {bound['bound_ms']:.4f} ms")
+    return (err, *times, bound, lib)
+
+
 def check_e1m1_kernels(dev, scene):
     """K4/K5/K6 against their plain versions at the e1m1 shapes."""
     import numpy as np
@@ -656,6 +705,7 @@ def check_e1m1_kernels(dev, scene):
     from pim_tpu_torch.render.lights import make_light_table
     from pim_tpu_torch.render.raysort import sorted_rays
     from pim_tpu_torch.tools.cluster_check import main_path_wavefronts
+    from pim_tpu_torch.tools.fetch_check import serving_step_calls
 
     meta, arrays, lights = scene
     cl = CL.ClusterArrays(tris=arrays.cl_tris, clb=arrays.cl_clb, scb=arrays.cl_scb)
@@ -673,9 +723,7 @@ def check_e1m1_kernels(dev, scene):
     sro, srd, stf, _ = sorted_rays(meta.grid_spec(), ro, rd, t_far)
 
     rs = np.random.default_rng(77)
-    k6_err = 0.0
-    k6_times = {}
-    k6_lib = {}
+    k6 = {}
     for label, planes, c, k in (("atlas", arrays.atlas_corners, 4, 2),
                                 ("sky", arrays.sky_corners, 3, 1)):
         t = planes.shape[1]
@@ -686,45 +734,26 @@ def check_e1m1_kernels(dev, scene):
         valid = rs.random((k, N_RAYS)) < 0.8
         tx[~valid] = np.nan
         args = [torch.from_numpy(x).to(dev) for x in (idx, tx, ty, valid)]
-        out_k = tg.gather_bilinear(planes, *args, c=c)
-        out_p = tg.gather_bilinear_plain(planes, *args, c=c)
-        torch.cuda.synchronize()
-        same = _bits_equal(out_k, out_p)
-        print(f"K6 gather_bilinear[{label}] planes {tuple(planes.shape)} x [{k}, {N_RAYS}] "
-              f"C={c}: bitwise_equal={same} finite={bool(torch.isfinite(out_k).all())}")
-        if not same:
-            raise AssertionError(f"K6 differs from its plain version on the {label}")
-        k6_err = max(k6_err, float((out_k - out_p).abs().max()))
-        k6_times[label] = _time_pair(f"K6 time[{label}]",
-                                     lambda: tg.gather_bilinear(planes, *args, c=c),
-                                     lambda: tg.gather_bilinear_plain(planes, *args, c=c))
-        # the library call: one embedding_bag of the four corners' rows of
-        # row-major planes, weighted by the sanitised weights (0 where the
-        # query is invalid); its inputs are made before it is timed
-        i = args[0].clamp(0, t - 1).to(torch.int64).reshape(-1)
-        idx4 = torch.stack([i, i + t, i + 2 * t, i + 3 * t], dim=1)
-        ok = args[3].reshape(-1)
-        tx_v = torch.where(ok, args[1].reshape(-1), 0.0)
-        ty_v = torch.where(ok, args[2].reshape(-1), 0.0)
-        w = torch.stack([torch.where(ok, (1.0 - tx_v) * (1.0 - ty_v), 0.0), tx_v * (1.0 - ty_v),
-                         (1.0 - tx_v) * ty_v, tx_v * ty_v], dim=1)
-        planes_t = planes.reshape(4, c, t).permute(0, 2, 1).reshape(4 * t, c).contiguous()
-
-        def bag():
-            return torch.nn.functional.embedding_bag(idx4, planes_t, per_sample_weights=w,
-                                                     mode="sum")
-
-        lib_diff = float((bag().T.reshape(c, k, N_RAYS) - out_k).abs().max())
-        k6_lib[label] = _timing(bag)
-        print(f"K6 library embedding_bag[{label}]: {_fmt(k6_lib[label])}; largest difference "
-              f"from K6 {lib_diff:.3e}")
-        if label == "atlas":
-            # a query reads its index, two weights and a flag and writes C
-            # values; a valid one makes 6 weight operations and 7 per channel
-            k6_bound = _bound(k * N_RAYS * (13 + 4 * c) + planes.numel() * 4,
-                              int(valid.sum()) * (6 + 7 * c))
-    results["gather_bilinear"] = _row(k6_err, *k6_times["atlas"], k6_bound, k6_lib["atlas"])
-    results["gather_bilinear"]["sky_library_ms"] = k6_lib["sky"]["ms"]
+        k6[label] = check_k6(label, planes, *args, c)
+    # the wrapper's texel-interleaved copy, made on the planes' first K6 call
+    copy = _timing(lambda: tg.texel_rows(arrays.atlas_corners.clone()))
+    print(f"K6 texel-interleaved copy of the atlas corner planes (made once, on their first K6 "
+          f"call; with the bf16 check and copy): {_fmt(copy)}")
+    served = serving_step_calls(scene, WIDTH, HEIGHT, BOUNCES)
+    for label in ("atlas", "sky"):
+        calls = served[f"k6_{label}"]
+        for i, (planes, idx, tx, ty, valid, c) in enumerate(calls):
+            got = check_k6(f"{label} main-path {i}", planes, idx, tx, ty, valid, c, time_it=i == 0)
+            if i == 0:
+                k6[f"main_{label}"] = got
+        print(f"K6 main path: the {len(calls)} {label} calls of one {WIDTH}^2, {BOUNCES}-bounce "
+              f"serving step, bitwise_equal=True")
+    row = _row(max(v[0] for v in k6.values()), *k6["atlas"][1:])
+    row["texel_rows_copy_ms"] = copy["ms"]
+    for key in ("sky", "main_atlas", "main_sky"):
+        row.update({f"{key}_{name}": v for name, v in _row(0.0, *k6[key][1:]).items()
+                    if name != "max_abs_err"})
+    results["gather_bilinear"] = row
 
     # K3 on the four tables the e1m1 frame fetches from
     tables = {
@@ -761,16 +790,19 @@ def check_wide_offsets(dev, k3_tables, k7_planes, rs):
     """The 64-bit-offset variants, which the main paths do not reach: each
     form of K3 (int32 and int64 indices) and K7 at the main path's tables,
     on the vector and the scalar path, launched through the library's C
-    interface with 64-bit offsets forced; then one K3 call through the
-    wrapper whose [8, WIDE_LANES] output passes 2^31 floats, so that the
-    wrapper itself picks 64-bit offsets.  Each bitwise against the plain
-    version."""
+    interface with 64-bit offsets forced, bitwise against the plain
+    version; each form of K3-bwd the same way at the graft's and the tri
+    table's shapes, within the atomics' bound of a float64 plain sum; then
+    one K3 call through the wrapper whose [8, WIDE_LANES] output passes
+    2^31 floats, so that the wrapper itself picks 64-bit offsets, bitwise."""
     import numpy as np
     import torch
 
     from pim_tpu_torch import native
     from pim_tpu_torch.render import gather_kernel as gk
     from pim_tpu_torch.render import table_gather as tg
+    from pim_tpu_torch.tools.fetch_check import scatter_error
+    from pim_tpu_torch.tools.fetch_variants import bwd_launcher
     from pim_tpu_torch.tools.gather_variants import launcher
 
     lib = native.load()
@@ -796,6 +828,23 @@ def check_wide_offsets(dev, k3_tables, k7_planes, rs):
                     checked += 1
     print(f"64-bit offsets: {checked} forced launches of K3 (staged, direct, row-major copy; "
           f"int32, int64) and K7 (staged, direct), vector and scalar paths: bitwise_equal=True")
+    checked = 0
+    for form, (f, t) in (("staged", (4, 208)), ("direct", (48, 81552))):
+        base = torch.from_numpy(rs.integers(-1, t + 1, N_RAYS).astype(np.int32)).to(dev)
+        g_base = torch.from_numpy(rs.standard_normal((f, N_RAYS)).astype(np.float32)).to(dev)
+        for dtype in (torch.int32, torch.int64):
+            for vec in (True, False):
+                idx = base.to(dtype) if vec else base.to(dtype)[1:]
+                g = g_base if vec else g_base[:, 1:].contiguous()
+                run, grad = bwd_launcher(g, idx, t, form == "staged", vec, gk.BWD_MATCH, wide=1)
+                run()
+                torch.cuda.synchronize()
+                if not scatter_error(grad, gk.gather_cols_bwd_plain, g, idx, t)[0]:
+                    raise AssertionError(f"K3-bwd {form}, 64-bit offsets, {str(dtype)[6:]}, "
+                                         f"vec={vec}: leaves the atomics' bound")
+                checked += 1
+    print(f"64-bit offsets: {checked} forced launches of K3-bwd (staged [4, 208], direct "
+          f"[48, 81552]; int32, int64; vector and scalar paths): within gamma(adds-1)*sum|g|")
     table = torch.from_numpy(rs.standard_normal((8, 1000)).astype(np.float32)).to(dev)
     gen = torch.Generator(device=dev).manual_seed(31)
     idx = torch.randint(-1, 1001, (WIDE_LANES,), generator=gen, device=dev, dtype=torch.int32)
@@ -1066,39 +1115,79 @@ def run_training(dev, cornell_cpu, e1m1_scene, main_idx):
     return kernels, {"e1m1_train": e1m1_launches, "cornell_train": cornell_launches}
 
 
-def _sum_bound(bwd_plain, g, idx, t):
-    """The error bound of a float32 sum in any order, per output:
-    gamma(adds - 1) * sum |g|, gamma(k) = k u / (1 - k u), u = 2^-24."""
-    import torch
-
-    ku = torch.clamp_min(bwd_plain(torch.ones_like(g, dtype=torch.float64), idx, t) - 1.0,
-                         0.0) * 2.0 ** -24
-    return ku / (1.0 - ku) * bwd_plain(g.abs().double(), idx, t)
-
-
-def _check_scatter(label: str, kernel, bwd_plain, g, idx, t, library):
+def _check_scatter(label: str, kernel, bwd_plain, g, idx, t, library, time_it: bool = True):
     """A backward kernel against its plain version accumulated in float64,
-    within the atomics' bound; timed against its float32 plain version and
-    one `index_add_` call.  Returns (max abs error, kernel, plain, library)."""
+    within the atomics' bound gamma(adds - 1) * sum |g|
+    (`fetch_check.scatter_error`); with `time_it` also timed against its
+    float32 plain version and one `index_add_` call (`library`, a fn()).
+    Returns (max abs error, kernel, plain, library) or (max abs error,)."""
     import torch
+
+    from pim_tpu_torch.tools.fetch_check import scatter_error
 
     out_k = kernel(g, idx, t)
-    exact = bwd_plain(g.double(), idx, t)
-    bound = _sum_bound(bwd_plain, g, idx, t)
     torch.cuda.synchronize()
-    err = (out_k.double() - exact).abs()
-    ok = bool((err <= bound).all())
-    ratio = float((err / torch.clamp_min(bound, 1e-300)).max())
+    ok, err, ratio = scatter_error(out_k, bwd_plain, g, idx, t)
     print(f"{label}: g {tuple(g.shape)} -> {tuple(out_k.shape)}: max_abs_err="
-          f"{float(err.max()):.3e} within gamma(adds-1)*sum|g|={ok} "
-          f"(largest err/bound {ratio:.3e})")
+          f"{err:.3e} within gamma(adds-1)*sum|g|={ok} (largest err/bound {ratio:.3e})")
     if not ok:
         raise AssertionError(f"{label} leaves its float64 plain version's bound")
+    if not time_it:
+        return (err,)
     k, p = _time_pair(f"{label} time", lambda: kernel(g, idx, t),
                       lambda: bwd_plain(g, idx, t))
     lib = _timing(library)
     print(f"{label} library index_add_: {_fmt(lib)}")
-    return float(err.max()), k, p, lib
+    return err, k, p, lib
+
+
+def _scatter_bound(g, idx, t) -> dict:
+    """The bound of a scatter-add call: g and the indices read, the [F, t]
+    sum written; one operation for each nonzero add into range."""
+    import torch
+
+    ok = (idx >= 0) & (idx < t)
+    adds = int(((g.reshape(g.shape[0], -1) != 0) & ok.reshape(1, -1)).sum())
+    return _bound(g.numel() * 4 + idx.numel() * idx.element_size() + g.shape[0] * t * 4, adds)
+
+
+def check_main_path_scatters(dev, scene) -> dict:
+    """K3-bwd and K7-bwd on the calls one e1m1 WIDTH^2, TRAIN_BOUNCES-bounce
+    training step hands them (`fetch_check.training_step_calls`): each
+    within the atomics' bound of a float64 plain sum, timed beside its
+    plain version and one `index_add_`; each K3-bwd call's lanes at column
+    0 and with a zero gradient printed.  Returns {kernel: [the calls' rows]}."""
+    import torch
+
+    from pim_tpu_torch.app import SKY_STEPS
+    from pim_tpu_torch.render import gather_kernel as gk
+    from pim_tpu_torch.render import table_gather as tg
+    from pim_tpu_torch.tools import fetch_check as fc
+
+    calls = fc.training_step_calls(scene, WIDTH, HEIGHT, TRAIN_BOUNCES, SKY_STEPS, TRAIN_SEED)
+    torch.cuda.synchronize()
+    print(f"main-path scatters: one e1m1 {WIDTH}^2, {TRAIN_BOUNCES}-bounce training step hands "
+          f"K3-bwd {len(calls['k3_bwd'])} calls and K7-bwd {len(calls['k7_bwd'])}")
+    rows = {"gather_cols_bwd": [], "gather_texels_bwd": []}
+    for name, key, kernel, plain, library in (
+            ("gather_cols_bwd", "k3_bwd", gk.gather_cols_bwd, gk.gather_cols_bwd_plain,
+             fc.index_add_call),
+            ("gather_texels_bwd", "k7_bwd", tg.gather_texels_bwd, tg.gather_texels_bwd_plain,
+             fc.texel_index_add_call)):
+        for i, (g, idx, t) in enumerate(calls[key]):
+            label = f"{key.upper().replace('_', '-')} {name}[main path {i}] {g.shape[0]}x{t}"
+            if key == "k3_bwd":
+                counts = fc.lane_counts(g, idx)
+                print(f"{label}: {counts['lanes']} lanes, {counts['idx0']} at column 0, "
+                      f"{counts['g0']} with a zero gradient ({counts['idx0_g0']} both)")
+            else:
+                counts = {}
+            err, k, p, lib = _check_scatter(label, kernel, plain, g, idx, t,
+                                            library(g, idx, t))
+            rows[name].append(dict(
+                shape=list(g.shape), t=t, **counts,
+                **_row(err, k, p, _scatter_bound(g, idx, t), lib)))
+    return rows
 
 
 def check_k7(label: str, planes, idx, time_it: bool = True):
@@ -1144,6 +1233,7 @@ def check_train_kernels(dev, scene, main_idx):
     from pim_tpu_torch.render import fetch as F
     from pim_tpu_torch.render import gather_kernel as gk
     from pim_tpu_torch.render import table_gather as tg
+    from pim_tpu_torch.tools import fetch_check as fc
 
     meta, arrays, _ = scene
     rs = np.random.default_rng(55)
@@ -1167,13 +1257,10 @@ def check_train_kernels(dev, scene, main_idx):
         check_k7(f"{label} 3x(N-1) misaligned", planes,
                  idx.reshape(-1)[1 : 1 + 3 * (N_RAYS - 1)].view(3, N_RAYS - 1), False)
 
-        idx_in = idx.clamp(0, t - 1).to(torch.int64).reshape(-1)
         g = cuda(rs.standard_normal((c, k, N_RAYS)).astype(np.float32))
-        buf = torch.zeros((c, t), dtype=torch.float32, device=dev)
-        g_flat = g.reshape(c, -1)
         err, kb, pb, libb = _check_scatter(
             f"K7-bwd gather_texels_bwd[{label}]", tg.gather_texels_bwd,
-            tg.gather_texels_bwd_plain, g, idx, t, lambda: buf.index_add_(1, idx_in, g_flat))
+            tg.gather_texels_bwd_plain, g, idx, t, fc.texel_index_add_call(g, idx, t))
         if label == "atlas":
             results["gather_texels_bwd"] = _row(
                 err, kb, pb, _bound(c * k * N_RAYS * 4 + k * N_RAYS * 4 + c * t * 4,
@@ -1194,20 +1281,25 @@ def check_train_kernels(dev, scene, main_idx):
             ("mat_albedo graft", 4, meta.mat_count, mat_ids)):
         n = idx.shape[0]
         g = cuda(rs.standard_normal((f, n)).astype(np.float32))
-        ok = (idx >= 0) & (idx < t)
-        idx_in = torch.where(ok, idx, 0).to(torch.int64)
-        g_in = torch.where(ok[None, :], g, 0.0)
-        buf = torch.zeros((f, t), dtype=torch.float32, device=dev)
         err, kb, pb, libb = _check_scatter(
             f"K3-bwd gather_cols_bwd[{label}] {f}x{t}", gk.gather_cols_bwd,
-            gk.gather_cols_bwd_plain, g, idx, t, lambda: buf.index_add_(1, idx_in, g_in))
-        k3b[label] = _row(err, kb, pb, _bound(f * n * 4 + n * idx.element_size() + f * t * 4,
-                                              f * int(ok.sum())), libb)
+            gk.gather_cols_bwd_plain, g, idx, t, fc.index_add_call(g, idx, t))
+        k3b[label] = _row(err, kb, pb, _scatter_bound(g, idx, t), libb)
     row = k3b["tri_table"]
     row["max_abs_err"] = max(row["max_abs_err"], k3b["mat_albedo graft"]["max_abs_err"])
     row.update({f"graft_{key}": v for key, v in k3b["mat_albedo graft"].items()
                 if key != "max_abs_err"})
     results["gather_cols_bwd"] = row
+
+    for name, calls in check_main_path_scatters(dev, scene).items():
+        row = results[name]
+        row["max_abs_err"] = max([row["max_abs_err"]] + [c["max_abs_err"] for c in calls])
+        row["main_calls"] = calls
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            row[f"main_{key}_sum"] = sum(c[key] for c in calls)
+        slowest = max(calls, key=lambda c: c["ms"])
+        row.update(main_ms_max=slowest["ms"], main_ms_max_library_ms=slowest["library_ms"],
+                   main_ms_max_bound_ms=slowest["bound_ms"])
     return results
 
 

@@ -12,24 +12,25 @@
 // texel's neighbours are already clamped inside its own sub-texture (or cube
 // face), so one index i00 per query names all four corners, and a query's
 // 4C values are one row: 64 bytes for the atlas, 48 for the sky, read as C
-// 16-byte loads.  For the atlas, whose texels are bf16 values (TexturePool
-// snaps them at import), the row may come from a bf16 copy [T, 16]: 32 bytes,
-// two 16-byte loads, widened exactly (the wrapper makes that copy only after
-// checking that the table round-trips through bf16 unchanged).
+// 16-byte loads.
 //
 // What bounds it on this card: the rows' L2 sectors.  The tables (the e1m1
 // atlas, 32,768 texels x 64 bytes, 2 MB; the sky's 6,144 x 48 bytes) stay in
 // L2, so device memory sees the queries' 13 bytes in and 4C bytes out; from
 // the planes [4C, T] each query read 4C scattered 4-byte values from 4C
-// sectors (16 sectors for 64 useful bytes on the atlas), which bound the
+// sectors (16 sectors for 64 useful bytes on the atlas), which held the
 // parent kernel at about 5 TB/s of L2 traffic.  From the rows a query reads
-// two sectors (one in bf16).
+// two sectors.
 //
-// What the design does about it: the interleaved copy above; kQueries
-// consecutive queries a thread, so that with four the index, weight and
-// flag loads and each channel's store are 16 bytes (the vector path:
-// K*N % 4 == 0 and aligned pointers), and their row loads are in flight
-// together; invalid queries load no row.
+// What the design does about it: the interleaved copy above, one query a
+// thread (the index, weight and flag loads and each channel's store
+// coalesce across the warp), and no row load for an invalid query.  Two
+// other forms measured slower or no faster on the main path's queries
+// (pim_tpu_torch/tools/fetch_variants.py --forms, NVIDIA H100 80GB HBM3,
+// 700.00 W; PERF.md, PR 6): four queries a thread with 16-byte index,
+// weight, flag and output accesses (1.2x the time on the serving step's
+// atlas calls), and a bf16 copy of the atlas rows, 32 bytes a query (0.8%
+// less there, 30% less on random queries).
 //
 // Exactness: --fmad=false; the weights are the sanitized ones of
 // table_gather.py:200-209 and the sum runs left to right, as the reference
@@ -44,125 +45,68 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// The 4C values of row i.
-template <int C, bool kBf16>
-__device__ __forceinline__ void load_row(const void* __restrict__ rows, int i, float (&q)[4 * C]) {
-  if constexpr (kBf16) {
-    static_assert(C == 4, "bf16 rows are 32 bytes: the atlas");
-    const uint4* p = reinterpret_cast<const uint4*>(rows) + 2 * static_cast<long long>(i);
-    const uint4 a = __ldg(p);
-    const uint4 b = __ldg(p + 1);
-    const unsigned w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      q[2 * k] = __uint_as_float(w[k] << 16);
-      q[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
-    }
-  } else {
-    const float4* p = reinterpret_cast<const float4*>(rows) + static_cast<long long>(i) * C;
-#pragma unroll
-    for (int k = 0; k < C; ++k) {
-      const float4 v = __ldg(p + k);
-      q[4 * k] = v.x;
-      q[4 * k + 1] = v.y;
-      q[4 * k + 2] = v.z;
-      q[4 * k + 3] = v.w;
-    }
-  }
-}
-
-// One query's C filtered values (0 where invalid).
-template <int C, bool kBf16>
-__device__ __forceinline__ void fetch(const void* __restrict__ rows, int t, int idx, float tx,
-                                      float ty, bool valid, float (&o)[C]) {
-  if (!valid) {
-#pragma unroll
-    for (int ch = 0; ch < C; ++ch) o[ch] = 0.0f;
-    return;
-  }
-  const int i = idx < 0 ? 0 : (idx > t - 1 ? t - 1 : idx);
-  float q[4 * C];
-  load_row<C, kBf16>(rows, i, q);
-  const float w00 = (1.0f - tx) * (1.0f - ty);
-  const float w10 = tx * (1.0f - ty);
-  const float w01 = (1.0f - tx) * ty;
-  const float w11 = tx * ty;
-#pragma unroll
-  for (int ch = 0; ch < C; ++ch) {
-    o[ch] = w00 * q[ch] + w10 * q[C + ch] + w01 * q[2 * C + ch] + w11 * q[3 * C + ch];
-  }
-}
-
-template <int C, bool kBf16, int kQueries>
+template <int C>
 __global__ void __launch_bounds__(kThreads)
-gather_bilinear_kernel(const void* __restrict__ rows, int t, const int32_t* __restrict__ idx,
+gather_bilinear_kernel(const float* __restrict__ rows, int t, const int32_t* __restrict__ idx,
                        const float* __restrict__ tx, const float* __restrict__ ty,
                        const uint8_t* __restrict__ valid, long long kn, float* __restrict__ out) {
-  const long long e = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * kQueries;
+  const long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (e >= kn) {
     return;
   }
-  if constexpr (kQueries == 1) {
-    float o[C];
-    fetch<C, kBf16>(rows, t, __ldg(idx + e), __ldg(tx + e), __ldg(ty + e), valid[e] != 0, o);
+  if (valid[e] == 0) {
 #pragma unroll
-    for (int ch = 0; ch < C; ++ch) out[ch * kn + e] = o[ch];
-  } else {
-    static_assert(kQueries == 4, "one or four queries a thread");
-    const int4 i4 = __ldg(reinterpret_cast<const int4*>(idx + e));
-    const float4 x4 = __ldg(reinterpret_cast<const float4*>(tx + e));
-    const float4 y4 = __ldg(reinterpret_cast<const float4*>(ty + e));
-    const unsigned v4 = __ldg(reinterpret_cast<const unsigned*>(valid + e));
-    const int ii[4] = {i4.x, i4.y, i4.z, i4.w};
-    const float xx[4] = {x4.x, x4.y, x4.z, x4.w};
-    const float yy[4] = {y4.x, y4.y, y4.z, y4.w};
-    float o[4][C];
+    for (int ch = 0; ch < C; ++ch) out[ch * kn + e] = 0.0f;
+    return;
+  }
+  const float txv = __ldg(tx + e);
+  const float tyv = __ldg(ty + e);
+  const float w00 = (1.0f - txv) * (1.0f - tyv);
+  const float w10 = txv * (1.0f - tyv);
+  const float w01 = (1.0f - txv) * tyv;
+  const float w11 = txv * tyv;
+  int i = __ldg(idx + e);
+  i = i < 0 ? 0 : (i > t - 1 ? t - 1 : i);
+  float q[4 * C];
+  const float4* row = reinterpret_cast<const float4*>(rows) + static_cast<long long>(i) * C;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      fetch<C, kBf16>(rows, t, ii[j], xx[j], yy[j], ((v4 >> (8 * j)) & 0xffu) != 0, o[j]);
-    }
+  for (int k = 0; k < C; ++k) {
+    const float4 v = __ldg(row + k);
+    q[4 * k] = v.x;
+    q[4 * k + 1] = v.y;
+    q[4 * k + 2] = v.z;
+    q[4 * k + 3] = v.w;
+  }
 #pragma unroll
-    for (int ch = 0; ch < C; ++ch) {
-      *reinterpret_cast<float4*>(out + ch * kn + e) = make_float4(o[0][ch], o[1][ch], o[2][ch],
-                                                                  o[3][ch]);
-    }
+  for (int ch = 0; ch < C; ++ch) {
+    out[ch * kn + e] = w00 * q[ch] + w10 * q[C + ch] + w01 * q[2 * C + ch] + w11 * q[3 * C + ch];
   }
 }
 
-template <int C, bool kBf16, int kQueries>
-int launch_as(const void* rows, int t, const int32_t* idx, const float* tx, const float* ty,
-              const uint8_t* valid, long long kn, float* out, cudaStream_t stream) {
-  const long long threads = (kn + kQueries - 1) / kQueries;
-  const long long blocks = (threads + kThreads - 1) / kThreads;
-  gather_bilinear_kernel<C, kBf16, kQueries><<<static_cast<unsigned int>(blocks), kThreads, 0,
-                                                stream>>>(rows, t, idx, tx, ty, valid, kn, out);
+template <int C>
+int launch(const float* rows, int t, const int32_t* idx, const float* tx, const float* ty,
+           const uint8_t* valid, long long kn, float* out, cudaStream_t stream) {
+  const long long blocks = (kn + kThreads - 1) / kThreads;
+  gather_bilinear_kernel<C><<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
+      rows, t, idx, tx, ty, valid, kn, out);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int C, bool kBf16>
-int launch_c(const void* rows, int t, const int32_t* idx, const float* tx, const float* ty,
-             const uint8_t* valid, long long kn, float* out, int vec, cudaStream_t stream) {
-  return vec ? launch_as<C, kBf16, 4>(rows, t, idx, tx, ty, valid, kn, out, stream)
-             : launch_as<C, kBf16, 1>(rows, t, idx, tx, ty, valid, kn, out, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// rows [T, 4C] f32 (bf16 [T, 16] with `bf16`, C = 4 only); vec: four
-// queries a thread (K*N % 4 == 0, idx/tx/ty/out 16-byte and valid 4-byte
-// aligned).  C is 3 or 4; any other value returns cudaErrorInvalidValue.
-int pim_gather_bilinear(const void* rows, int c, int t, const int32_t* idx, const float* tx,
-                        const float* ty, const uint8_t* valid, long long kn, float* out, int bf16,
-                        int vec, void* stream_ptr) {
+// rows [T, 4C] f32; C is 3 or 4, any other value returns
+// cudaErrorInvalidValue.
+int pim_gather_bilinear(const float* rows, int c, int t, const int32_t* idx, const float* tx,
+                        const float* ty, const uint8_t* valid, long long kn, float* out,
+                        void* stream_ptr) {
   const auto stream = static_cast<cudaStream_t>(stream_ptr);
   if (c == 4) {
-    return bf16 ? launch_c<4, true>(rows, t, idx, tx, ty, valid, kn, out, vec, stream)
-                : launch_c<4, false>(rows, t, idx, tx, ty, valid, kn, out, vec, stream);
+    return launch<4>(rows, t, idx, tx, ty, valid, kn, out, stream);
   }
-  if (c == 3 && !bf16) {
-    return launch_c<3, false>(rows, t, idx, tx, ty, valid, kn, out, vec, stream);
+  if (c == 3) {
+    return launch<3>(rows, t, idx, tx, ty, valid, kn, out, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

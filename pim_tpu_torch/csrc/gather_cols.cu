@@ -334,18 +334,22 @@ __device__ __forceinline__ void add_runs(float* row, const Runs<Off, L>& r, floa
   }
 }
 
-// The same sums with the lanes of a column found by __match_any_sync (one
-// lane a thread, a strip of 32): a tree over the peers in lane order, the
-// lowest peer adding.
+// The same sums with the lanes of a column found by __match_any_sync, in
+// either layout: a thread first sums its equal neighbouring slots into the
+// last of them (any two lanes of one column may be summed together); then,
+// slot by slot, the lanes that hold the same column across the warp form a
+// group, a tree over the group in lane order sums it, and its lowest lane
+// adds.  Where no slot group of the warp has two lanes, the tree is skipped.
 template <typename Off>
-struct Peers {
-  Off key;
-  int rank;    // position among the peers, in lane order
-  int src[5];  // the peer 2^k positions on, or -1
+struct Group {
+  Off key;     // the column this slot adds into, or -1
+  int rank;    // position in the group, in lane order
+  int src[5];  // the group's lane 2^k positions on, or -1
+  bool tree;   // some group of the warp in this slot has two lanes or more
 };
 
 template <typename Off>
-__device__ __forceinline__ void find_peers(Peers<Off>& p) {
+__device__ __forceinline__ void find_group(Group<Off>& p) {
   const int lane = threadIdx.x & 31;
   const unsigned peers = __match_any_sync(kFull, p.key);
   p.rank = __popc(peers & ((1u << lane) - 1u));
@@ -356,15 +360,18 @@ __device__ __forceinline__ void find_peers(Peers<Off>& p) {
     for (int i = 1; i < (1 << k); ++i) m &= m - 1u;
     p.src[k] = m ? __ffs(m) - 1 : -1;
   }
+  p.tree = __any_sync(kFull, p.key >= 0 && p.rank > 0);
 }
 
 template <typename Off>
-__device__ __forceinline__ void add_peers(float* row, const Peers<Off>& p, float v) {
-  const int lane = threadIdx.x & 31;
+__device__ __forceinline__ void add_group(float* row, const Group<Off>& p, float v) {
+  if (p.tree) {
+    const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    const float y = __shfl_sync(kFull, v, p.src[k] >= 0 ? p.src[k] : lane);
-    if (p.src[k] >= 0 && (p.rank & ((2 << k) - 1)) == 0) v += y;
+    for (int k = 0; k < 5; ++k) {
+      const float y = __shfl_sync(kFull, v, p.src[k] >= 0 ? p.src[k] : lane);
+      if (p.src[k] >= 0 && (p.rank & ((2 << k) - 1)) == 0) v += y;
+    }
   }
   if (p.rank == 0 && p.key >= 0 && v != 0.0f) atomicAdd(row + p.key, v);
 }
@@ -373,12 +380,11 @@ __device__ __forceinline__ void add_peers(float* row, const Peers<Off>& p, float
 // walks lane tiles; a thread loads its four lanes' indices once, then their
 // values row by row.  kStaged: the block adds into its rows of grad held in
 // shared memory and adds each nonzero entry into grad at the end; kMatch:
-// __match_any_sync finds a column's lanes (scalar layout only).
+// __match_any_sync finds a column's lanes, else head flags.
 template <typename Index, typename Off, bool kStaged, bool kVec, bool kMatch>
 __global__ void __launch_bounds__(kThreads)
 gather_cols_bwd_kernel(const float* __restrict__ g, int f, int t, const Index* __restrict__ idx,
                        long long n_ll, float* __restrict__ grad) {
-  static_assert(!(kVec && kMatch), "the match form takes the scalar layout");
   extern __shared__ float4 stage4[];
   const Off n = static_cast<Off>(n_ll);
   const int f0 = blockIdx.y * kRows;
@@ -419,17 +425,24 @@ gather_cols_bwd_kernel(const float* __restrict__ g, int f, int t, const Index* _
       }
     }
     if constexpr (kMatch) {
-      Peers<Off> p[kLanes];
+      Off key[kLanes];
+#pragma unroll
+      for (int j = 0; j < kLanes; ++j) key[j] = ok[j] ? col[j] : static_cast<Off>(-1);
+      Group<Off> p[kLanes];
 #pragma unroll
       for (int j = 0; j < kLanes; ++j) {
-        p[j].key = ok[j] ? col[j] : static_cast<Off>(-1);
-        find_peers(p[j]);
+        p[j].key = j + 1 < kLanes && key[j + 1] == key[j] ? static_cast<Off>(-1) : key[j];
+        find_group(p[j]);
       }
 #pragma unroll
       for (int q = 0; q < kRows; ++q) {
         if (q < rows) {
 #pragma unroll
-          for (int j = 0; j < kLanes; ++j) add_peers(out + static_cast<Off>(q) * t, p[j], v[q][j]);
+          for (int j = 1; j < kLanes; ++j) {
+            if (key[j] == key[j - 1]) v[q][j] += v[q][j - 1];
+          }
+#pragma unroll
+          for (int j = 0; j < kLanes; ++j) add_group(out + static_cast<Off>(q) * t, p[j], v[q][j]);
         }
       }
     } else if constexpr (kVec) {
@@ -494,14 +507,20 @@ int launch_bwd(const float* g, int f, int t, const Index* idx, long long n, floa
                int staged, int wide, int vec, int match, void* stream_ptr) {
   const auto stream = static_cast<cudaStream_t>(stream_ptr);
   if (match) {
-    const int pick = (staged ? 2 : 0) | (wide ? 1 : 0);
+    const int pick = (staged ? 4 : 0) | (wide ? 2 : 0) | (vec ? 1 : 0);
     switch (pick) {
       case 0: return launch_bwd_as<Index, int, false, false, true>(g, f, t, idx, n, grad, stream);
-      case 1: return launch_bwd_as<Index, long long, false, false, true>(g, f, t, idx, n, grad,
+      case 1: return launch_bwd_as<Index, int, false, true, true>(g, f, t, idx, n, grad, stream);
+      case 2: return launch_bwd_as<Index, long long, false, false, true>(g, f, t, idx, n, grad,
                                                                          stream);
-      case 2: return launch_bwd_as<Index, int, true, false, true>(g, f, t, idx, n, grad, stream);
-      default: return launch_bwd_as<Index, long long, true, false, true>(g, f, t, idx, n, grad,
-                                                                         stream);
+      case 3: return launch_bwd_as<Index, long long, false, true, true>(g, f, t, idx, n, grad,
+                                                                        stream);
+      case 4: return launch_bwd_as<Index, int, true, false, true>(g, f, t, idx, n, grad, stream);
+      case 5: return launch_bwd_as<Index, int, true, true, true>(g, f, t, idx, n, grad, stream);
+      case 6: return launch_bwd_as<Index, long long, true, false, true>(g, f, t, idx, n, grad,
+                                                                        stream);
+      default: return launch_bwd_as<Index, long long, true, true, true>(g, f, t, idx, n, grad,
+                                                                        stream);
     }
   }
   const int pick = (staged ? 4 : 0) | (wide ? 2 : 0) | (vec ? 1 : 0);

@@ -157,8 +157,8 @@ def load() -> ctypes.CDLL:
         lib.pim_cluster_isect.restype = i
         lib.pim_cluster_anyhit.argtypes = cluster_args + [p, p]
         lib.pim_cluster_anyhit.restype = i
-        # texel rows, c, t, idx, tx, ty, valid, k * n, out, bf16, vec, stream
-        lib.pim_gather_bilinear.argtypes = [p, i, i, p, p, p, p, ll, p, i, i, p]
+        # texel rows, c, t, idx, tx, ty, valid, k * n, out, stream
+        lib.pim_gather_bilinear.argtypes = [p, i, i, p, p, p, p, ll, p, p]
         lib.pim_gather_bilinear.restype = i
         lib.pim_cuda_error_string.argtypes = [i]
         lib.pim_cuda_error_string.restype = ctypes.c_char_p

@@ -19,10 +19,7 @@ kernel reads a texel-interleaved copy of the planes (`texel_rows`: [T, 4C],
 a query's 4C values in one row), which the wrapper keeps beside the planes
 as gather_kernel.table_rows keeps the tri table's: made on the planes'
 first CUDA call, kept as long as they live, made again after they change in
-place.  Where every value of an atlas's rows (C = 4) is a bf16 value, the
-copy also holds them as bf16 ([T, 16], 32 bytes a row), which widen back to
-the same floats; `bilinear_variant` picks that copy and four queries a
-thread where the call allows them.
+place.
 
 K7 is the counterpart of `pim_tpu.render.table_gather.gather_texels_pallas`:
 planes [C, T] f32, idx [K, N] i32 -> [C, K, N] f32 = planes[:, clip(idx, 0,
@@ -42,67 +39,27 @@ shared memory, offset width, vector path) comes from
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
-
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from pim_tpu_torch import native
 from pim_tpu_torch.render.gather_kernel import gather_variant
 
-# K6's forms: the bf16 rows of an atlas where they are exact, and four
-# queries a thread where the call allows it (csrc/gather_bilinear.cu)
-BF16_ROWS = True
-VEC_QUERIES = True
-# corner planes -> (their version counter when copied, their TexelRows)
+# corner planes -> (their version counter when copied, their texel rows)
 _TEXEL_ROWS = WeakIdKeyDictionary()
 
 
-class TexelRows(NamedTuple):
-    """The texel-interleaved copy of corner planes [4C, T]."""
-
-    f32: torch.Tensor             # [T, 4C] float32, row i = planes[:, i]
-    bf16: Optional[torch.Tensor]  # the same as bfloat16 where C = 4 and exact, else None
-
-
-class BilinearVariant(NamedTuple):
-    """Which form of K6 a call launches."""
-
-    bf16: bool  # the rows' bf16 copy
-    vec: bool   # four queries a thread: 16-byte loads and stores
-
-
-def bf16_exact(rows: torch.Tensor) -> bool:
-    """Whether every value of float32 `rows` is a bfloat16 value (its round
-    trip through bfloat16 gives the same bits)."""
-    back = rows.to(torch.bfloat16).to(torch.float32)
-    return bool(torch.equal(back.view(torch.int32), rows.view(torch.int32)))
-
-
-def texel_rows(corner_planes: torch.Tensor) -> TexelRows:
-    """The texel-interleaved [T, 4C] copy of `corner_planes` [4C, T] (no
-    gradient flows through it), with its bf16 form where C = 4 and every
-    value round-trips through bf16 unchanged (checked once, when the copy is
-    made): made once per planes tensor, and again after it changes in
-    place; it lives as long as the planes."""
+def texel_rows(corner_planes: torch.Tensor) -> torch.Tensor:
+    """The texel-interleaved [T, 4C] copy of `corner_planes` [4C, T] (row i
+    holds planes[:, i]; no gradient flows through it): made once per planes
+    tensor, and again after it changes in place; it lives as long as the
+    planes."""
     version = corner_planes._version
     kept = _TEXEL_ROWS.get(corner_planes)
     if kept is None or kept[0] != version:
-        rows = corner_planes.detach().T.contiguous()
-        exact = rows.shape[1] == 16 and bf16_exact(rows)
-        kept = (version, TexelRows(rows, rows.to(torch.bfloat16) if exact else None))
+        kept = (version, corner_planes.detach().T.contiguous())
         _TEXEL_ROWS[corner_planes] = kept
     return kept[1]
-
-
-def bilinear_variant(kn: int, has_bf16: bool, ptrs) -> BilinearVariant:
-    """The form of K6 for `kn` queries: the bf16 rows where the copy has
-    them; four queries a thread where kn is a multiple of 4 and the index,
-    weight and flag pointers `ptrs` (idx, tx, ty, valid) are 16-byte aligned
-    (the flags 4-byte aligned)."""
-    idx, tx, ty, valid = ptrs
-    vec = kn % 4 == 0 and idx % 16 == 0 and tx % 16 == 0 and ty % 16 == 0 and valid % 4 == 0
-    return BilinearVariant(bf16=BF16_ROWS and has_bf16, vec=VEC_QUERIES and vec)
 
 
 def gather_bilinear_plain(corner_planes: torch.Tensor, idx: torch.Tensor, tx: torch.Tensor,
@@ -146,12 +103,9 @@ def gather_bilinear(corner_planes: torch.Tensor, idx: torch.Tensor, tx: torch.Te
         return out
     lib = native.load()
     rows = texel_rows(corner_planes)
-    v = bilinear_variant(k * n, rows.bf16 is not None,
-                         (idx.data_ptr(), tx.data_ptr(), ty.data_ptr(), valid.data_ptr()))
-    src = rows.bf16 if v.bf16 else rows.f32
-    rc = lib.pim_gather_bilinear(src.data_ptr(), c, t, idx.data_ptr(), tx.data_ptr(),
-                                 ty.data_ptr(), valid.data_ptr(), k * n, out.data_ptr(), v.bf16,
-                                 v.vec, native.stream_ptr(dev))
+    rc = lib.pim_gather_bilinear(rows.data_ptr(), c, t, idx.data_ptr(), tx.data_ptr(),
+                                 ty.data_ptr(), valid.data_ptr(), k * n, out.data_ptr(),
+                                 native.stream_ptr(dev))
     native.check(lib, rc, "gather_bilinear")
     native.launches["gather_bilinear"] += 1
     return out

@@ -16,8 +16,8 @@ K7-bwd within gamma(adds - 1) * sum |g| of a float64 plain sum) and times the
 wrapper and one PyTorch call that computes the same function (`index_add_`,
 `embedding_bag`): device ms a call, DEVICE_RUNS calls queued behind a GPU
 sleep, the median of BATCHES.  With `--forms` it also launches every form
-of K3-bwd and K6 through the library's C interface, checks each the same
-way and times it.
+of K3-bwd through the library's C interface, checks each the same way and
+times it.
 
 It drives only the package's wrappers and plain versions, so it also times
 an older tree of the package, for a comparison of two trees in turns in one
@@ -87,11 +87,12 @@ def bwd_forms(f: int, t: int):
     stages = (True, False) if f * t * 4 <= gk.STAGE_MAX_BYTES else (False,)
     return [(f"{'staged' if s else 'direct'} {name}", s, vec, match) for s in stages
             for name, vec, match in (("heads vec", 1, 0), ("heads scalar", 0, 0),
-                                     ("match scalar", 0, 1))]
+                                     ("match vec", 1, 1), ("match scalar", 0, 1))]
 
 
-def bwd_launcher(g, idx, t, staged, vec, match):
-    """(fn() launching one form of K3-bwd into a zeroed sum, the sum)."""
+def bwd_launcher(g, idx, t, staged, vec, match, wide=0):
+    """(fn() launching one form of K3-bwd into a zeroed sum, the sum); 64-bit
+    offsets with `wide`."""
     from pim_tpu_torch import native
 
     lib = native.load()
@@ -102,25 +103,9 @@ def bwd_launcher(g, idx, t, staged, vec, match):
 
     def run():
         grad.zero_()
-        native.check(lib, fn(g.data_ptr(), f, t, idx.data_ptr(), n, grad.data_ptr(), staged, 0,
-                             vec, match, s), "gather_cols_bwd")
+        native.check(lib, fn(g.data_ptr(), f, t, idx.data_ptr(), n, grad.data_ptr(), staged,
+                             wide, vec, match, s), "gather_cols_bwd")
     return run, grad
-
-
-def k6_launcher(planes, idx, tx, ty, valid, c, bf16, vec):
-    """(fn() launching one form of K6, its output)."""
-    from pim_tpu_torch import native
-    from pim_tpu_torch.render import table_gather as tg
-
-    lib = native.load()
-    rows = tg.texel_rows(planes)
-    src = rows.bf16 if bf16 else rows.f32
-    k, n = idx.shape
-    out = torch.empty((c, k, n), dtype=torch.float32, device=planes.device)
-    s = native.stream_ptr(planes.device)
-    return (lambda: native.check(lib, lib.pim_gather_bilinear(
-        src.data_ptr(), c, planes.shape[1], idx.data_ptr(), tx.data_ptr(), ty.data_ptr(),
-        valid.data_ptr(), k * n, out.data_ptr(), bf16, vec, s), "gather_bilinear")), out
 
 
 def main(argv=None) -> None:
@@ -131,7 +116,7 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--forms", action="store_true",
-                    help="time every form of K3-bwd and K6 through the C interface")
+                    help="time every form of K3-bwd through the C interface")
     ap.add_argument("--out", default=None, help="JSON file for every number")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -188,7 +173,7 @@ def main(argv=None) -> None:
                    library_ms=queued_ms(fc.index_add_call(g, idx, t)))
         print(f"K3-bwd {label} {tuple(g.shape)} -> [{g.shape[0]}, {t}]: within bound {ok} "
               f"(err/bound {ratio:.3e}); lanes {row['lanes']}, idx 0 {row['idx0']}, g 0 "
-              f"{row['g0']}; {statistics.median(row['ms']):.4f} ms {row['ms']}, index_add_ "
+              f"{row['g0']}, both {row['idx0_g0']}; {statistics.median(row['ms']):.4f} ms {row['ms']}, index_add_ "
               f"{statistics.median(row['library_ms']):.4f}")
         if not ok:
             raise AssertionError(f"K3-bwd {label} leaves the bound")
@@ -230,19 +215,6 @@ def main(argv=None) -> None:
               f"{statistics.median(row['library_ms']):.4f}")
         if not same:
             raise AssertionError(f"K6 {label} differs from its plain version")
-        if args.forms:
-            row["forms"] = {}
-            for bf16 in ((0, 1) if tg.texel_rows(planes).bf16 is not None else (0,)):
-                for vec in (0, 1):
-                    run, got = k6_launcher(planes, idx, tx, ty, valid, c, bf16, vec)
-                    run()
-                    eq = torch.equal(got.view(torch.int32), out.view(torch.int32))
-                    ms = queued_ms(run)
-                    name = f"{'bf16' if bf16 else 'f32'} {'4 queries' if vec else '1 query'}"
-                    row["forms"][name] = dict(bitwise_equal=eq, ms=ms)
-                    print(f"  {name}: bitwise equal {eq}; {statistics.median(ms):.4f} ms {ms}")
-                    if not eq:
-                        raise AssertionError(f"K6 {label} {name} differs from the wrapper")
         result["k6"].append(row)
     if args.out:
         with open(args.out, "w") as f:

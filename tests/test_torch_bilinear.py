@@ -1,5 +1,5 @@
-"""K6, the bilinear fetch: the texel-interleaved copy its wrapper keeps, and
-the form it picks, on the CPU.
+"""K6, the bilinear fetch: the texel-interleaved copy its wrapper keeps, on
+the CPU.
 
 - `texel_rows` makes the [T, 4C] copy of corner planes [4C, T] (row i holds
   planes[:, i]); a plain reader of the copy gives `gather_bilinear_plain`'s
@@ -7,13 +7,7 @@ the form it picks, on the CPU.
   K*N not a multiple of 4), for the atlas (C = 4) and the sky (C = 3).
 - The copy is made once per planes tensor and again after the planes change
   in place, and carries no gradient.
-- Its bf16 form exists only where every value round-trips through bf16:
-  for an atlas built by `TexturePool` (which snaps texels to bf16), not for
-  random planes, and not for the baked sky (whose values are not bf16
-  values, and whose rows are 48 bytes).  The bf16 rows widen back to the
-  f32 rows bit for bit.
-- `bilinear_variant` takes four queries a thread only for a query count
-  that is a multiple of 4 and aligned index, weight and flag pointers.
+- On the CPU the wrapper is the plain version and launches nothing.
 """
 
 import numpy as np
@@ -75,10 +69,10 @@ def test_texel_rows_layout_and_plain_gather(which, c, k, n):
     planes = _atlas_planes() if which == "atlas" else _sky_planes()
     t = planes.shape[1]
     rows = tg.texel_rows(planes)
-    assert rows.f32.shape == (t, 4 * c) and rows.f32.is_contiguous()
-    assert torch.equal(rows.f32, planes.T)
+    assert rows.shape == (t, 4 * c) and rows.is_contiguous()
+    assert torch.equal(rows, planes.T)
     args = _queries(np.random.default_rng(n), t, k, n)
-    got = rows_plain(rows.f32, *args, c)
+    got = rows_plain(rows, *args, c)
     want = tg.gather_bilinear_plain(planes, *args, c)
     np.testing.assert_array_equal(got.numpy().view(np.int32), want.numpy().view(np.int32))
 
@@ -93,41 +87,12 @@ def test_texel_rows_follow_their_planes(change):
         planes = planes * 0.5
     rows = tg.texel_rows(planes)
     assert (rows is first) == (change == "none")
-    assert torch.equal(rows.f32, planes.T)
-    assert torch.equal(rows.bf16.to(torch.float32), planes.T)  # x0.5 keeps bf16 values
+    assert torch.equal(rows, planes.T)
 
 
 def test_texel_rows_carry_no_gradient():
     planes = _atlas_planes(6).requires_grad_(True)
-    rows = tg.texel_rows(planes)
-    assert not rows.f32.requires_grad and not rows.bf16.requires_grad
-
-
-def test_bf16_rows_only_where_exact():
-    atlas = tg.texel_rows(_atlas_planes(7))
-    assert tg.bf16_exact(atlas.f32) and atlas.bf16 is not None
-    assert atlas.bf16.dtype == torch.bfloat16 and atlas.bf16.shape == atlas.f32.shape
-    np.testing.assert_array_equal(atlas.bf16.to(torch.float32).numpy().view(np.int32),
-                                  atlas.f32.numpy().view(np.int32))
-    rs = np.random.default_rng(7)
-    random = tg.texel_rows(torch.from_numpy(rs.standard_normal((16, 40)).astype(np.float32)))
-    assert not tg.bf16_exact(random.f32) and random.bf16 is None
-    sky_rows = tg.texel_rows(_sky_planes())
-    assert not tg.bf16_exact(sky_rows.f32) and sky_rows.bf16 is None
-
-
-@pytest.mark.parametrize("kn,has_bf16,ptrs,want", [
-    (2 * 262144, True, (256, 512, 768, 1024), (True, True)),
-    (262144, False, (256, 512, 768, 1028), (False, True)),
-    (262143, True, (256, 512, 768, 1024), (True, False)),
-    (262144, True, (260, 512, 768, 1024), (True, False)),
-    (262144, True, (256, 520, 768, 1024), (True, False)),
-    (262144, True, (256, 512, 776, 1024), (True, False)),
-    (262144, True, (256, 512, 768, 1026), (True, False)),
-])
-def test_bilinear_variant(kn, has_bf16, ptrs, want):
-    got = tg.bilinear_variant(kn, has_bf16, ptrs)
-    assert tuple(got) == (want[0] and tg.BF16_ROWS, want[1] and tg.VEC_QUERIES)
+    assert not tg.texel_rows(planes).requires_grad
 
 
 def test_cpu_wrapper_is_the_plain_version_and_counts_nothing():
