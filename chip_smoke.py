@@ -836,7 +836,7 @@ def check_wide_offsets(dev, k3_tables, k7_planes, rs):
             for vec in (True, False):
                 idx = base.to(dtype) if vec else base.to(dtype)[1:]
                 g = g_base if vec else g_base[:, 1:].contiguous()
-                run, grad = bwd_launcher(g, idx, t, form == "staged", vec, gk.BWD_MATCH, wide=1)
+                run, grad = bwd_launcher(g, idx, t, form == "staged", vec, wide=1)
                 run()
                 torch.cuda.synchronize()
                 if not scatter_error(grad, gk.gather_cols_bwd_plain, g, idx, t)[0]:

@@ -39,13 +39,31 @@
 //
 // The backward replaces pim_tpu/render/fetch.py:_fetch_cols_pallas_bwd (the
 // custom VJP of the same fetch, an XLA scatter-add).  What bounds it: the
-// [F, N] gradient read and the index read (50 MB at [48, 262144]), plus the
-// atomics' serialisation where many lanes share a column: the material
-// graft of the differentiable path scatters 81,552 lanes into 208 columns.
-// The design is the simplest one that is right: one thread per gradient
-// element, r the fast index (coalesced reads), a float atomicAdd into the
-// zeroed [F, T] output, which the wrapper allocates.  The order of the
-// adds, and so the last bits of a column's sum, vary from run to run.
+// [F, N] gradient read and the index read (50 MB at [48, 262144]), the
+// zeroed [F, T] sum written, and the atomics where many lanes share a
+// column.  On the main path they do: a training step's tri-table calls send
+// every miss lane to column 0 (clamp_min(tri, 0)), up to 258,213 of 262,144
+// lanes, some thousands of them with a nonzero gradient; the material graft
+// adds 81,552 lanes into 208 columns.
+//
+// What the design does about it: a thread owns four lanes, loads their
+// indices once (16-byte loads where N % 4 == 0 and idx and g are aligned,
+// else lanes kThreads apart, as gather_tiles.cuh does for the forward) and
+// walks kRows rows of g (grid y), loading all of them before it adds.  The
+// warp combines its adds into one column (add_group: __match_any_sync per
+// slot, a tree of shuffles over a group), so a column takes at most one
+// atomic a slot and a row from a warp, and none where its sum is 0, which
+// leaves the column's sum as it is.  A sum of up to kStageMaxBytes (the
+// graft, the emissive table, Cornell's tri table) is staged: the block adds
+// into its rows in shared memory and adds each nonzero entry into the output
+// once at the end, with a grid sized to residency.  No integer division, and
+// 32-bit offsets where F*N and F*T fit.  Head flags between neighbour lanes
+// (one segmented scan a row) combined fewer adds: on the training step's
+// bounce calls, whose lanes hit the same triangles out of order, they took
+// 1.5x as long over the step (tools/fetch_variants.py --forms, NVIDIA H100
+// 80GB HBM3, 700.00 W; PERF.md, PR 6).  The order of the adds, and so the
+// last bits of a column's sum, vary from run to run; every sum stays within
+// gamma(adds - 1) * sum |g| of the exact one.
 
 #include <cuda_runtime.h>
 
@@ -276,70 +294,12 @@ int launch_rows(const float* rows_tf, int f, int t, const Index* idx, long long 
 
 constexpr unsigned kFull = 0xffffffffu;
 
-// Runs of equal columns along a warp's lanes, found once per lane tile.  A
-// thread holds L consecutive lanes of one strip of 32 * L lanes (the vector
-// path: L = 4; the scalar path: four strips of L = 1).  key is the lane's
-// column, or -1 for a lane that adds nothing.
-template <typename Off, int L>
-struct Runs {
-  Off key[L];
-  bool head[L];  // the lane starts a run
-  bool tail[L];  // the lane ends one: it makes the run's add
-  bool lead[L];  // the lane's run starts in an earlier thread
-  bool opens;    // a run starts among this thread's lanes
-};
-
-template <typename Off, int L>
-__device__ __forceinline__ void find_runs(Runs<Off, L>& r) {
-  const int lane = threadIdx.x & 31;
-  const Off prev = __shfl_up_sync(kFull, r.key[L - 1], 1);
-  const Off next = __shfl_down_sync(kFull, r.key[0], 1);
-  bool open = false;
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    r.head[j] = j == 0 ? (lane == 0 || r.key[0] != prev) : r.key[j] != r.key[j - 1];
-    r.tail[j] = j == L - 1 ? (lane == 31 || r.key[L - 1] != next) : r.key[j + 1] != r.key[j];
-    open = open || r.head[j];
-    r.lead[j] = !open;
-  }
-  r.opens = open;
-}
-
-// Sums v over each run (a segmented scan: in the thread, then across the
-// warp by shuffles), then the run's tail lane adds the sum into row[key]
-// unless it is 0.  Every thread of the warp calls it.
-template <typename Off, int L>
-__device__ __forceinline__ void add_runs(float* row, const Runs<Off, L>& r, float (&v)[L]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 1; j < L; ++j) {
-    if (!r.head[j]) v[j] += v[j - 1];
-  }
-  float x = v[L - 1];
-  bool f = r.opens;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const float y = __shfl_up_sync(kFull, x, d);
-    const bool g = __shfl_up_sync(kFull, static_cast<int>(f), d) != 0;
-    if (lane >= d) {
-      if (!f) x += y;
-      f = f || g;
-    }
-  }
-  const float carry = __shfl_up_sync(kFull, x, 1);
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    const float s = r.lead[j] && lane > 0 ? carry + v[j] : v[j];
-    if (r.tail[j] && r.key[j] >= 0 && s != 0.0f) atomicAdd(row + r.key[j], s);
-  }
-}
-
-// The same sums with the lanes of a column found by __match_any_sync, in
-// either layout: a thread first sums its equal neighbouring slots into the
-// last of them (any two lanes of one column may be summed together); then,
-// slot by slot, the lanes that hold the same column across the warp form a
-// group, a tree over the group in lane order sums it, and its lowest lane
-// adds.  Where no slot group of the warp has two lanes, the tree is skipped.
+// A warp's adds into one column, combined: a thread first sums its equal
+// neighbouring slots into the last of them (any two lanes of one column may
+// be summed together); then, slot by slot, the lanes that hold the same
+// column across the warp form a group (__match_any_sync), a tree over the
+// group in lane order sums it, and its lowest lane adds the sum unless it
+// is 0.  Where no slot group of the warp has two lanes, the tree is skipped.
 template <typename Off>
 struct Group {
   Off key;     // the column this slot adds into, or -1
@@ -378,10 +338,10 @@ __device__ __forceinline__ void add_group(float* row, const Group<Off>& p, float
 
 // grad[f, idx[r]] += g[f, r].  A block takes kRows rows of g (grid y) and
 // walks lane tiles; a thread loads its four lanes' indices once, then their
-// values row by row.  kStaged: the block adds into its rows of grad held in
-// shared memory and adds each nonzero entry into grad at the end; kMatch:
-// __match_any_sync finds a column's lanes, else head flags.
-template <typename Index, typename Off, bool kStaged, bool kVec, bool kMatch>
+// values row by row, and the warp combines its adds (add_group).  kStaged:
+// the block adds into its rows of grad held in shared memory and adds each
+// nonzero entry into grad at the end.
+template <typename Index, typename Off, bool kStaged, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 gather_cols_bwd_kernel(const float* __restrict__ g, int f, int t, const Index* __restrict__ idx,
                        long long n_ll, float* __restrict__ grad) {
@@ -424,52 +384,24 @@ gather_cols_bwd_kernel(const float* __restrict__ g, int f, int t, const Index* _
         }
       }
     }
-    if constexpr (kMatch) {
-      Off key[kLanes];
+    Off key[kLanes];
 #pragma unroll
-      for (int j = 0; j < kLanes; ++j) key[j] = ok[j] ? col[j] : static_cast<Off>(-1);
-      Group<Off> p[kLanes];
+    for (int j = 0; j < kLanes; ++j) key[j] = ok[j] ? col[j] : static_cast<Off>(-1);
+    Group<Off> p[kLanes];
 #pragma unroll
-      for (int j = 0; j < kLanes; ++j) {
-        p[j].key = j + 1 < kLanes && key[j + 1] == key[j] ? static_cast<Off>(-1) : key[j];
-        find_group(p[j]);
-      }
+    for (int j = 0; j < kLanes; ++j) {
+      p[j].key = j + 1 < kLanes && key[j + 1] == key[j] ? static_cast<Off>(-1) : key[j];
+      find_group(p[j]);
+    }
 #pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        if (q < rows) {
+    for (int q = 0; q < kRows; ++q) {
+      if (q < rows) {
 #pragma unroll
-          for (int j = 1; j < kLanes; ++j) {
-            if (key[j] == key[j - 1]) v[q][j] += v[q][j - 1];
-          }
-#pragma unroll
-          for (int j = 0; j < kLanes; ++j) add_group(out + static_cast<Off>(q) * t, p[j], v[q][j]);
+        for (int j = 1; j < kLanes; ++j) {
+          if (key[j] == key[j - 1]) v[q][j] += v[q][j - 1];
         }
-      }
-    } else if constexpr (kVec) {
-      Runs<Off, kLanes> r;
 #pragma unroll
-      for (int j = 0; j < kLanes; ++j) r.key[j] = ok[j] ? col[j] : static_cast<Off>(-1);
-      find_runs(r);
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        if (q < rows) add_runs<Off, kLanes>(out + static_cast<Off>(q) * t, r, v[q]);
-      }
-    } else {
-      Runs<Off, 1> r[kLanes];
-#pragma unroll
-      for (int j = 0; j < kLanes; ++j) {
-        r[j].key[0] = ok[j] ? col[j] : static_cast<Off>(-1);
-        find_runs(r[j]);
-      }
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        if (q < rows) {
-#pragma unroll
-          for (int j = 0; j < kLanes; ++j) {
-            float w[1] = {v[q][j]};
-            add_runs<Off, 1>(out + static_cast<Off>(q) * t, r[j], w);
-          }
-        }
+        for (int j = 0; j < kLanes; ++j) add_group(out + static_cast<Off>(q) * t, p[j], v[q][j]);
       }
     }
   }
@@ -483,13 +415,13 @@ gather_cols_bwd_kernel(const float* __restrict__ g, int f, int t, const Index* _
   }
 }
 
-template <typename Index, typename Off, bool kStaged, bool kVec, bool kMatch>
+template <typename Index, typename Off, bool kStaged, bool kVec>
 int launch_bwd_as(const float* g, int f, int t, const Index* idx, long long n, float* grad,
                   cudaStream_t stream) {
   const long long tiles = (n + kTileLanes - 1) / kTileLanes;
   const int blocks_y = (f + kRows - 1) / kRows;
   const size_t smem = kStaged ? sizeof(float) * (f < kRows ? f : kRows) * t : 0;
-  auto kernel = gather_cols_bwd_kernel<Index, Off, kStaged, kVec, kMatch>;
+  auto kernel = gather_cols_bwd_kernel<Index, Off, kStaged, kVec>;
   if (const int rc = pim_gather::allow_smem(kernel, smem)) {
     return rc;
   }
@@ -504,39 +436,18 @@ int launch_bwd_as(const float* g, int f, int t, const Index* idx, long long n, f
 // vec: 16-byte index and gradient loads (N % 4 == 0, idx and g aligned).
 template <typename Index>
 int launch_bwd(const float* g, int f, int t, const Index* idx, long long n, float* grad,
-               int staged, int wide, int vec, int match, void* stream_ptr) {
+               int staged, int wide, int vec, void* stream_ptr) {
   const auto stream = static_cast<cudaStream_t>(stream_ptr);
-  if (match) {
-    const int pick = (staged ? 4 : 0) | (wide ? 2 : 0) | (vec ? 1 : 0);
-    switch (pick) {
-      case 0: return launch_bwd_as<Index, int, false, false, true>(g, f, t, idx, n, grad, stream);
-      case 1: return launch_bwd_as<Index, int, false, true, true>(g, f, t, idx, n, grad, stream);
-      case 2: return launch_bwd_as<Index, long long, false, false, true>(g, f, t, idx, n, grad,
-                                                                         stream);
-      case 3: return launch_bwd_as<Index, long long, false, true, true>(g, f, t, idx, n, grad,
-                                                                        stream);
-      case 4: return launch_bwd_as<Index, int, true, false, true>(g, f, t, idx, n, grad, stream);
-      case 5: return launch_bwd_as<Index, int, true, true, true>(g, f, t, idx, n, grad, stream);
-      case 6: return launch_bwd_as<Index, long long, true, false, true>(g, f, t, idx, n, grad,
-                                                                        stream);
-      default: return launch_bwd_as<Index, long long, true, true, true>(g, f, t, idx, n, grad,
-                                                                        stream);
-    }
-  }
   const int pick = (staged ? 4 : 0) | (wide ? 2 : 0) | (vec ? 1 : 0);
   switch (pick) {
-    case 0: return launch_bwd_as<Index, int, false, false, false>(g, f, t, idx, n, grad, stream);
-    case 1: return launch_bwd_as<Index, int, false, true, false>(g, f, t, idx, n, grad, stream);
-    case 2: return launch_bwd_as<Index, long long, false, false, false>(g, f, t, idx, n, grad,
-                                                                        stream);
-    case 3: return launch_bwd_as<Index, long long, false, true, false>(g, f, t, idx, n, grad,
-                                                                       stream);
-    case 4: return launch_bwd_as<Index, int, true, false, false>(g, f, t, idx, n, grad, stream);
-    case 5: return launch_bwd_as<Index, int, true, true, false>(g, f, t, idx, n, grad, stream);
-    case 6: return launch_bwd_as<Index, long long, true, false, false>(g, f, t, idx, n, grad,
-                                                                       stream);
-    default: return launch_bwd_as<Index, long long, true, true, false>(g, f, t, idx, n, grad,
-                                                                       stream);
+    case 0: return launch_bwd_as<Index, int, false, false>(g, f, t, idx, n, grad, stream);
+    case 1: return launch_bwd_as<Index, int, false, true>(g, f, t, idx, n, grad, stream);
+    case 2: return launch_bwd_as<Index, long long, false, false>(g, f, t, idx, n, grad, stream);
+    case 3: return launch_bwd_as<Index, long long, false, true>(g, f, t, idx, n, grad, stream);
+    case 4: return launch_bwd_as<Index, int, true, false>(g, f, t, idx, n, grad, stream);
+    case 5: return launch_bwd_as<Index, int, true, true>(g, f, t, idx, n, grad, stream);
+    case 6: return launch_bwd_as<Index, long long, true, false>(g, f, t, idx, n, grad, stream);
+    default: return launch_bwd_as<Index, long long, true, true>(g, f, t, idx, n, grad, stream);
   }
 }
 
@@ -565,15 +476,13 @@ int pim_gather_cols_rows_i64(const float* rows_tf, int f, int t, const int64_t* 
 }
 
 int pim_gather_cols_bwd_i32(const float* g, int f, int t, const int32_t* idx, long long n,
-                            float* grad, int staged, int wide, int vec, int match,
-                            void* stream) {
-  return launch_bwd<int32_t>(g, f, t, idx, n, grad, staged, wide, vec, match, stream);
+                            float* grad, int staged, int wide, int vec, void* stream) {
+  return launch_bwd<int32_t>(g, f, t, idx, n, grad, staged, wide, vec, stream);
 }
 
 int pim_gather_cols_bwd_i64(const float* g, int f, int t, const int64_t* idx, long long n,
-                            float* grad, int staged, int wide, int vec, int match,
-                            void* stream) {
-  return launch_bwd<int64_t>(g, f, t, idx, n, grad, staged, wide, vec, match, stream);
+                            float* grad, int staged, int wide, int vec, void* stream) {
+  return launch_bwd<int64_t>(g, f, t, idx, n, grad, staged, wide, vec, stream);
 }
 
 }  // extern "C"

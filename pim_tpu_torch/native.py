@@ -138,10 +138,9 @@ def load() -> ctypes.CDLL:
         # gradient, c, t, idx, k * n, gradient table, stream
         lib.pim_gather_texels_bwd.argtypes = [p, i, i, p, ll, p, p]
         lib.pim_gather_texels_bwd.restype = i
-        # gradient, f, t, idx, n, gradient table, the variant (staged, wide,
-        # vec, match), stream
+        # ... with the variant (staged, wide, vec) before the stream
         for fn in (lib.pim_gather_cols_bwd_i32, lib.pim_gather_cols_bwd_i64):
-            fn.argtypes = [p, i, i, p, ll, p, i, i, i, i, p]
+            fn.argtypes = [p, i, i, p, ll, p, i, i, i, p]
             fn.restype = i
         # ... with the variant (staged, wide, vec) before the stream
         for fn in (lib.pim_gather_cols_i32, lib.pim_gather_cols_i64, lib.pim_gather_texels):

@@ -9,7 +9,8 @@ for CPU tensors both run their plain versions.  The forward moves the
 stored float32 values unchanged.  `idx` gets no gradient.
 
 `gather_variant` picks the kernel's variant from the shapes and the index
-pointer: the table staged in shared memory (up to STAGE_MAX_BYTES) or read
+pointer (`gather_bwd_variant` the backward's, from the gradient's pointer
+too): the table staged in shared memory (up to STAGE_MAX_BYTES) or read
 directly, 32- or 64-bit offsets, the 16-byte vector path or the scalar one.
 A CUDA call on a table too large to stage, with F a multiple of 4
 (`reads_rows`: the e1m1 tri table), reads the table's row-major [T, F]
@@ -33,9 +34,6 @@ from pim_tpu_torch import native
 STAGE_MAX_BYTES = 200 * 1024
 TILE_LANES = 1024
 _OFFSET_LIMIT = 2**31 - 1
-# K3-bwd finds a column's lanes in a warp by head flags between neighbour
-# lanes (0) or by __match_any_sync (1)
-BWD_MATCH = 0
 # table -> (its version counter when copied, its row-major copy)
 _ROWS = WeakIdKeyDictionary()
 
@@ -160,7 +158,7 @@ def gather_cols_bwd(g: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
     v = gather_bwd_variant(f, t, n, idx.data_ptr(), g.data_ptr())
     fn = lib.pim_gather_cols_bwd_i32 if idx.dtype == torch.int32 else lib.pim_gather_cols_bwd_i64
     rc = fn(g.data_ptr(), f, t, idx.data_ptr(), n, grad.data_ptr(), v.staged, v.wide, v.vec,
-            BWD_MATCH, native.stream_ptr(dev))
+            native.stream_ptr(dev))
     native.check(lib, rc, "gather_cols_bwd")
     native.launches["gather_cols_bwd"] += 1
     return grad

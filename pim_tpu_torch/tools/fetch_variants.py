@@ -80,17 +80,16 @@ def queued_ms(fn, batches: int = BATCHES) -> list:
 
 
 def bwd_forms(f: int, t: int):
-    """(name, staged, vec, match) of every K3-bwd form for a [f, t] sum:
-    staged where it fits, and read directly."""
+    """(name, staged, vec) of every K3-bwd form for a [f, t] sum: staged
+    where it fits, and read directly; the vector and the scalar path."""
     from pim_tpu_torch.render import gather_kernel as gk
 
     stages = (True, False) if f * t * 4 <= gk.STAGE_MAX_BYTES else (False,)
-    return [(f"{'staged' if s else 'direct'} {name}", s, vec, match) for s in stages
-            for name, vec, match in (("heads vec", 1, 0), ("heads scalar", 0, 0),
-                                     ("match vec", 1, 1), ("match scalar", 0, 1))]
+    return [(f"{'staged' if s else 'direct'} {'vec' if vec else 'scalar'}", s, vec)
+            for s in stages for vec in (1, 0)]
 
 
-def bwd_launcher(g, idx, t, staged, vec, match, wide=0):
+def bwd_launcher(g, idx, t, staged, vec, wide=0):
     """(fn() launching one form of K3-bwd into a zeroed sum, the sum); 64-bit
     offsets with `wide`."""
     from pim_tpu_torch import native
@@ -104,7 +103,7 @@ def bwd_launcher(g, idx, t, staged, vec, match, wide=0):
     def run():
         grad.zero_()
         native.check(lib, fn(g.data_ptr(), f, t, idx.data_ptr(), n, grad.data_ptr(), staged,
-                             wide, vec, match, s), "gather_cols_bwd")
+                             wide, vec, s), "gather_cols_bwd")
     return run, grad
 
 
@@ -179,10 +178,10 @@ def main(argv=None) -> None:
             raise AssertionError(f"K3-bwd {label} leaves the bound")
         if args.forms:
             row["forms"] = {}
-            for name, staged, vec, match in bwd_forms(g.shape[0], t):
+            for name, staged, vec in bwd_forms(g.shape[0], t):
                 if vec and (g.shape[1] % 4 or idx.data_ptr() % 16 or g.data_ptr() % 16):
                     continue
-                run, grad = bwd_launcher(g, idx, t, staged, vec, match)
+                run, grad = bwd_launcher(g, idx, t, staged, vec)
                 run()
                 ok_f = fc.scatter_error(grad, gk.gather_cols_bwd_plain, g, idx, t)[0]
                 ms = queued_ms(run)

@@ -83,7 +83,6 @@ def test_bwd_constants_match_the_kernel():
     body = src[src.index("int launch_bwd_as("):]
     assert "sizeof(float) * (f < kRows ? f : kRows) * t" in body
     assert "pim_gather::staged_blocks(tiles, blocks_y, smem)" in body
-    assert gk.BWD_MATCH in (0, 1)
 
 
 @pytest.mark.parametrize("f,t,n,dtype", [(48, 300, 4096, torch.int32), (4, 7, 1001, torch.int64)])
