@@ -829,22 +829,23 @@ def check_wide_offsets(dev, k3_tables, k7_planes, rs):
     print(f"64-bit offsets: {checked} forced launches of K3 (staged, direct, row-major copy; "
           f"int32, int64) and K7 (staged, direct), vector and scalar paths: bitwise_equal=True")
     checked = 0
-    for form, (f, t) in (("staged", (4, 208)), ("direct", (48, 81552))):
+    for form, (f, t) in (("staged", (4, 208)), ("direct", (48, 81552)), ("rows", (48, 81552))):
         base = torch.from_numpy(rs.integers(-1, t + 1, N_RAYS).astype(np.int32)).to(dev)
         g_base = torch.from_numpy(rs.standard_normal((f, N_RAYS)).astype(np.float32)).to(dev)
         for dtype in (torch.int32, torch.int64):
             for vec in (True, False):
                 idx = base.to(dtype) if vec else base.to(dtype)[1:]
                 g = g_base if vec else g_base[:, 1:].contiguous()
-                run, grad = bwd_launcher(g, idx, t, form == "staged", vec, wide=1)
+                run, grad = bwd_launcher(g, idx, t, form, vec, wide=1)
                 run()
                 torch.cuda.synchronize()
-                if not scatter_error(grad, gk.gather_cols_bwd_plain, g, idx, t)[0]:
+                if not scatter_error(grad(), gk.gather_cols_bwd_plain, g, idx, t)[0]:
                     raise AssertionError(f"K3-bwd {form}, 64-bit offsets, {str(dtype)[6:]}, "
                                          f"vec={vec}: leaves the atomics' bound")
                 checked += 1
-    print(f"64-bit offsets: {checked} forced launches of K3-bwd (staged [4, 208], direct "
-          f"[48, 81552]; int32, int64; vector and scalar paths): within gamma(adds-1)*sum|g|")
+    print(f"64-bit offsets: {checked} forced launches of K3-bwd (staged [4, 208]; direct and "
+          f"row-major [48, 81552]; int32, int64; vector and scalar paths): within "
+          f"gamma(adds-1)*sum|g|")
     table = torch.from_numpy(rs.standard_normal((8, 1000)).astype(np.float32)).to(dev)
     gen = torch.Generator(device=dev).manual_seed(31)
     idx = torch.randint(-1, 1001, (WIDE_LANES,), generator=gen, device=dev, dtype=torch.int32)

@@ -336,6 +336,75 @@ __device__ __forceinline__ void add_group(float* row, const Group<Off>& p, float
   if (p.rank == 0 && p.key >= 0 && v != 0.0f) atomicAdd(row + p.key, v);
 }
 
+// The sum of four rows at once, for the row-major form: the same group,
+// its tree over float4, its lowest lane adding with one 16-byte atomic.
+template <typename Off>
+__device__ __forceinline__ void add_group4(float* at, const Group<Off>& p, float4 v) {
+  if (p.tree) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      const int from = p.src[k] >= 0 ? p.src[k] : lane;
+      const float4 y = make_float4(__shfl_sync(kFull, v.x, from), __shfl_sync(kFull, v.y, from),
+                                   __shfl_sync(kFull, v.z, from), __shfl_sync(kFull, v.w, from));
+      if (p.src[k] >= 0 && (p.rank & ((2 << k) - 1)) == 0) {
+        v.x += y.x;
+        v.y += y.y;
+        v.z += y.z;
+        v.w += y.w;
+      }
+    }
+  }
+  if (p.rank == 0 && p.key >= 0 &&
+      (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f)) {
+    atomicAdd(reinterpret_cast<float4*>(at + p.key), v);
+  }
+}
+
+// One lane tile of a backward block: the four lanes' gradients in `rows`
+// rows from `src` (row stride n) and their groups (a thread's equal
+// neighbouring slots are left to the last of them).
+template <typename Index, typename Off, bool kVec>
+__device__ __forceinline__ void load_tile(const float* __restrict__ src, const Index* __restrict__ idx,
+                                          Off tile, Off n, int t, int rows,
+                                          float (&v)[kRows][kLanes], Off (&key)[kLanes],
+                                          Group<Off> (&p)[kLanes]) {
+  Off col[kLanes];
+  bool ok[kLanes];
+  load_cols<Index, Off, kVec>(idx, tile, n, t, col, ok);
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    if (q < rows) {
+      const float* row = src + static_cast<Off>(q) * n;
+      if (kVec) {
+        const Off r0 = pim_gather::lane<true>(tile, 0);
+        const float4 w = r0 < n ? __ldg(reinterpret_cast<const float4*>(row + r0))
+                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        v[q][0] = w.x;
+        v[q][1] = w.y;
+        v[q][2] = w.z;
+        v[q][3] = w.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kLanes; ++j) {
+          const Off r = pim_gather::lane<false>(tile, j);
+          v[q][j] = r < n ? __ldg(row + r) : 0.0f;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kLanes; ++j) v[q][j] = 0.0f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) key[j] = ok[j] ? col[j] : static_cast<Off>(-1);
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) {
+    p[j].key = j + 1 < kLanes && key[j + 1] == key[j] ? static_cast<Off>(-1) : key[j];
+    find_group(p[j]);
+  }
+}
+
 // grad[f, idx[r]] += g[f, r].  A block takes kRows rows of g (grid y) and
 // walks lane tiles; a thread loads its four lanes' indices once, then their
 // values row by row, and the warp combines its adds (add_group).  kStaged:
@@ -359,40 +428,10 @@ gather_cols_bwd_kernel(const float* __restrict__ g, int f, int t, const Index* _
   const float* src = g + static_cast<Off>(f0) * n;
   const Off tiles = (n + kTileLanes - 1) / kTileLanes;
   for (Off tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    Off col[kLanes];
-    bool ok[kLanes];
-    load_cols<Index, Off, kVec>(idx, tile, n, t, col, ok);
     float v[kRows][kLanes];
-#pragma unroll
-    for (int q = 0; q < kRows; ++q) {
-      if (q < rows) {
-        const float* row = src + static_cast<Off>(q) * n;
-        if (kVec) {
-          const Off r0 = pim_gather::lane<true>(tile, 0);
-          const float4 w = r0 < n ? __ldg(reinterpret_cast<const float4*>(row + r0))
-                                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          v[q][0] = w.x;
-          v[q][1] = w.y;
-          v[q][2] = w.z;
-          v[q][3] = w.w;
-        } else {
-#pragma unroll
-          for (int j = 0; j < kLanes; ++j) {
-            const Off r = pim_gather::lane<false>(tile, j);
-            v[q][j] = r < n ? __ldg(row + r) : 0.0f;
-          }
-        }
-      }
-    }
     Off key[kLanes];
-#pragma unroll
-    for (int j = 0; j < kLanes; ++j) key[j] = ok[j] ? col[j] : static_cast<Off>(-1);
     Group<Off> p[kLanes];
-#pragma unroll
-    for (int j = 0; j < kLanes; ++j) {
-      p[j].key = j + 1 < kLanes && key[j + 1] == key[j] ? static_cast<Off>(-1) : key[j];
-      find_group(p[j]);
-    }
+    load_tile<Index, Off, kVec>(src, idx, tile, n, t, rows, v, key, p);
 #pragma unroll
     for (int q = 0; q < kRows; ++q) {
       if (q < rows) {
@@ -411,6 +450,55 @@ gather_cols_bwd_kernel(const float* __restrict__ g, int f, int t, const Index* _
     for (int e = threadIdx.x; e < rows * t; e += kThreads) {
       const float s = out[e];
       if (s != 0.0f) atomicAdd(dst + e, s);
+    }
+  }
+}
+
+// The same sum into a row-major [T, F] buffer, F % 4 == 0 (for a sum too
+// large to stage): a lane's four rows q..q+3 of one column are 16
+// contiguous bytes there, so a group adds them with one float4 atomic
+// (sm_90) instead of four scattered ones.  The wrapper transposes the
+// buffer into [F, T].
+template <typename Index, typename Off, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+gather_cols_bwd_rows_kernel(const float* __restrict__ g, int f, int t,
+                            const Index* __restrict__ idx, long long n_ll,
+                            float* __restrict__ sum_tf) {
+  const Off n = static_cast<Off>(n_ll);
+  const int f0 = blockIdx.y * kRows;
+  const int rows = min(kRows, f - f0);  // a multiple of 4
+  const float* src = g + static_cast<Off>(f0) * n;
+  const Off tiles = (n + kTileLanes - 1) / kTileLanes;
+  for (Off tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    float v[kRows][kLanes];
+    Off key[kLanes];
+    Group<Off> p[kLanes];
+    load_tile<Index, Off, kVec>(src, idx, tile, n, t, rows, v, key, p);
+#pragma unroll
+    for (int h = 0; h < kRows / 4; ++h) {
+      if (4 * h < rows) {
+        float4 w[kLanes];
+#pragma unroll
+        for (int j = 0; j < kLanes; ++j) {
+          w[j] = make_float4(v[4 * h][j], v[4 * h + 1][j], v[4 * h + 2][j], v[4 * h + 3][j]);
+        }
+#pragma unroll
+        for (int j = 1; j < kLanes; ++j) {
+          if (key[j] == key[j - 1]) {
+            w[j].x += w[j - 1].x;
+            w[j].y += w[j - 1].y;
+            w[j].z += w[j - 1].z;
+            w[j].w += w[j - 1].w;
+          }
+        }
+        Group<Off> q[kLanes];
+#pragma unroll
+        for (int j = 0; j < kLanes; ++j) {
+          q[j] = p[j];
+          q[j].key = p[j].key >= 0 ? p[j].key * f : p[j].key;
+          add_group4(sum_tf + f0 + 4 * h, q[j], w[j]);
+        }
+      }
     }
   }
 }
@@ -434,6 +522,28 @@ int launch_bwd_as(const float* g, int f, int t, const Index* idx, long long n, f
 
 // staged: grad's row slices summed in shared memory; wide: 64-bit offsets;
 // vec: 16-byte index and gradient loads (N % 4 == 0, idx and g aligned).
+template <typename Index, typename Off, bool kVec>
+int launch_bwd_rows_as(const float* g, int f, int t, const Index* idx, long long n, float* sum_tf,
+                       cudaStream_t stream) {
+  const long long tiles = (n + kTileLanes - 1) / kTileLanes;
+  const dim3 grid(pim_gather::direct_blocks(tiles), (f + kRows - 1) / kRows);
+  gather_cols_bwd_rows_kernel<Index, Off, kVec><<<grid, kThreads, 0, stream>>>(g, f, t, idx, n,
+                                                                             sum_tf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Index>
+int launch_bwd_rows(const float* g, int f, int t, const Index* idx, long long n, float* sum_tf,
+                    int wide, int vec, void* stream_ptr) {
+  const auto stream = static_cast<cudaStream_t>(stream_ptr);
+  if (wide) {
+    return vec ? launch_bwd_rows_as<Index, long long, true>(g, f, t, idx, n, sum_tf, stream)
+               : launch_bwd_rows_as<Index, long long, false>(g, f, t, idx, n, sum_tf, stream);
+  }
+  return vec ? launch_bwd_rows_as<Index, int, true>(g, f, t, idx, n, sum_tf, stream)
+             : launch_bwd_rows_as<Index, int, false>(g, f, t, idx, n, sum_tf, stream);
+}
+
 template <typename Index>
 int launch_bwd(const float* g, int f, int t, const Index* idx, long long n, float* grad,
                int staged, int wide, int vec, void* stream_ptr) {
@@ -483,6 +593,16 @@ int pim_gather_cols_bwd_i32(const float* g, int f, int t, const int32_t* idx, lo
 int pim_gather_cols_bwd_i64(const float* g, int f, int t, const int64_t* idx, long long n,
                             float* grad, int staged, int wide, int vec, void* stream) {
   return launch_bwd<int64_t>(g, f, t, idx, n, grad, staged, wide, vec, stream);
+}
+
+int pim_gather_cols_bwd_rows_i32(const float* g, int f, int t, const int32_t* idx, long long n,
+                                 float* sum_tf, int wide, int vec, void* stream) {
+  return launch_bwd_rows<int32_t>(g, f, t, idx, n, sum_tf, wide, vec, stream);
+}
+
+int pim_gather_cols_bwd_rows_i64(const float* g, int f, int t, const int64_t* idx, long long n,
+                                 float* sum_tf, int wide, int vec, void* stream) {
+  return launch_bwd_rows<int64_t>(g, f, t, idx, n, sum_tf, wide, vec, stream);
 }
 
 }  // extern "C"

@@ -146,8 +146,10 @@ def load() -> ctypes.CDLL:
         for fn in (lib.pim_gather_cols_i32, lib.pim_gather_cols_i64, lib.pim_gather_texels):
             fn.argtypes = [p, i, i, p, ll, p, i, i, i, p]
             fn.restype = i
-        # row-major table copy, f, t, idx, n, out, wide, vec, stream
-        for fn in (lib.pim_gather_cols_rows_i32, lib.pim_gather_cols_rows_i64):
+        # row-major table copy (or gradient), f, t, idx, n, out (or row-major
+        # gradient table), wide, vec, stream
+        for fn in (lib.pim_gather_cols_rows_i32, lib.pim_gather_cols_rows_i64,
+                   lib.pim_gather_cols_bwd_rows_i32, lib.pim_gather_cols_bwd_rows_i64):
             fn.argtypes = [p, i, i, p, ll, p, i, i, p]
             fn.restype = i
         # scb, spad, clb, n_sc, tris, stride, the ray arguments, lane_loop_min

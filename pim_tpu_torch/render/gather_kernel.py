@@ -18,6 +18,8 @@ copy instead (`table_rows`): a lane's row group then comes in two 16-byte
 loads from one sector instead of 8 scattered ones.  The copy is made on the
 table's first such call, kept as long as the table lives, and made again
 after the table changes in place; the gradient still goes to `table_t`.
+For the same tables the backward sums into a row-major [T, F] buffer, four
+rows of a column with one 16-byte atomic, and returns its transpose.
 """
 
 from __future__ import annotations
@@ -151,14 +153,22 @@ def gather_cols_bwd(g: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
     f, n = g.shape
     native.require_cuda("gather_cols_bwd.g", g, torch.float32, (f, n), dev)
     _check_idx("gather_cols_bwd", idx, dev)
-    grad = torch.zeros((f, t), dtype=torch.float32, device=dev)
     if n == 0 or f == 0:
-        return grad
+        return torch.zeros((f, t), dtype=torch.float32, device=dev)
+    grad = None if reads_rows(f, t) else torch.zeros((f, t), dtype=torch.float32, device=dev)
     lib = native.load()
     v = gather_bwd_variant(f, t, n, idx.data_ptr(), g.data_ptr())
-    fn = lib.pim_gather_cols_bwd_i32 if idx.dtype == torch.int32 else lib.pim_gather_cols_bwd_i64
-    rc = fn(g.data_ptr(), f, t, idx.data_ptr(), n, grad.data_ptr(), v.staged, v.wide, v.vec,
-            native.stream_ptr(dev))
+    i32 = idx.dtype == torch.int32
+    if reads_rows(f, t):
+        sum_tf = torch.zeros((t, f), dtype=torch.float32, device=dev)
+        fn = lib.pim_gather_cols_bwd_rows_i32 if i32 else lib.pim_gather_cols_bwd_rows_i64
+        rc = fn(g.data_ptr(), f, t, idx.data_ptr(), n, sum_tf.data_ptr(), v.wide, v.vec,
+                native.stream_ptr(dev))
+        grad = sum_tf.T.contiguous()
+    else:
+        fn = lib.pim_gather_cols_bwd_i32 if i32 else lib.pim_gather_cols_bwd_i64
+        rc = fn(g.data_ptr(), f, t, idx.data_ptr(), n, grad.data_ptr(), v.staged, v.wide, v.vec,
+                native.stream_ptr(dev))
     native.check(lib, rc, "gather_cols_bwd")
     native.launches["gather_cols_bwd"] += 1
     return grad

@@ -80,31 +80,48 @@ def queued_ms(fn, batches: int = BATCHES) -> list:
 
 
 def bwd_forms(f: int, t: int):
-    """(name, staged, vec) of every K3-bwd form for a [f, t] sum: staged
-    where it fits, and read directly; the vector and the scalar path."""
+    """(name, form, vec) of every K3-bwd form for a [f, t] sum: "staged"
+    where it fits, "direct", and "rows" (the row-major sum) where F % 4 ==
+    0 and the sum is not staged; the vector and the scalar path."""
     from pim_tpu_torch.render import gather_kernel as gk
 
-    stages = (True, False) if f * t * 4 <= gk.STAGE_MAX_BYTES else (False,)
-    return [(f"{'staged' if s else 'direct'} {'vec' if vec else 'scalar'}", s, vec)
-            for s in stages for vec in (1, 0)]
+    if f * t * 4 <= gk.STAGE_MAX_BYTES:
+        forms = ("staged", "direct")
+    else:
+        forms = ("direct", "rows") if f % 4 == 0 else ("direct",)
+    return [(f"{form} {'vec' if vec else 'scalar'}", form, vec) for form in forms
+            for vec in (1, 0)]
 
 
-def bwd_launcher(g, idx, t, staged, vec, wide=0):
-    """(fn() launching one form of K3-bwd into a zeroed sum, the sum); 64-bit
-    offsets with `wide`."""
+def bwd_launcher(g, idx, t, form, vec, wide=0):
+    """(fn() launching one form of K3-bwd into a zeroed sum, fn() -> the
+    [F, t] sum after it); 64-bit offsets with `wide`.  The "rows" form sums
+    into a row-major buffer and transposes it, as the wrapper does."""
     from pim_tpu_torch import native
 
     lib = native.load()
     f, n = g.shape
-    grad = torch.zeros((f, t), dtype=torch.float32, device=g.device)
-    fn = lib.pim_gather_cols_bwd_i32 if idx.dtype == torch.int32 else lib.pim_gather_cols_bwd_i64
     s = native.stream_ptr(g.device)
+    i32 = idx.dtype == torch.int32
+    if form == "rows":
+        buf = torch.zeros((t, f), dtype=torch.float32, device=g.device)
+        fn = lib.pim_gather_cols_bwd_rows_i32 if i32 else lib.pim_gather_cols_bwd_rows_i64
+        out = []
+
+        def run():
+            buf.zero_()
+            native.check(lib, fn(g.data_ptr(), f, t, idx.data_ptr(), n, buf.data_ptr(), wide,
+                                 vec, s), "gather_cols_bwd_rows")
+            out[:] = [buf.T.contiguous()]
+        return run, lambda: out[0]
+    grad = torch.zeros((f, t), dtype=torch.float32, device=g.device)
+    fn = lib.pim_gather_cols_bwd_i32 if i32 else lib.pim_gather_cols_bwd_i64
 
     def run():
         grad.zero_()
-        native.check(lib, fn(g.data_ptr(), f, t, idx.data_ptr(), n, grad.data_ptr(), staged,
-                             wide, vec, s), "gather_cols_bwd")
-    return run, grad
+        native.check(lib, fn(g.data_ptr(), f, t, idx.data_ptr(), n, grad.data_ptr(),
+                             form == "staged", wide, vec, s), "gather_cols_bwd")
+    return run, lambda: grad
 
 
 def main(argv=None) -> None:
@@ -178,12 +195,12 @@ def main(argv=None) -> None:
             raise AssertionError(f"K3-bwd {label} leaves the bound")
         if args.forms:
             row["forms"] = {}
-            for name, staged, vec in bwd_forms(g.shape[0], t):
+            for name, form, vec in bwd_forms(g.shape[0], t):
                 if vec and (g.shape[1] % 4 or idx.data_ptr() % 16 or g.data_ptr() % 16):
                     continue
-                run, grad = bwd_launcher(g, idx, t, staged, vec)
+                run, grad = bwd_launcher(g, idx, t, form, vec)
                 run()
-                ok_f = fc.scatter_error(grad, gk.gather_cols_bwd_plain, g, idx, t)[0]
+                ok_f = fc.scatter_error(grad(), gk.gather_cols_bwd_plain, g, idx, t)[0]
                 ms = queued_ms(run)
                 row["forms"][name] = dict(within_bound=ok_f, ms=ms)
                 print(f"  {name}: within bound {ok_f}; {statistics.median(ms):.4f} ms {ms}")
