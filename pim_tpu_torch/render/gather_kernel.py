@@ -19,7 +19,8 @@ loads from one sector instead of 8 scattered ones.  The copy is made on the
 table's first such call, kept as long as the table lives, and made again
 after the table changes in place; the gradient still goes to `table_t`.
 For the same tables the backward sums into a row-major [T, F] buffer, four
-rows of a column with one 16-byte atomic, and returns its transpose.
+rows of a column with one 16-byte atomic, and returns it as its transposed
+[F, T] view (not contiguous: autograd takes a gradient of any strides).
 """
 
 from __future__ import annotations
@@ -144,7 +145,8 @@ def gather_cols_fwd(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def gather_cols_bwd(g: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
-    """g [F, N] f32, idx [N] i32/i64 -> [F, t] f32 column scatter-add."""
+    """g [F, N] f32, idx [N] i32/i64 -> [F, t] f32 column scatter-add (on
+    the card a transposed view of a row-major sum where `reads_rows`)."""
     if g.device.type == "cpu":
         return gather_cols_bwd_plain(g, idx, t)
     dev = g.device
@@ -164,7 +166,7 @@ def gather_cols_bwd(g: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
         fn = lib.pim_gather_cols_bwd_rows_i32 if i32 else lib.pim_gather_cols_bwd_rows_i64
         rc = fn(g.data_ptr(), f, t, idx.data_ptr(), n, sum_tf.data_ptr(), v.wide, v.vec,
                 native.stream_ptr(dev))
-        grad = sum_tf.T.contiguous()
+        grad = sum_tf.T
     else:
         fn = lib.pim_gather_cols_bwd_i32 if i32 else lib.pim_gather_cols_bwd_i64
         rc = fn(g.data_ptr(), f, t, idx.data_ptr(), n, grad.data_ptr(), v.staged, v.wide, v.vec,

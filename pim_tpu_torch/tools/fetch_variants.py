@@ -96,7 +96,8 @@ def bwd_forms(f: int, t: int):
 def bwd_launcher(g, idx, t, form, vec, wide=0):
     """(fn() launching one form of K3-bwd into a zeroed sum, fn() -> the
     [F, t] sum after it); 64-bit offsets with `wide`.  The "rows" form sums
-    into a row-major buffer and transposes it, as the wrapper does."""
+    into a row-major buffer, whose transposed view is the sum, as in the
+    wrapper."""
     from pim_tpu_torch import native
 
     lib = native.load()
@@ -106,14 +107,12 @@ def bwd_launcher(g, idx, t, form, vec, wide=0):
     if form == "rows":
         buf = torch.zeros((t, f), dtype=torch.float32, device=g.device)
         fn = lib.pim_gather_cols_bwd_rows_i32 if i32 else lib.pim_gather_cols_bwd_rows_i64
-        out = []
 
         def run():
             buf.zero_()
             native.check(lib, fn(g.data_ptr(), f, t, idx.data_ptr(), n, buf.data_ptr(), wide,
                                  vec, s), "gather_cols_bwd_rows")
-            out[:] = [buf.T.contiguous()]
-        return run, lambda: out[0]
+        return run, lambda: buf.T
     grad = torch.zeros((f, t), dtype=torch.float32, device=g.device)
     fn = lib.pim_gather_cols_bwd_i32 if i32 else lib.pim_gather_cols_bwd_i64
 
