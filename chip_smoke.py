@@ -736,9 +736,9 @@ def check_e1m1_kernels(dev, scene):
         args = [torch.from_numpy(x).to(dev) for x in (idx, tx, ty, valid)]
         k6[label] = check_k6(label, planes, *args, c)
     # the wrapper's texel-interleaved copy, made on the planes' first K6 call
-    copy = _timing(lambda: tg.texel_rows(arrays.atlas_corners.clone()))
+    copy = _timing(lambda: arrays.atlas_corners.T.contiguous())
     print(f"K6 texel-interleaved copy of the atlas corner planes (made once, on their first K6 "
-          f"call; with the bf16 check and copy): {_fmt(copy)}")
+          f"call): {_fmt(copy)}")
     served = serving_step_calls(scene, WIDTH, HEIGHT, BOUNCES)
     for label in ("atlas", "sky"):
         calls = served[f"k6_{label}"]
@@ -749,7 +749,7 @@ def check_e1m1_kernels(dev, scene):
         print(f"K6 main path: the {len(calls)} {label} calls of one {WIDTH}^2, {BOUNCES}-bounce "
               f"serving step, bitwise_equal=True")
     row = _row(max(v[0] for v in k6.values()), *k6["atlas"][1:])
-    row["texel_rows_copy_ms"] = copy["ms"]
+    row["rows_copy_ms"] = copy["ms"]
     for key in ("sky", "main_atlas", "main_sky"):
         row.update({f"{key}_{name}": v for name, v in _row(0.0, *k6[key][1:]).items()
                     if name != "max_abs_err"})

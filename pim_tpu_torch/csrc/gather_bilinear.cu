@@ -7,7 +7,7 @@
 // with C = 4, and the sky fetch of sky.sample_sky_cubemap_soa with C = 3).
 //
 // rows [T, 4C]: the texel-interleaved copy of the corner planes [4C, T] that
-// the wrapper keeps (render/table_gather.py: texel_rows), row i holding
+// the wrapper keeps (render/gather_kernel.py: table_rows), row i holding
 // planes[corner * C + ch, i] in that order, corners 00, 10, 01, 11; each
 // texel's neighbours are already clamped inside its own sub-texture (or cube
 // face), so one index i00 per query names all four corners, and a query's

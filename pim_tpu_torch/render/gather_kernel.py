@@ -88,7 +88,8 @@ def reads_rows(f: int, t: int) -> bool:
 def table_rows(table_t: torch.Tensor) -> torch.Tensor:
     """The row-major [T, F] copy of a [F, T] table (no gradient flows
     through it): made once per table, and again after the table changes in
-    place; it lives as long as the table."""
+    place; it lives as long as the table.  K3 reads the e1m1 tri table's,
+    K6 the corner planes' (their texel-interleaved copy)."""
     version = table_t._version
     kept = _ROWS.get(table_t)
     if kept is None or kept[0] != version:

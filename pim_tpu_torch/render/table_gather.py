@@ -15,9 +15,9 @@ For CUDA tensors `gather_bilinear` launches csrc/gather_bilinear.cu; for
 CPU tensors it runs `gather_bilinear_plain`.  Both read the texels as plain
 float32 values, where the TPU kernel reads bf16 terms of them (exact for the
 atlas, whose texels are bf16 values; 16 mantissa bits for the sky).  The
-kernel reads a texel-interleaved copy of the planes (`texel_rows`: [T, 4C],
-a query's 4C values in one row), which the wrapper keeps beside the planes
-as gather_kernel.table_rows keeps the tri table's: made on the planes'
+kernel reads a texel-interleaved copy of the planes ([T, 4C], a query's 4C
+values in one row), which the wrapper keeps beside the planes with
+`gather_kernel.table_rows`, as K3 keeps the tri table's: made on the planes'
 first CUDA call, kept as long as they live, made again after they change in
 place.
 
@@ -40,27 +40,9 @@ shared memory, offset width, vector path) comes from
 from __future__ import annotations
 
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
 from pim_tpu_torch import native
-from pim_tpu_torch.render.gather_kernel import gather_variant
-
-# corner planes -> (their version counter when copied, their texel rows)
-_TEXEL_ROWS = WeakIdKeyDictionary()
-
-
-def texel_rows(corner_planes: torch.Tensor) -> torch.Tensor:
-    """The texel-interleaved [T, 4C] copy of `corner_planes` [4C, T] (row i
-    holds planes[:, i]; no gradient flows through it): made once per planes
-    tensor, and again after it changes in place; it lives as long as the
-    planes."""
-    version = corner_planes._version
-    kept = _TEXEL_ROWS.get(corner_planes)
-    if kept is None or kept[0] != version:
-        kept = (version, corner_planes.detach().T.contiguous())
-        _TEXEL_ROWS[corner_planes] = kept
-    return kept[1]
-
+from pim_tpu_torch.render.gather_kernel import gather_variant, table_rows
 
 def gather_bilinear_plain(corner_planes: torch.Tensor, idx: torch.Tensor, tx: torch.Tensor,
                           ty: torch.Tensor, valid: torch.Tensor, c: int) -> torch.Tensor:
@@ -102,7 +84,7 @@ def gather_bilinear(corner_planes: torch.Tensor, idx: torch.Tensor, tx: torch.Te
     if k * n == 0:
         return out
     lib = native.load()
-    rows = texel_rows(corner_planes)
+    rows = table_rows(corner_planes)
     rc = lib.pim_gather_bilinear(rows.data_ptr(), c, t, idx.data_ptr(), tx.data_ptr(),
                                  ty.data_ptr(), valid.data_ptr(), k * n, out.data_ptr(),
                                  native.stream_ptr(dev))

@@ -1,8 +1,8 @@
 """K6, the bilinear fetch: the texel-interleaved copy its wrapper keeps, on
 the CPU.
 
-- `texel_rows` makes the [T, 4C] copy of corner planes [4C, T] (row i holds
-  planes[:, i]); a plain reader of the copy gives `gather_bilinear_plain`'s
+- `gather_kernel.table_rows` makes the wrapper's texel-interleaved [T, 4C]
+  copy of corner planes [4C, T] (row i holds planes[:, i]); a plain reader of the copy gives `gather_bilinear_plain`'s
   output bit for bit (indices -1 and T, invalid queries with NaN weights,
   K*N not a multiple of 4), for the atlas (C = 4) and the sky (C = 3).
 - The copy is made once per planes tensor and again after the planes change
@@ -16,6 +16,7 @@ import torch
 
 from pim_tpu_torch import native
 from pim_tpu_torch.geom.material import TexturePool
+from pim_tpu_torch.render import gather_kernel as gk
 from pim_tpu_torch.render import table_gather as tg
 from pim_tpu_torch.render.scene import build_atlas_corner_planes
 from pim_tpu_torch.render.sky import bake_sky_cubemap, earth_atmosphere, sky_corner_planes
@@ -68,7 +69,7 @@ def _queries(rs, t: int, k: int, n: int):
 def test_texel_rows_layout_and_plain_gather(which, c, k, n):
     planes = _atlas_planes() if which == "atlas" else _sky_planes()
     t = planes.shape[1]
-    rows = tg.texel_rows(planes)
+    rows = gk.table_rows(planes)
     assert rows.shape == (t, 4 * c) and rows.is_contiguous()
     assert torch.equal(rows, planes.T)
     args = _queries(np.random.default_rng(n), t, k, n)
@@ -80,19 +81,19 @@ def test_texel_rows_layout_and_plain_gather(which, c, k, n):
 @pytest.mark.parametrize("change", ["none", "in place", "new planes"])
 def test_texel_rows_follow_their_planes(change):
     planes = _atlas_planes(5)
-    first = tg.texel_rows(planes)
+    first = gk.table_rows(planes)
     if change == "in place":
         planes.mul_(0.5)
     elif change == "new planes":
         planes = planes * 0.5
-    rows = tg.texel_rows(planes)
+    rows = gk.table_rows(planes)
     assert (rows is first) == (change == "none")
     assert torch.equal(rows, planes.T)
 
 
 def test_texel_rows_carry_no_gradient():
     planes = _atlas_planes(6).requires_grad_(True)
-    assert not tg.texel_rows(planes).requires_grad
+    assert not gk.table_rows(planes).requires_grad
 
 
 def test_cpu_wrapper_is_the_plain_version_and_counts_nothing():
