@@ -56,14 +56,19 @@
 // leaves the column's sum as it is.  A sum of up to kStageMaxBytes (the
 // graft, the emissive table, Cornell's tri table) is staged: the block adds
 // into its rows in shared memory and adds each nonzero entry into the output
-// once at the end, with a grid sized to residency.  No integer division, and
-// 32-bit offsets where F*N and F*T fit.  Head flags between neighbour lanes
-// (one segmented scan a row) combined fewer adds: on the training step's
-// bounce calls, whose lanes hit the same triangles out of order, they took
-// 1.5x as long over the step (tools/fetch_variants.py --forms, NVIDIA H100
-// 80GB HBM3, 700.00 W; PERF.md, PR 6).  The order of the adds, and so the
-// last bits of a column's sum, vary from run to run; every sum stays within
-// gamma(adds - 1) * sum |g| of the exact one.
+// once at the end, with a grid sized to residency.  A larger sum with F % 4
+// == 0 (e1m1's tri table) is added into a row-major [T, F] buffer instead,
+// whose transposed view the wrapper returns: four rows of one column are 16
+// contiguous bytes there, so a group adds them with one float4 atomic (sm_90)
+// where the [F, T] sum takes four scattered ones.  No integer division, and
+// 32-bit offsets where F*N and F*T fit.  Measured (tools/fetch_variants.py
+// --forms, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md, PR 6): the row-major
+// sum took 0.34x the [F, T] one's time on random tri-table indices and 0.82x
+// over a training step's tri-table calls; head flags between neighbour lanes
+// in place of the groups (one segmented scan a row, combining only runs of
+// neighbours) took 1.4x as long over a step's calls.  The order of the adds,
+// and so the last bits of a column's sum, vary from run to run; every sum
+// stays within gamma(adds - 1) * sum |g| of the exact one.
 
 #include <cuda_runtime.h>
 

@@ -48,7 +48,7 @@ GROUPS = (
     ("K1 dense_isect", ("dense_isect_kernel",)),
     ("K2 dense_anyhit", ("dense_anyhit_kernel",)),
     ("K3 gather_cols", ("gather_cols_kernel", "gather_cols_rows_kernel")),
-    ("K3-bwd gather_cols_bwd", ("gather_cols_bwd_kernel",)),
+    ("K3-bwd gather_cols_bwd", ("gather_cols_bwd_kernel", "gather_cols_bwd_rows_kernel")),
     ("K4 cluster_isect", ("cluster_isect_kernel",)),
     ("K5 cluster_anyhit", ("cluster_anyhit_kernel",)),
     ("K6 gather_bilinear", ("gather_bilinear_kernel",)),

@@ -175,6 +175,8 @@ def test_gather_cols_row_major_copy_keeps_the_table_gradient():
      "K3 gather_cols"),
     ("void (anonymous namespace)::gather_cols_bwd_kernel<int>(float const*, ...)",
      "K3-bwd gather_cols_bwd"),
+    ("void (anonymous namespace)::gather_cols_bwd_rows_kernel<int, int, true>(float const*, ...)",
+     "K3-bwd gather_cols_bwd"),
     ("void (anonymous namespace)::gather_texels_kernel<int, false, true>(float const*, ...)",
      "K7 gather_texels"),
     ("void (anonymous namespace)::gather_texels_kernel<int, true, false>(float const*, ...)",
