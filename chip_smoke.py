@@ -1116,12 +1116,12 @@ def run_training(dev, cornell_cpu, e1m1_scene, main_idx):
     return kernels, {"e1m1_train": e1m1_launches, "cornell_train": cornell_launches}
 
 
-def _check_scatter(label: str, kernel, bwd_plain, g, idx, t, library, time_it: bool = True):
+def _check_scatter(label: str, kernel, bwd_plain, g, idx, t, library):
     """A backward kernel against its plain version accumulated in float64,
     within the atomics' bound gamma(adds - 1) * sum |g|
-    (`fetch_check.scatter_error`); with `time_it` also timed against its
-    float32 plain version and one `index_add_` call (`library`, a fn()).
-    Returns (max abs error, kernel, plain, library) or (max abs error,)."""
+    (`fetch_check.scatter_error`); timed against its float32 plain version
+    and one `index_add_` call (`library`, a fn()).  Returns (max abs error,
+    kernel, plain, library)."""
     import torch
 
     from pim_tpu_torch.tools.fetch_check import scatter_error
@@ -1133,8 +1133,6 @@ def _check_scatter(label: str, kernel, bwd_plain, g, idx, t, library, time_it: b
           f"{err:.3e} within gamma(adds-1)*sum|g|={ok} (largest err/bound {ratio:.3e})")
     if not ok:
         raise AssertionError(f"{label} leaves its float64 plain version's bound")
-    if not time_it:
-        return (err,)
     k, p = _time_pair(f"{label} time", lambda: kernel(g, idx, t),
                       lambda: bwd_plain(g, idx, t))
     lib = _timing(library)
@@ -1176,18 +1174,20 @@ def check_main_path_scatters(dev, scene) -> dict:
             ("gather_texels_bwd", "k7_bwd", tg.gather_texels_bwd, tg.gather_texels_bwd_plain,
              fc.texel_index_add_call)):
         for i, (g, idx, t) in enumerate(calls[key]):
-            label = f"{key.upper().replace('_', '-')} {name}[main path {i}] {g.shape[0]}x{t}"
+            kind = "K3-bwd" if key == "k3_bwd" else "K7-bwd"
+            label = f"{kind} {name}[main path {i}] {g.shape[0]}x{t}"
             if key == "k3_bwd":
                 counts = fc.lane_counts(g, idx)
                 print(f"{label}: {counts['lanes']} lanes, {counts['idx0']} at column 0, "
                       f"{counts['g0']} with a zero gradient ({counts['idx0_g0']} both)")
+                bound = _scatter_bound(g, idx, t)
             else:
                 counts = {}
+                bound = _scatter_bound(g, idx.clamp(0, t - 1), t)  # K7-bwd clips, adds all
             err, k, p, lib = _check_scatter(label, kernel, plain, g, idx, t,
                                             library(g, idx, t))
-            rows[name].append(dict(
-                shape=list(g.shape), t=t, **counts,
-                **_row(err, k, p, _scatter_bound(g, idx, t), lib)))
+            rows[name].append(dict(shape=list(g.shape), t=t, **counts,
+                                   **_row(err, k, p, bound, lib)))
     return rows
 
 

@@ -138,12 +138,10 @@ def load() -> ctypes.CDLL:
         # gradient, c, t, idx, k * n, gradient table, stream
         lib.pim_gather_texels_bwd.argtypes = [p, i, i, p, ll, p, p]
         lib.pim_gather_texels_bwd.restype = i
-        # ... with the variant (staged, wide, vec) before the stream
-        for fn in (lib.pim_gather_cols_bwd_i32, lib.pim_gather_cols_bwd_i64):
-            fn.argtypes = [p, i, i, p, ll, p, i, i, i, p]
-            fn.restype = i
-        # ... with the variant (staged, wide, vec) before the stream
-        for fn in (lib.pim_gather_cols_i32, lib.pim_gather_cols_i64, lib.pim_gather_texels):
+        # table (or gradient), f, t, idx, n, out (or gradient table), the
+        # variant (staged, wide, vec), stream
+        for fn in (lib.pim_gather_cols_i32, lib.pim_gather_cols_i64, lib.pim_gather_texels,
+                   lib.pim_gather_cols_bwd_i32, lib.pim_gather_cols_bwd_i64):
             fn.argtypes = [p, i, i, p, ll, p, i, i, i, p]
             fn.restype = i
         # row-major table copy (or gradient), f, t, idx, n, out (or row-major

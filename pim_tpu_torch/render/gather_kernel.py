@@ -158,7 +158,6 @@ def gather_cols_bwd(g: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
     _check_idx("gather_cols_bwd", idx, dev)
     if n == 0 or f == 0:
         return torch.zeros((f, t), dtype=torch.float32, device=dev)
-    grad = None if reads_rows(f, t) else torch.zeros((f, t), dtype=torch.float32, device=dev)
     lib = native.load()
     v = gather_bwd_variant(f, t, n, idx.data_ptr(), g.data_ptr())
     i32 = idx.dtype == torch.int32
@@ -169,6 +168,7 @@ def gather_cols_bwd(g: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
                 native.stream_ptr(dev))
         grad = sum_tf.T
     else:
+        grad = torch.zeros((f, t), dtype=torch.float32, device=dev)
         fn = lib.pim_gather_cols_bwd_i32 if i32 else lib.pim_gather_cols_bwd_i64
         rc = fn(g.data_ptr(), f, t, idx.data_ptr(), n, grad.data_ptr(), v.staged, v.wide, v.vec,
                 native.stream_ptr(dev))

@@ -111,7 +111,8 @@ def trace_rays(meta: SceneMeta, arrays: SceneArrays, lights: LightState, ro: V3,
     streams of the two modes stay aligned."""
     del mis_both
     if meta.media_enabled:
-        raise NotImplementedError("participating media are not ported yet (ROADMAP queue item 19)")
+        raise NotImplementedError(
+            "participating media are not ported yet (ROADMAP queue item 19)")
     n = ro.x.shape[0]
     dev = ro.x.device
     lut = BrdfLut(texels=arrays.brdf_lut)

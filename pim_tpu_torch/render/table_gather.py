@@ -44,6 +44,7 @@ import torch
 from pim_tpu_torch import native
 from pim_tpu_torch.render.gather_kernel import gather_variant, table_rows
 
+
 def gather_bilinear_plain(corner_planes: torch.Tensor, idx: torch.Tensor, tx: torch.Tensor,
                           ty: torch.Tensor, valid: torch.Tensor, c: int) -> torch.Tensor:
     """Plain K6: [C, K, N] filtered texels."""

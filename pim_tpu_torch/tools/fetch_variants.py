@@ -188,8 +188,8 @@ def main(argv=None) -> None:
                    library_ms=queued_ms(fc.index_add_call(g, idx, t)))
         print(f"K3-bwd {label} {tuple(g.shape)} -> [{g.shape[0]}, {t}]: within bound {ok} "
               f"(err/bound {ratio:.3e}); lanes {row['lanes']}, idx 0 {row['idx0']}, g 0 "
-              f"{row['g0']}, both {row['idx0_g0']}; {statistics.median(row['ms']):.4f} ms {row['ms']}, index_add_ "
-              f"{statistics.median(row['library_ms']):.4f}")
+              f"{row['g0']}, both {row['idx0_g0']}; {statistics.median(row['ms']):.4f} ms "
+              f"{row['ms']}, index_add_ {statistics.median(row['library_ms']):.4f}")
         if not ok:
             raise AssertionError(f"K3-bwd {label} leaves the bound")
         if args.forms:
@@ -220,8 +220,8 @@ def main(argv=None) -> None:
         result["k7_bwd"].append(row)
     for label, planes, idx, tx, ty, valid, c in k6_cases:
         out = tg.gather_bilinear(planes, idx, tx, ty, valid, c=c)
-        same = torch.equal(out.view(torch.int32),
-                           tg.gather_bilinear_plain(planes, idx, tx, ty, valid, c).view(torch.int32))
+        plain = tg.gather_bilinear_plain(planes, idx, tx, ty, valid, c)
+        same = torch.equal(out.view(torch.int32), plain.view(torch.int32))
         row = dict(case=label, shape=list(idx.shape), c=c, bitwise_equal=same,
                    ms=queued_ms(lambda: tg.gather_bilinear(planes, idx, tx, ty, valid, c=c)),
                    library_ms=queued_ms(fc.embedding_bag_call(planes, idx, tx, ty, valid, c)))

@@ -2,9 +2,10 @@
 the CPU.
 
 - `gather_kernel.table_rows` makes the wrapper's texel-interleaved [T, 4C]
-  copy of corner planes [4C, T] (row i holds planes[:, i]); a plain reader of the copy gives `gather_bilinear_plain`'s
-  output bit for bit (indices -1 and T, invalid queries with NaN weights,
-  K*N not a multiple of 4), for the atlas (C = 4) and the sky (C = 3).
+  copy of corner planes [4C, T] (row i holds planes[:, i]); a plain reader
+  of the copy gives `gather_bilinear_plain`'s output bit for bit (indices
+  -1 and T, invalid queries with NaN weights, K*N not a multiple of 4), for
+  the atlas (C = 4) and the sky (C = 3).
 - The copy is made once per planes tensor and again after the planes change
   in place, and carries no gradient.
 - On the CPU the wrapper is the plain version and launches nothing.
