@@ -683,13 +683,15 @@ def check_k6(label: str, planes, idx, tx, ty, valid, c: int, time_it: bool = Tru
     bag = embedding_bag_call(planes, idx, tx, ty, valid, c)
     lib = _timing(bag)
     lib_diff = float((bag().T.reshape(c, k, n) - out_k).abs().max())
-    # a query reads its index, two weights and a flag and writes C values;
-    # the texels its valid queries reach are read once; a valid query makes
-    # 6 weight operations and 7 per channel
+    # a query reads its flag and writes C values; a valid one also reads
+    # its index and two weights, and the texels the valid queries reach
+    # are read once; a valid query makes 6 weight operations and 7 per
+    # channel
     ok = valid.reshape(-1)
+    n_valid = int(ok.sum())
     texels = idx.reshape(-1)[ok].clamp(0, planes.shape[1] - 1)
-    bound = _bound(k * n * (13 + 4 * c) + _touched_bytes(texels, 4 * c * 4),
-                   int(ok.sum()) * (6 + 7 * c))
+    bound = _bound(k * n * (1 + 4 * c) + n_valid * 12 + _touched_bytes(texels, 4 * c * 4),
+                   n_valid * (6 + 7 * c))
     print(f"K6 library embedding_bag[{label}]: {_fmt(lib)}; largest difference from K6 "
           f"{lib_diff:.3e}; bound {bound['bound_ms']:.4f} ms")
     return (err, *times, bound, lib)
