@@ -27,7 +27,7 @@
 // coalesce across the warp), and no row load for an invalid query.  Two
 // other forms measured slower or no faster on the main path's queries
 // (pim_tpu_torch/tools/fetch_variants.py --forms, NVIDIA H100 80GB HBM3,
-// 700.00 W; PERF.md, PR 6): four queries a thread with 16-byte index,
+// 700.00 W; PERF.md): four queries a thread with 16-byte index,
 // weight, flag and output accesses (1.2x the time on the serving step's
 // atlas calls), and a bf16 copy of the atlas rows, 32 bytes a query (0.8%
 // less there, 30% less on random queries).

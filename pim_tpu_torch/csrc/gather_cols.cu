@@ -62,7 +62,7 @@
 // contiguous bytes there, so a group adds them with one float4 atomic (sm_90)
 // where the [F, T] sum takes four scattered ones.  No integer division, and
 // 32-bit offsets where F*N and F*T fit.  Measured (tools/fetch_variants.py
-// --forms, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md, PR 6): the row-major
+// --forms, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): the row-major
 // sum took 0.34x the [F, T] one's time on random tri-table indices and 0.82x
 // over a training step's tri-table calls; head flags between neighbour lanes
 // in place of the groups (one segmented scan a row, combining only runs of
