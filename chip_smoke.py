@@ -19,7 +19,15 @@ exits non-zero:
      through `pim_tpu_torch.app`, with the launch counts set to 0 just
      before and read just after; the mean must lie in the `cornell512`
      band of pim_tpu_torch/render/gate_bands.json and K1-K3 must have
-     launched; a small frame on the card must agree with the CPU's;
+     launched; a small frame on the card must agree with the CPU's; then
+     K1 on the main path's own rays (the calls of sample 0 of one 512^2,
+     10-bounce step: the primary rays and one call a bounce, recorded by
+     tools/dense_check.py; each timed, the primary, bounce-1 and last
+     beside the plain version) and on a tie scene (coincident triangles in
+     shuffled rows over two chunks of rows), bitwise against the plain
+     version and against the replay of K1's walk, which counts the warp
+     tests the kernel's skip leaves out and checks that none would pass
+     (also on the seeded rays);
   4. the e1m1 slice: its main path (the map built on the card, sky and
      light grid included, then the 512^2, 10-bounce, 1-spp-per-step frame
      for 16 steps with the exposure pass), counted as above; the frame must
@@ -69,7 +77,7 @@ exits non-zero:
      every call one e1m1 512^2, 3-bounce training step hands them (recorded
      by tools/fetch_check.py; each timed beside one `index_add_`, and each
      K3-bwd call's lanes at column 0 and with a zero gradient printed);
-     every form of K3-bwd with 64-bit offsets, through the C interface,
+     every form of K3-bwd and K7-bwd with 64-bit offsets, through the C interface,
      within the same bound; then its main
      paths, counted as above: TRAIN_STEPS Adam steps of the e1m1 512^2,
      3-bounce, 1-spp render with all six groups trainable against a target
@@ -382,6 +390,7 @@ def check_kernels(dev, cpu_scene):
                              f"{t_diff} t values")
     if not bool(((tri_k == -1) & (t_k == -1.0))[dead].all()):
         raise AssertionError("K1: a dead lane reported a hit")
+    _check_k1("seeded rays", tris12, ro, rd, 0.0, t_far)
     # one t_far for all rays, as the primary rays pass it
     t_s, tri_s = dk.dense_isect(tris12, ro, rd, 0.0, RCP_EPS)
     t_sp, tri_sp = dk.dense_isect_plain(tris12, ro, rd, 0.0, RCP_EPS)
@@ -529,7 +538,7 @@ SOURCES = {
     "gather_cols_bwd": ("pim_tpu_torch/csrc/gather_cols.cu", "pim_tpu/render/fetch.py:52"),
     "gather_texels": ("pim_tpu_torch/csrc/gather_texels.cu", "pim_tpu/render/table_gather.py:43"),
     # the transpose of K7's gather (JAX differentiates the clipped take)
-    "gather_texels_bwd": ("pim_tpu_torch/csrc/gather_texels.cu",
+    "gather_texels_bwd": ("pim_tpu_torch/csrc/gather_cols.cu",
                           "pim_tpu/render/table_gather.py:377"),
 }
 
@@ -590,6 +599,96 @@ def _check_frame(fr, n_pixels: int, kernels) -> None:
             raise AssertionError(f"kernel {name} was not launched during the frame")
 
 
+K1_TIE_DISTINCT = 40  # distinct triangles of K1's tie scene
+K1_TIE_COPIES = 10    # copies of each: 400 rows, padded to 512 (two chunks of rows)
+K1_NAMED = {0: "primary", 1: "bounce1", BOUNCES: "last"}  # main-path calls timed with plain
+
+
+def _check_k1(label: str, tris12, ro, rd, t_near, t_far) -> dict:
+    """K1 against its plain version and against the walk replay
+    (`dense_check.walk_skips`) on one call, bit for bit; the replay's count
+    of the warp tests the skip leaves out, none of which may pass."""
+    import torch
+
+    from pim_tpu_torch.render import dense_kernels as dk
+    from pim_tpu_torch.tools import dense_check as dc
+
+    t_k, tri_k = dk.dense_isect(tris12, ro, rd, t_near, t_far)
+    t_p, tri_p = dk.dense_isect_plain(tris12, ro, rd, t_near, t_far)
+    walk = dc.walk_skips(tris12, ro, rd, t_near, t_far)
+    torch.cuda.synchronize()
+    n = ro.x.shape[0]
+    live = int((torch.as_tensor(t_far, device=ro.x.device).expand(n) > 0.0).sum())
+    same = _bits_equal(t_k, t_p) and bool(torch.equal(tri_k, tri_p))
+    replay = _bits_equal(t_k, walk["t"]) and bool(torch.equal(tri_k, walk["tri"]))
+    share = walk["skipped"] / max(walk["tests"], 1)
+    print(f"K1 dense_isect[{label}]: {n} rays, {live} live, hits {int((tri_k >= 0).sum())}; "
+          f"bitwise equal to plain {same}, to the replay {replay}; the skip leaves out "
+          f"{walk['skipped']} of {walk['tests']} warp tests ({share:.4f}), of which "
+          f"{walk['passed_in_skipped']} lane tests would pass")
+    if not (same and replay) or walk["passed_in_skipped"]:
+        raise AssertionError(f"K1 [{label}] differs from its plain version or its replay")
+    return dict(live=live, skip_share=share, max_abs_err=float((t_k - t_p).abs().max()))
+
+
+def check_k1_main_path(scene) -> dict:
+    """K1 on the Cornell main path's own rays: the calls of sample 0 of one
+    WIDTH^2, BOUNCES-bounce step (`dense_check.main_path_calls`: the
+    primary rays, then one call a bounce, dead lanes at t_far = 0), each
+    checked by `_check_k1` and timed, the K1_NAMED ones beside their plain
+    version; and a tie scene (coincident triangles in shuffled rows over
+    two chunks of rows, a dead warp, a warp of one ray).  Returns the K1
+    row's main-path keys."""
+    import numpy as np
+    import torch
+
+    from pim_tpu_torch.math.vec3 import V3
+    from pim_tpu_torch.render import dense_kernels as dk
+    from pim_tpu_torch.tools import dense_check as dc
+
+    meta, arrays, _ = scene
+    calls = dc.main_path_calls(scene, WIDTH, HEIGHT, BOUNCES)["isect"]
+    torch.cuda.synchronize()
+    n_tri = meta.tri_count
+    out = dict(main_calls=[], main_ms_sum=0.0, main_bound_ms_sum=0.0, max_abs_err=0.0)
+    for i, (tris12, ro, rd, t_near, t_far) in enumerate(calls):
+        chk = _check_k1(f"main path {i}", tris12, ro, rd, t_near, t_far)
+        n = ro.x.shape[0]
+        ray_bytes = n * (6 * 4 + (4 if torch.is_tensor(t_far) else 0))
+        bound = _bound(ray_bytes + n_tri * 12 * 4 + n * 8, chk["live"] * n_tri * BW_TEST_FLOPS)
+
+        def kernel(tris12=tris12, ro=ro, rd=rd, t_near=t_near, t_far=t_far):
+            return dk.dense_isect(tris12, ro, rd, t_near, t_far)
+
+        k = _timing(kernel)
+        call = dict(call=i, live=chk["live"], skip_share=chk["skip_share"], ms=k["ms"],
+                    call_ms=k["call"][0], bound_ms=bound["bound_ms"])
+        if i in K1_NAMED:
+            p = _timing(lambda: dk.dense_isect_plain(tris12, ro, rd, t_near, t_far))
+            call["plain_ms"] = p["ms"]
+            out.update({f"main_{K1_NAMED[i]}_{key}": call[key]
+                        for key in ("ms", "call_ms", "plain_ms", "bound_ms", "live",
+                                    "skip_share")})
+        print(f"K1 time[main path {i}]: kernel {_fmt(k)}"
+              + (f"; plain {call['plain_ms']:.4f} ms" if "plain_ms" in call else "")
+              + f"; bound {bound['bound_ms']:.4f} ms")
+        out["main_calls"].append(call)
+        out["main_ms_sum"] += k["ms"]
+        out["main_bound_ms_sum"] += bound["bound_ms"]
+        out["max_abs_err"] = max(out["max_abs_err"], chk["max_abs_err"])
+    print(f"K1 all {len(calls)} main-path calls of sample 0: {out['main_ms_sum']:.4f} ms device "
+          f"(bound {out['main_bound_ms_sum']:.4f} ms)")
+
+    rows, ro, rd, t_far = dc.tie_scene(K1_TIE_DISTINCT, K1_TIE_COPIES, TIE_LANES, seed=21)
+
+    def cuda(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(arrays.tris12.device)
+
+    _check_k1(f"tie scene, rows {rows.shape}", cuda(rows), V3(*(cuda(c) for c in ro)),
+              V3(*(cuda(c) for c in rd)), 0.0, cuda(t_far))
+    return out
+
+
 def run_cornell(dev):
     """Phase 3; returns (kernel rows, launches of the main path)."""
     import torch
@@ -617,6 +716,10 @@ def run_cornell(dev):
     if not lo <= fr.mean <= hi:
         raise AssertionError(f"frame mean {fr.mean} outside the cornell512 band [{lo}, {hi}]")
     check_small_frame("cornell", _scene_to(cpu_scene, dev), cpu_scene)
+    k1 = kernels["dense_isect"]
+    main = check_k1_main_path(scene)
+    k1["max_abs_err"] = max(k1["max_abs_err"], main.pop("max_abs_err"))
+    k1.update(main)
     return kernels, launches, cpu_scene
 
 
@@ -794,7 +897,8 @@ def check_wide_offsets(dev, k3_tables, k7_planes, rs):
     on the vector and the scalar path, launched through the library's C
     interface with 64-bit offsets forced, bitwise against the plain
     version; each form of K3-bwd the same way at the graft's and the tri
-    table's shapes, within the atomics' bound of a float64 plain sum; then
+    table's shapes, and of K7-bwd at the sky's and the atlas's, within the
+    atomics' bound of a float64 plain sum; then
     one K3 call through the wrapper whose [8, WIDE_LANES] output passes
     2^31 floats, so that the wrapper itself picks 64-bit offsets, bitwise."""
     import numpy as np
@@ -848,6 +952,24 @@ def check_wide_offsets(dev, k3_tables, k7_planes, rs):
     print(f"64-bit offsets: {checked} forced launches of K3-bwd (staged [4, 208]; direct and "
           f"row-major [48, 81552]; int32, int64; vector and scalar paths): within "
           f"gamma(adds-1)*sum|g|")
+    checked = 0
+    for form, (c, t) in (("staged", (3, 6144)), ("direct", (4, 32768)), ("rows", (4, 32768))):
+        base = torch.from_numpy(rs.integers(-2, t + 2, 4 * N_RAYS).astype(np.int32)).to(dev)
+        g_base = torch.from_numpy(
+            rs.standard_normal((c, 4 * N_RAYS)).astype(np.float32)).to(dev)
+        for vec in (True, False):
+            idx = base if vec else base[1:]
+            g = g_base if vec else g_base[:, 1:].contiguous()
+            run, grad = bwd_launcher(g, idx, t, form, vec, wide=1, clip=True)
+            run()
+            torch.cuda.synchronize()
+            if not scatter_error(grad(), tg.gather_texels_bwd_plain, g, idx, t)[0]:
+                raise AssertionError(f"K7-bwd {form}, 64-bit offsets, vec={vec}: leaves the "
+                                     f"atomics' bound")
+            checked += 1
+    print(f"64-bit offsets: {checked} forced launches of K7-bwd (staged [3, 6144]; direct and "
+          f"texel-interleaved [4, 32768]; 4 x 262,144 lanes clipped into range; vector and "
+          f"scalar paths): within gamma(adds-1)*sum|g|")
     table = torch.from_numpy(rs.standard_normal((8, 1000)).astype(np.float32)).to(dev)
     gen = torch.Generator(device=dev).manual_seed(31)
     idx = torch.randint(-1, 1001, (WIDE_LANES,), generator=gen, device=dev, dtype=torch.int32)

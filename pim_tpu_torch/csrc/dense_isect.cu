@@ -32,11 +32,14 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kRowFloats = 12;
 constexpr int kTriChunk = 256;  // 12 KB of shared memory per block
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;      // K2
+constexpr int kIsectThreads = 128;  // K1
 constexpr float kBig = 3.0e38f;
 
 struct Ray {
@@ -84,46 +87,151 @@ __device__ __forceinline__ void stage_rows(float* s_tris, const float* __restric
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr unsigned kFull = 0xffffffffu;
+// 1 + 2^-20: |num| >= lim * |den| * kMargin, each product rounded, proves
+// |num / den| >= lim (see may_pass)
+constexpr float kMargin = 1.0f + 0x1p-20f;
+constexpr float kMinNormal = 0x1p-126f;
+
+// Whether a test of a row whose den and num are these can still pass for a
+// ray whose acceptance limit is `lim` (min(t_far, best t)): false only
+// where the exact float32 test must fail.  t = num / den is > 0 only where
+// num and den are nonzero with one sign; any other t fails t > t_near when
+// t_near >= 0 (`sign_gate`).  A positive t fails t < lim where p = lim *
+// |den| is a normal float and |num| >= p * kMargin: then |num / den| >= lim
+// * (1 + 2^-20) * (1 - 2^-24)^2 > lim, so the rounded quotient is >= lim.
+__device__ __forceinline__ bool may_pass(float num, float den, float lim, bool sign_gate) {
+  const bool pos = (num > 0.0f) == (den > 0.0f) && num != 0.0f && den != 0.0f;
+  const float p = lim * fabsf(den);
+  const bool far = p >= kMinNormal && fabsf(num) >= p * kMargin;
+  return pos ? !far : !sign_gate;
+}
+
+// Copies rows [c0, c0 + cnt) into shared memory as three float4 a row (the
+// rows are 48 bytes, so a 16-byte aligned table keeps every row aligned);
+// callers synchronise.
+__device__ __forceinline__ void stage_rows4(float4* s_rows, const float* __restrict__ tris,
+                                            int c0, int cnt, int threads) {
+  const float* src = tris + static_cast<long long>(c0) * kRowFloats;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    for (int k = threadIdx.x; k < cnt * 3; k += threads) s_rows[k] = __ldg(src4 + k);
+  } else {
+    float* dst = reinterpret_cast<float*>(s_rows);
+    for (int k = threadIdx.x; k < cnt * kRowFloats; k += threads) dst[k] = __ldg(src + k);
+  }
+}
+
+// K1: each thread holds kRays rays (kIsectThreads apart, so every ray load
+// is coalesced) and walks the rows in index order; a row's three float4
+// loads from shared memory serve all of them.  Per ray the limit `lim`
+// starts at min(t_far, kBig) and becomes the t of each accepted hit, so one
+// compare t < lim stands for the reference's t < t_far && t < best_t.  With
+// kSkip, a warp skips the division and the u/v test of a row for one of its
+// ray slots where no lane's test can pass (may_pass).  Blocks walk ray tiles
+// (grid sized to residency) and stage the rows once when they fit in one
+// chunk.
+template <int kRays, bool kSkip>
+__global__ void __launch_bounds__(kIsectThreads)
 dense_isect_kernel(const float* __restrict__ tris, int ntri, const float* __restrict__ rox,
                    const float* __restrict__ roy, const float* __restrict__ roz,
                    const float* __restrict__ rdx, const float* __restrict__ rdy,
                    const float* __restrict__ rdz, float tnear, const float* __restrict__ tfar,
                    float tfar_all, int n, float* __restrict__ t_out,
                    int* __restrict__ tri_out) {
-  __shared__ float s_tris[kTriChunk * kRowFloats];
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  const bool in_range = r < n;
-  Ray ray = {};
-  bool live = false;
-  if (in_range) {
-    ray = load_ray(rox, roy, roz, rdx, rdy, rdz, tnear, tfar, tfar_all, r);
-    live = ray.tfar > 0.0f;
-  }
-  float best_t = kBig;
-  int best_i = -1;
-  if (__syncthreads_or(live)) {
-    for (int c0 = 0; c0 < ntri; c0 += kTriChunk) {
-      const int cnt = min(kTriChunk, ntri - c0);
-      __syncthreads();
-      stage_rows(s_tris, tris, c0, cnt);
-      __syncthreads();
-      if (live) {
+  __shared__ float4 s_rows[kTriChunk * 3];
+  const int nchunk = (ntri + kTriChunk - 1) / kTriChunk;
+  const int tile_rays = kIsectThreads * kRays;
+  const int tiles = (n + tile_rays - 1) / tile_rays;
+  const bool sign_gate = tnear >= 0.0f;
+  bool staged = false;  // block-uniform
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    float ox[kRays], oy[kRays], oz[kRays], dx[kRays], dy[kRays], dz[kRays], lim[kRays];
+    int best[kRays];
+    bool live[kRays];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      const int r = tile * tile_rays + k * kIsectThreads + threadIdx.x;
+      const bool in_range = r < n;
+      const float tf = in_range ? (tfar != nullptr ? tfar[r] : tfar_all) : 0.0f;
+      ox[k] = in_range ? rox[r] : 0.0f;
+      oy[k] = in_range ? roy[r] : 0.0f;
+      oz[k] = in_range ? roz[r] : 0.0f;
+      dx[k] = in_range ? rdx[r] : 0.0f;
+      dy[k] = in_range ? rdy[r] : 0.0f;
+      dz[k] = in_range ? rdz[r] : 0.0f;
+      live[k] = tf > 0.0f;
+      lim[k] = fminf(tf, kBig);
+      best[k] = -1;
+      any = any || live[k];
+    }
+    if (__syncthreads_or(any)) {
+      for (int c = 0; c < nchunk; ++c) {
+        const int c0 = c * kTriChunk;
+        const int cnt = min(kTriChunk, ntri - c0);
+        if (nchunk > 1 || !staged) {
+          __syncthreads();
+          stage_rows4(s_rows, tris, c0, cnt, kIsectThreads);
+          __syncthreads();
+          staged = true;
+        }
         for (int j = 0; j < cnt; ++j) {
-          float t;
-          const bool ok = bw_test(&s_tris[j * kRowFloats], ray, t);
-          if (ok && t < ray.tfar && t < best_t) {
-            best_t = t;
-            best_i = c0 + j;
+          const float4 a = s_rows[3 * j];      // n, d
+          const float4 b = s_rows[3 * j + 1];  // U, uw
+          const float4 e = s_rows[3 * j + 2];  // V, vw
+#pragma unroll
+          for (int k = 0; k < kRays; ++k) {
+            const float den = a.x * dx[k] + a.y * dy[k] + a.z * dz[k];
+            const float num = a.w - (a.x * ox[k] + a.y * oy[k] + a.z * oz[k]);
+            if (kSkip && !__any_sync(kFull, live[k] && may_pass(num, den, lim[k], sign_gate))) {
+              continue;
+            }
+            const float t = num / den;
+            const float px = ox[k] + t * dx[k];
+            const float py = oy[k] + t * dy[k];
+            const float pz = oz[k] + t * dz[k];
+            const float u = b.x * px + b.y * py + b.z * pz + b.w;
+            const float v = e.x * px + e.y * py + e.z * pz + e.w;
+            if (live[k] && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tnear && t < lim[k]) {
+              lim[k] = t;
+              best[k] = c0 + j;
+            }
           }
         }
       }
     }
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      const int r = tile * tile_rays + k * kIsectThreads + threadIdx.x;
+      if (r < n) {
+        t_out[r] = best[k] >= 0 ? lim[k] : -1.0f;
+        tri_out[r] = best[k];
+      }
+    }
   }
-  if (in_range) {
-    t_out[r] = best_i >= 0 ? best_t : -1.0f;
-    tri_out[r] = best_i;
+}
+
+// grid.x of a K1 launch: no more blocks than the ray tiles, nor than stay
+// resident at once.
+template <int kRays, bool kSkip>
+int launch_isect(const float* tris, int ntri, const float* rox, const float* roy,
+                 const float* roz, const float* rdx, const float* rdy, const float* rdz,
+                 float tnear, const float* tfar, float tfar_all, int n, float* t_out,
+                 int* tri_out, cudaStream_t stream) {
+  auto kernel = dense_isect_kernel<kRays, kSkip>;
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kIsectThreads, 0);
+    resident = sms * (per_sm > 0 ? per_sm : 1);
   }
+  const int tiles = (n + kIsectThreads * kRays - 1) / (kIsectThreads * kRays);
+  kernel<<<tiles < resident ? tiles : resident, kIsectThreads, 0, stream>>>(
+      tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar, tfar_all, n, t_out, tri_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -171,10 +279,32 @@ int pim_dense_isect(const float* tris, int ntri, const float* rox, const float* 
                     const float* roz, const float* rdx, const float* rdy, const float* rdz,
                     float tnear, const float* tfar, float tfar_all, int n, float* t_out,
                     int* tri_out, void* stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
-  dense_isect_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar, tfar_all, n, t_out, tri_out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_isect<2, true>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar, tfar_all,
+                               n, t_out, tri_out, static_cast<cudaStream_t>(stream));
+}
+
+// K1 in one of its measured forms: `rays` (1, 2 or 4) a thread, with or
+// without the warp's skip.
+int pim_dense_isect_form(const float* tris, int ntri, const float* rox, const float* roy,
+                         const float* roz, const float* rdx, const float* rdy, const float* rdz,
+                         float tnear, const float* tfar, float tfar_all, int n, float* t_out,
+                         int* tri_out, int rays, int skip, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (rays * 2 + (skip ? 1 : 0)) {
+    case 2: return launch_isect<1, false>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar,
+                                          tfar_all, n, t_out, tri_out, s);
+    case 3: return launch_isect<1, true>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar,
+                                         tfar_all, n, t_out, tri_out, s);
+    case 4: return launch_isect<2, false>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar,
+                                          tfar_all, n, t_out, tri_out, s);
+    case 5: return launch_isect<2, true>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar,
+                                         tfar_all, n, t_out, tri_out, s);
+    case 8: return launch_isect<4, false>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar,
+                                          tfar_all, n, t_out, tri_out, s);
+    case 9: return launch_isect<4, true>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar,
+                                         tfar_all, n, t_out, tri_out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 int pim_dense_anyhit(const float* tris, int ntri, const float* rox, const float* roy,

@@ -94,7 +94,9 @@ __device__ __forceinline__ Index load_index(const Index* p) {
 }
 
 // The four lanes' column offsets and range flags for this thread in `tile`.
-template <typename Index, typename Off, bool kVec>
+// kClip (K7-bwd): every lane inside [0, n) is in range, at its index
+// clipped into [0, t).
+template <typename Index, typename Off, bool kVec, bool kClip = false>
 __device__ __forceinline__ void load_cols(const Index* __restrict__ idx, Off tile, Off n, int t,
                                           Off (&col)[kLanes], bool (&ok)[kLanes]) {
   Index i[kLanes];
@@ -128,8 +130,13 @@ __device__ __forceinline__ void load_cols(const Index* __restrict__ idx, Off til
   }
 #pragma unroll
   for (int j = 0; j < kLanes; ++j) {
-    ok[j] = i[j] >= 0 && i[j] < t;
-    col[j] = ok[j] ? static_cast<Off>(i[j]) : 0;
+    if constexpr (kClip) {
+      ok[j] = pim_gather::lane<kVec>(tile, j) < n;
+      col[j] = static_cast<Off>(i[j] < 0 ? 0 : (i[j] > t - 1 ? t - 1 : i[j]));
+    } else {
+      ok[j] = i[j] >= 0 && i[j] < t;
+      col[j] = ok[j] ? static_cast<Off>(i[j]) : 0;
+    }
   }
 }
 
@@ -369,14 +376,14 @@ __device__ __forceinline__ void add_group4(float* at, const Group<Off>& p, float
 // One lane tile of a backward block: the four lanes' gradients in `rows`
 // rows from `src` (row stride n) and their groups (a thread's equal
 // neighbouring slots are left to the last of them).
-template <typename Index, typename Off, bool kVec>
+template <typename Index, typename Off, bool kVec, bool kClip>
 __device__ __forceinline__ void load_tile(const float* __restrict__ src, const Index* __restrict__ idx,
                                           Off tile, Off n, int t, int rows,
                                           float (&v)[kRows][kLanes], Off (&key)[kLanes],
                                           Group<Off> (&p)[kLanes]) {
   Off col[kLanes];
   bool ok[kLanes];
-  load_cols<Index, Off, kVec>(idx, tile, n, t, col, ok);
+  load_cols<Index, Off, kVec, kClip>(idx, tile, n, t, col, ok);
 #pragma unroll
   for (int q = 0; q < kRows; ++q) {
     if (q < rows) {
@@ -415,10 +422,10 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ src, const I
 // values row by row, and the warp combines its adds (add_group).  kStaged:
 // the block adds into its rows of grad held in shared memory and adds each
 // nonzero entry into grad at the end.
-template <typename Index, typename Off, bool kStaged, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-gather_cols_bwd_kernel(const float* __restrict__ g, int f, int t, const Index* __restrict__ idx,
-                       long long n_ll, float* __restrict__ grad) {
+template <typename Index, typename Off, bool kStaged, bool kVec, bool kClip>
+__device__ __forceinline__ void scatter_cols(const float* __restrict__ g, int f, int t,
+                                             const Index* __restrict__ idx, long long n_ll,
+                                             float* __restrict__ grad) {
   extern __shared__ float4 stage4[];
   const Off n = static_cast<Off>(n_ll);
   const int f0 = blockIdx.y * kRows;
@@ -436,7 +443,7 @@ gather_cols_bwd_kernel(const float* __restrict__ g, int f, int t, const Index* _
     float v[kRows][kLanes];
     Off key[kLanes];
     Group<Off> p[kLanes];
-    load_tile<Index, Off, kVec>(src, idx, tile, n, t, rows, v, key, p);
+    load_tile<Index, Off, kVec, kClip>(src, idx, tile, n, t, rows, v, key, p);
 #pragma unroll
     for (int q = 0; q < kRows; ++q) {
       if (q < rows) {
@@ -464,11 +471,10 @@ gather_cols_bwd_kernel(const float* __restrict__ g, int f, int t, const Index* _
 // contiguous bytes there, so a group adds them with one float4 atomic
 // (sm_90) instead of four scattered ones.  The wrapper transposes the
 // buffer into [F, T].
-template <typename Index, typename Off, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-gather_cols_bwd_rows_kernel(const float* __restrict__ g, int f, int t,
-                            const Index* __restrict__ idx, long long n_ll,
-                            float* __restrict__ sum_tf) {
+template <typename Index, typename Off, bool kVec, bool kClip>
+__device__ __forceinline__ void scatter_rows(const float* __restrict__ g, int f, int t,
+                                             const Index* __restrict__ idx, long long n_ll,
+                                             float* __restrict__ sum_tf) {
   const Off n = static_cast<Off>(n_ll);
   const int f0 = blockIdx.y * kRows;
   const int rows = min(kRows, f - f0);  // a multiple of 4
@@ -478,7 +484,7 @@ gather_cols_bwd_rows_kernel(const float* __restrict__ g, int f, int t,
     float v[kRows][kLanes];
     Off key[kLanes];
     Group<Off> p[kLanes];
-    load_tile<Index, Off, kVec>(src, idx, tile, n, t, rows, v, key, p);
+    load_tile<Index, Off, kVec, kClip>(src, idx, tile, n, t, rows, v, key, p);
 #pragma unroll
     for (int h = 0; h < kRows / 4; ++h) {
       if (4 * h < rows) {
@@ -508,13 +514,64 @@ gather_cols_bwd_rows_kernel(const float* __restrict__ g, int f, int t,
   }
 }
 
+// The kernels: K3-bwd's, and K7-bwd's with every lane clipped into range,
+// named apart so that a profile tells the two apart.
 template <typename Index, typename Off, bool kStaged, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+gather_cols_bwd_kernel(const float* __restrict__ g, int f, int t, const Index* __restrict__ idx,
+                       long long n, float* __restrict__ grad) {
+  scatter_cols<Index, Off, kStaged, kVec, false>(g, f, t, idx, n, grad);
+}
+
+template <typename Index, typename Off, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+gather_cols_bwd_rows_kernel(const float* __restrict__ g, int f, int t,
+                            const Index* __restrict__ idx, long long n,
+                            float* __restrict__ sum_tf) {
+  scatter_rows<Index, Off, kVec, false>(g, f, t, idx, n, sum_tf);
+}
+
+template <typename Off, bool kStaged, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+gather_texels_bwd_kernel(const float* __restrict__ g, int c, int t,
+                         const int32_t* __restrict__ idx, long long kn,
+                         float* __restrict__ grad) {
+  scatter_cols<int32_t, Off, kStaged, kVec, true>(g, c, t, idx, kn, grad);
+}
+
+template <typename Off, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+gather_texels_bwd_rows_kernel(const float* __restrict__ g, int c, int t,
+                              const int32_t* __restrict__ idx, long long kn,
+                              float* __restrict__ sum_tc) {
+  scatter_rows<int32_t, Off, kVec, true>(g, c, t, idx, kn, sum_tc);
+}
+
+template <typename Index, typename Off, bool kStaged, bool kVec, bool kClip>
+auto bwd_kernel() {
+  if constexpr (kClip) {
+    return gather_texels_bwd_kernel<Off, kStaged, kVec>;
+  } else {
+    return gather_cols_bwd_kernel<Index, Off, kStaged, kVec>;
+  }
+}
+
+template <typename Index, typename Off, bool kVec, bool kClip>
+auto bwd_rows_kernel() {
+  if constexpr (kClip) {
+    return gather_texels_bwd_rows_kernel<Off, kVec>;
+  } else {
+    return gather_cols_bwd_rows_kernel<Index, Off, kVec>;
+  }
+}
+
+template <typename Index, typename Off, bool kStaged, bool kVec, bool kClip>
 int launch_bwd_as(const float* g, int f, int t, const Index* idx, long long n, float* grad,
                   cudaStream_t stream) {
   const long long tiles = (n + kTileLanes - 1) / kTileLanes;
   const int blocks_y = (f + kRows - 1) / kRows;
   const size_t smem = kStaged ? sizeof(float) * (f < kRows ? f : kRows) * t : 0;
-  auto kernel = gather_cols_bwd_kernel<Index, Off, kStaged, kVec>;
+  auto kernel = bwd_kernel<Index, Off, kStaged, kVec, kClip>();
   if (const int rc = pim_gather::allow_smem(kernel, smem)) {
     return rc;
   }
@@ -527,42 +584,42 @@ int launch_bwd_as(const float* g, int f, int t, const Index* idx, long long n, f
 
 // staged: grad's row slices summed in shared memory; wide: 64-bit offsets;
 // vec: 16-byte index and gradient loads (N % 4 == 0, idx and g aligned).
-template <typename Index, typename Off, bool kVec>
+template <typename Index, typename Off, bool kVec, bool kClip>
 int launch_bwd_rows_as(const float* g, int f, int t, const Index* idx, long long n, float* sum_tf,
                        cudaStream_t stream) {
   const long long tiles = (n + kTileLanes - 1) / kTileLanes;
   const dim3 grid(pim_gather::direct_blocks(tiles), (f + kRows - 1) / kRows);
-  gather_cols_bwd_rows_kernel<Index, Off, kVec><<<grid, kThreads, 0, stream>>>(g, f, t, idx, n,
-                                                                             sum_tf);
+  auto kernel = bwd_rows_kernel<Index, Off, kVec, kClip>();
+  kernel<<<grid, kThreads, 0, stream>>>(g, f, t, idx, n, sum_tf);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Index>
+template <typename Index, bool kClip>
 int launch_bwd_rows(const float* g, int f, int t, const Index* idx, long long n, float* sum_tf,
                     int wide, int vec, void* stream_ptr) {
-  const auto stream = static_cast<cudaStream_t>(stream_ptr);
+  const auto s = static_cast<cudaStream_t>(stream_ptr);
   if (wide) {
-    return vec ? launch_bwd_rows_as<Index, long long, true>(g, f, t, idx, n, sum_tf, stream)
-               : launch_bwd_rows_as<Index, long long, false>(g, f, t, idx, n, sum_tf, stream);
+    return vec ? launch_bwd_rows_as<Index, long long, true, kClip>(g, f, t, idx, n, sum_tf, s)
+               : launch_bwd_rows_as<Index, long long, false, kClip>(g, f, t, idx, n, sum_tf, s);
   }
-  return vec ? launch_bwd_rows_as<Index, int, true>(g, f, t, idx, n, sum_tf, stream)
-             : launch_bwd_rows_as<Index, int, false>(g, f, t, idx, n, sum_tf, stream);
+  return vec ? launch_bwd_rows_as<Index, int, true, kClip>(g, f, t, idx, n, sum_tf, s)
+             : launch_bwd_rows_as<Index, int, false, kClip>(g, f, t, idx, n, sum_tf, s);
 }
 
-template <typename Index>
+template <typename Index, bool kClip>
 int launch_bwd(const float* g, int f, int t, const Index* idx, long long n, float* grad,
                int staged, int wide, int vec, void* stream_ptr) {
-  const auto stream = static_cast<cudaStream_t>(stream_ptr);
+  const auto s = static_cast<cudaStream_t>(stream_ptr);
   const int pick = (staged ? 4 : 0) | (wide ? 2 : 0) | (vec ? 1 : 0);
   switch (pick) {
-    case 0: return launch_bwd_as<Index, int, false, false>(g, f, t, idx, n, grad, stream);
-    case 1: return launch_bwd_as<Index, int, false, true>(g, f, t, idx, n, grad, stream);
-    case 2: return launch_bwd_as<Index, long long, false, false>(g, f, t, idx, n, grad, stream);
-    case 3: return launch_bwd_as<Index, long long, false, true>(g, f, t, idx, n, grad, stream);
-    case 4: return launch_bwd_as<Index, int, true, false>(g, f, t, idx, n, grad, stream);
-    case 5: return launch_bwd_as<Index, int, true, true>(g, f, t, idx, n, grad, stream);
-    case 6: return launch_bwd_as<Index, long long, true, false>(g, f, t, idx, n, grad, stream);
-    default: return launch_bwd_as<Index, long long, true, true>(g, f, t, idx, n, grad, stream);
+    case 0: return launch_bwd_as<Index, int, false, false, kClip>(g, f, t, idx, n, grad, s);
+    case 1: return launch_bwd_as<Index, int, false, true, kClip>(g, f, t, idx, n, grad, s);
+    case 2: return launch_bwd_as<Index, long long, false, false, kClip>(g, f, t, idx, n, grad, s);
+    case 3: return launch_bwd_as<Index, long long, false, true, kClip>(g, f, t, idx, n, grad, s);
+    case 4: return launch_bwd_as<Index, int, true, false, kClip>(g, f, t, idx, n, grad, s);
+    case 5: return launch_bwd_as<Index, int, true, true, kClip>(g, f, t, idx, n, grad, s);
+    case 6: return launch_bwd_as<Index, long long, true, false, kClip>(g, f, t, idx, n, grad, s);
+    default: return launch_bwd_as<Index, long long, true, true, kClip>(g, f, t, idx, n, grad, s);
   }
 }
 
@@ -592,22 +649,34 @@ int pim_gather_cols_rows_i64(const float* rows_tf, int f, int t, const int64_t* 
 
 int pim_gather_cols_bwd_i32(const float* g, int f, int t, const int32_t* idx, long long n,
                             float* grad, int staged, int wide, int vec, void* stream) {
-  return launch_bwd<int32_t>(g, f, t, idx, n, grad, staged, wide, vec, stream);
+  return launch_bwd<int32_t, false>(g, f, t, idx, n, grad, staged, wide, vec, stream);
 }
 
 int pim_gather_cols_bwd_i64(const float* g, int f, int t, const int64_t* idx, long long n,
                             float* grad, int staged, int wide, int vec, void* stream) {
-  return launch_bwd<int64_t>(g, f, t, idx, n, grad, staged, wide, vec, stream);
+  return launch_bwd<int64_t, false>(g, f, t, idx, n, grad, staged, wide, vec, stream);
 }
 
 int pim_gather_cols_bwd_rows_i32(const float* g, int f, int t, const int32_t* idx, long long n,
                                  float* sum_tf, int wide, int vec, void* stream) {
-  return launch_bwd_rows<int32_t>(g, f, t, idx, n, sum_tf, wide, vec, stream);
+  return launch_bwd_rows<int32_t, false>(g, f, t, idx, n, sum_tf, wide, vec, stream);
 }
 
 int pim_gather_cols_bwd_rows_i64(const float* g, int f, int t, const int64_t* idx, long long n,
                                  float* sum_tf, int wide, int vec, void* stream) {
-  return launch_bwd_rows<int64_t>(g, f, t, idx, n, sum_tf, wide, vec, stream);
+  return launch_bwd_rows<int64_t, false>(g, f, t, idx, n, sum_tf, wide, vec, stream);
+}
+
+// K7-bwd, grad[c, clip(idx[e], 0, t - 1)] += g[c, e] over kn = K*N lanes:
+// the scatter-add above with every lane clipped into range.
+int pim_gather_texels_bwd(const float* g, int c, int t, const int32_t* idx, long long kn,
+                          float* grad, int staged, int wide, int vec, void* stream) {
+  return launch_bwd<int32_t, true>(g, c, t, idx, kn, grad, staged, wide, vec, stream);
+}
+
+int pim_gather_texels_bwd_rows(const float* g, int c, int t, const int32_t* idx, long long kn,
+                               float* sum_tc, int wide, int vec, void* stream) {
+  return launch_bwd_rows<int32_t, true>(g, c, t, idx, kn, sum_tc, wide, vec, stream);
 }
 
 }  // extern "C"

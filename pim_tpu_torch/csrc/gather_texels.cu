@@ -49,10 +49,6 @@ using pim_gather::kLanes;
 using pim_gather::kThreads;
 using pim_gather::kTileLanes;
 
-__device__ __forceinline__ long long clamp_index(int32_t i, int t) {
-  return static_cast<long long>(i < 0 ? 0 : (i > t - 1 ? t - 1 : i));
-}
-
 // The four queries' clamped texel indices for this thread in `tile`.
 template <typename Off, bool kVec>
 __device__ __forceinline__ void load_texels(const int32_t* __restrict__ idx, Off tile, Off kn,
@@ -164,20 +160,6 @@ int launch_texels(const float* planes, int c, int t, const int32_t* idx, long lo
   return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void __launch_bounds__(kThreads)
-gather_texels_bwd_kernel(const float* __restrict__ g, int c, int t,
-                         const int32_t* __restrict__ idx, long long kn,
-                         float* __restrict__ grad) {
-  const long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (e >= kn) {
-    return;
-  }
-  const long long i = clamp_index(idx[e], t);
-  for (int ch = 0; ch < c; ++ch) {
-    atomicAdd(grad + ch * static_cast<long long>(t) + i, g[ch * kn + e]);
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -198,14 +180,6 @@ int pim_gather_texels(const float* planes, int c, int t, const int32_t* idx, lon
     case 6: return launch_texels<long long, true, false>(planes, c, t, idx, kn, out, stream);
     default: return launch_texels<long long, true, true>(planes, c, t, idx, kn, out, stream);
   }
-}
-
-int pim_gather_texels_bwd(const float* g, int c, int t, const int32_t* idx, long long kn,
-                          float* grad, void* stream) {
-  const long long blocks = (kn + kThreads - 1) / kThreads;
-  gather_texels_bwd_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(g, c, t, idx, kn, grad);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -133,21 +133,23 @@ def load() -> ctypes.CDLL:
         ray_args = [p, i] + [p] * 6 + [f, p, f]
         lib.pim_dense_isect.argtypes = ray_args + [i, p, p, p]
         lib.pim_dense_isect.restype = i
+        # ... n, t, tri, rays a thread, skip, stream
+        lib.pim_dense_isect_form.argtypes = ray_args + [i, p, p, i, i, p]
+        lib.pim_dense_isect_form.restype = i
         lib.pim_dense_anyhit.argtypes = ray_args + [i, p, p]
         lib.pim_dense_anyhit.restype = i
-        # gradient, c, t, idx, k * n, gradient table, stream
-        lib.pim_gather_texels_bwd.argtypes = [p, i, i, p, ll, p, p]
-        lib.pim_gather_texels_bwd.restype = i
         # table (or gradient), f, t, idx, n, out (or gradient table), the
         # variant (staged, wide, vec), stream
         for fn in (lib.pim_gather_cols_i32, lib.pim_gather_cols_i64, lib.pim_gather_texels,
-                   lib.pim_gather_cols_bwd_i32, lib.pim_gather_cols_bwd_i64):
+                   lib.pim_gather_cols_bwd_i32, lib.pim_gather_cols_bwd_i64,
+                   lib.pim_gather_texels_bwd):
             fn.argtypes = [p, i, i, p, ll, p, i, i, i, p]
             fn.restype = i
         # row-major table copy (or gradient), f, t, idx, n, out (or row-major
         # gradient table), wide, vec, stream
         for fn in (lib.pim_gather_cols_rows_i32, lib.pim_gather_cols_rows_i64,
-                   lib.pim_gather_cols_bwd_rows_i32, lib.pim_gather_cols_bwd_rows_i64):
+                   lib.pim_gather_cols_bwd_rows_i32, lib.pim_gather_cols_bwd_rows_i64,
+                   lib.pim_gather_texels_bwd_rows):
             fn.argtypes = [p, i, i, p, ll, p, i, i, p]
             fn.restype = i
         # scb, spad, clb, n_sc, tris, stride, the ray arguments, lane_loop_min

@@ -27,14 +27,17 @@ T-1)].  It serves the differentiable path, which samples the learnable atlas
 planes and the re-baked sky cube by their four bilinear corners; its
 gradient in `planes` is the scatter-add of the output gradient at the
 clipped index (`idx` gets none).  For CUDA tensors `gather_texels` launches
-csrc/gather_texels.cu, forward and backward; for CPU tensors it runs their
-plain versions.  The TPU kernel's `parts` (1, 2 or 3 bf16 terms) is taken
-for the API and changes nothing: the port reads f32, which is exact (at
-parts = 1 the atlas texels are bf16 values already, so the TPU gives the
-same numbers).  `gather_texels` goes through its autograd Function only
-when `planes` needs a gradient; the kernel's variant (planes staged in
-shared memory, offset width, vector path) comes from
-`gather_kernel.gather_variant`.
+csrc/gather_texels.cu and its backward K3-bwd's scatter-add in
+csrc/gather_cols.cu with every lane clipped into range (the same forms:
+a sum up to STAGE_MAX_BYTES staged, the atlas's [4, T] sum added into a
+texel-interleaved [T, 4] buffer whose transposed view it returns); for CPU
+tensors it runs their plain versions.  The TPU kernel's `parts` (1, 2 or 3
+bf16 terms) is taken for the API and changes nothing: the port reads f32,
+which is exact (at parts = 1 the atlas texels are bf16 values already, so
+the TPU gives the same numbers).  `gather_texels` goes through its autograd
+Function only when `planes` needs a gradient; the kernels' variants (planes
+or sum staged in shared memory, offset width, vector path) come from
+`gather_kernel.gather_variant` and `gather_bwd_variant`.
 """
 
 from __future__ import annotations
@@ -42,7 +45,12 @@ from __future__ import annotations
 import torch
 
 from pim_tpu_torch import native
-from pim_tpu_torch.render.gather_kernel import gather_variant, table_rows
+from pim_tpu_torch.render.gather_kernel import (
+    gather_bwd_variant,
+    gather_variant,
+    reads_rows,
+    table_rows,
+)
 
 
 def gather_bilinear_plain(corner_planes: torch.Tensor, idx: torch.Tensor, tx: torch.Tensor,
@@ -140,19 +148,29 @@ def gather_texels_fwd(planes: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def gather_texels_bwd(g: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
-    """g [C, K, N] f32, idx [K, N] i32 -> [C, t] f32 scatter-add."""
+    """g [C, K, N] f32, idx [K, N] i32 -> [C, t] f32 scatter-add (on the
+    card a transposed view of a texel-interleaved sum where `reads_rows`)."""
     if g.device.type == "cpu":
         return gather_texels_bwd_plain(g, idx, t)
     dev = g.device
     k, n = _check_texel_idx("gather_texels_bwd", idx, dev)
     c = g.shape[0]
     native.require_cuda("gather_texels_bwd.g", g, torch.float32, (c, k, n), dev)
-    grad = torch.zeros((c, t), dtype=torch.float32, device=dev)
     if k * n == 0 or c == 0:
-        return grad
+        return torch.zeros((c, t), dtype=torch.float32, device=dev)
     lib = native.load()
-    rc = lib.pim_gather_texels_bwd(g.data_ptr(), c, t, idx.data_ptr(), k * n, grad.data_ptr(),
-                                   native.stream_ptr(dev))
+    v = gather_bwd_variant(c, t, k * n, idx.data_ptr(), g.data_ptr())
+    if reads_rows(c, t):
+        sum_tc = torch.zeros((t, c), dtype=torch.float32, device=dev)
+        rc = lib.pim_gather_texels_bwd_rows(g.data_ptr(), c, t, idx.data_ptr(), k * n,
+                                            sum_tc.data_ptr(), v.wide, v.vec,
+                                            native.stream_ptr(dev))
+        grad = sum_tc.T
+    else:
+        grad = torch.zeros((c, t), dtype=torch.float32, device=dev)
+        rc = lib.pim_gather_texels_bwd(g.data_ptr(), c, t, idx.data_ptr(), k * n,
+                                       grad.data_ptr(), v.staged, v.wide, v.vec,
+                                       native.stream_ptr(dev))
     native.check(lib, rc, "gather_texels_bwd")
     native.launches["gather_texels_bwd"] += 1
     return grad

@@ -16,8 +16,10 @@ K7-bwd within gamma(adds - 1) * sum |g| of a float64 plain sum) and times the
 wrapper and one PyTorch call that computes the same function (`index_add_`,
 `embedding_bag`): device ms a call, DEVICE_RUNS calls queued behind a GPU
 sleep, the median of BATCHES.  With `--forms` it also launches every form
-of K3-bwd through the library's C interface, checks each the same way and
-times it.
+of K3-bwd and K7-bwd through the library's C interface, checks each the
+same way and times it.  K7-bwd also runs on seeded random indices: the
+atlas ([4, 12, 262144] into the [4, 32768] planes) and the sky ([3, 4,
+262144] into 6,144 texels), -1 and T among them.
 
 It drives only the package's wrappers and plain versions, so it also times
 an older tree of the package, for a comparison of two trees in turns in one
@@ -93,11 +95,12 @@ def bwd_forms(f: int, t: int):
             for vec in (1, 0)]
 
 
-def bwd_launcher(g, idx, t, form, vec, wide=0):
+def bwd_launcher(g, idx, t, form, vec, wide=0, clip=False):
     """(fn() launching one form of K3-bwd into a zeroed sum, fn() -> the
-    [F, t] sum after it); 64-bit offsets with `wide`.  The "rows" form sums
-    into a row-major buffer, whose transposed view is the sum, as in the
-    wrapper."""
+    [F, t] sum after it); 64-bit offsets with `wide`; K7-bwd with `clip`
+    (g [C, K*N], idx [K*N] int32, every lane clipped into [0, t)).  The
+    "rows" form sums into a row-major buffer, whose transposed view is the
+    sum, as in the wrappers."""
     from pim_tpu_torch import native
 
     lib = native.load()
@@ -106,7 +109,8 @@ def bwd_launcher(g, idx, t, form, vec, wide=0):
     i32 = idx.dtype == torch.int32
     if form == "rows":
         buf = torch.zeros((t, f), dtype=torch.float32, device=g.device)
-        fn = lib.pim_gather_cols_bwd_rows_i32 if i32 else lib.pim_gather_cols_bwd_rows_i64
+        fn = (lib.pim_gather_texels_bwd_rows if clip else
+              lib.pim_gather_cols_bwd_rows_i32 if i32 else lib.pim_gather_cols_bwd_rows_i64)
 
         def run():
             buf.zero_()
@@ -114,7 +118,8 @@ def bwd_launcher(g, idx, t, form, vec, wide=0):
                                  vec, s), "gather_cols_bwd_rows")
         return run, lambda: buf.T
     grad = torch.zeros((f, t), dtype=torch.float32, device=g.device)
-    fn = lib.pim_gather_cols_bwd_i32 if i32 else lib.pim_gather_cols_bwd_i64
+    fn = (lib.pim_gather_texels_bwd if clip else
+          lib.pim_gather_cols_bwd_i32 if i32 else lib.pim_gather_cols_bwd_i64)
 
     def run():
         grad.zero_()
@@ -131,7 +136,7 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--forms", action="store_true",
-                    help="time every form of K3-bwd through the C interface")
+                    help="time every form of K3-bwd and K7-bwd through the C interface")
     ap.add_argument("--out", default=None, help="JSON file for every number")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -162,6 +167,15 @@ def main(argv=None) -> None:
                  ("random graft", torch.randn((4, tt.shape[1]), generator=gen).to(dev),
                   tt[F.MAT_ID].to(torch.int64), meta.mat_count)]
     bwd_cases += [(f"main {i}", *call) for i, call in enumerate(train["k3_bwd"])]
+    k7_cases = []
+    for label, planes, k in (("atlas", arrays.atlas_planes, 12),
+                             ("sky", arrays.sky.reshape(-1, 3).T, 4)):
+        c, t = planes.shape
+        idx = torch.randint(0, t, (k, N), generator=gen, dtype=torch.int32)
+        idx[0, :2] = torch.tensor([-1, t], dtype=torch.int32)
+        k7_cases.append((f"random {label}", torch.randn((c, k, N), generator=gen).to(dev),
+                         idx.to(dev), t))
+    k7_cases += [(f"main {i}", *call) for i, call in enumerate(train["k7_bwd"])]
     k6_cases = []
     for label, planes, c, k in (("atlas", arrays.atlas_corners, 4, 2),
                                 ("sky", arrays.sky_corners, 3, 1)):
@@ -206,17 +220,34 @@ def main(argv=None) -> None:
                 if not ok_f:
                     raise AssertionError(f"K3-bwd {label} {name} leaves the bound")
         result["k3_bwd"].append(row)
-    for i, (g, idx, t) in enumerate(train["k7_bwd"]):
+    for label, g, idx, t in k7_cases:
         out = tg.gather_texels_bwd(g, idx, t)
         ok, err, ratio = fc.scatter_error(out, tg.gather_texels_bwd_plain, g, idx, t)
-        row = dict(case=f"main {i}", shape=list(g.shape), t=t, within_bound=ok, max_abs_err=err,
+        row = dict(case=label, shape=list(g.shape), t=t, within_bound=ok, max_abs_err=err,
+                   err_over_bound=ratio, **fc.lane_counts(g.reshape(g.shape[0], -1),
+                                                          idx.clamp(0, t - 1).reshape(-1)),
                    ms=queued_ms(lambda: tg.gather_texels_bwd(g, idx, t)),
                    library_ms=queued_ms(fc.texel_index_add_call(g, idx, t)))
-        print(f"K7-bwd main {i} {tuple(g.shape)} -> [{g.shape[0]}, {t}]: within bound {ok}; "
-              f"{statistics.median(row['ms']):.4f} ms, index_add_ "
-              f"{statistics.median(row['library_ms']):.4f}")
+        print(f"K7-bwd {label} {tuple(g.shape)} -> [{g.shape[0]}, {t}]: within bound {ok} "
+              f"(err/bound {ratio:.3e}); lanes {row['lanes']}, clipped to 0 {row['idx0']}, g 0 "
+              f"{row['g0']}, both {row['idx0_g0']}; {statistics.median(row['ms']):.4f} ms "
+              f"{row['ms']}, index_add_ {statistics.median(row['library_ms']):.4f}")
         if not ok:
-            raise AssertionError(f"K7-bwd main {i} leaves the bound")
+            raise AssertionError(f"K7-bwd {label} leaves the bound")
+        if args.forms:
+            row["forms"] = {}
+            g2, idx2 = g.reshape(g.shape[0], -1), idx.reshape(-1)
+            for name, form, vec in bwd_forms(g.shape[0], t):
+                if vec and (idx2.shape[0] % 4 or idx2.data_ptr() % 16 or g2.data_ptr() % 16):
+                    continue
+                run, grad = bwd_launcher(g2, idx2, t, form, vec, clip=True)
+                run()
+                ok_f = fc.scatter_error(grad(), tg.gather_texels_bwd_plain, g2, idx2, t)[0]
+                ms = queued_ms(run)
+                row["forms"][name] = dict(within_bound=ok_f, ms=ms)
+                print(f"  {name}: within bound {ok_f}; {statistics.median(ms):.4f} ms {ms}")
+                if not ok_f:
+                    raise AssertionError(f"K7-bwd {label} {name} leaves the bound")
         result["k7_bwd"].append(row)
     for label, planes, idx, tx, ty, valid, c in k6_cases:
         out = tg.gather_bilinear(planes, idx, tx, ty, valid, c=c)

@@ -101,6 +101,8 @@ def _rows_plain(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     (48, 108, False),    # the Cornell tri table: staged
     (4, LIMIT // 4, False),
     (4, LIMIT // 4 + 1, True),
+    (4, 32768, True),    # the e1m1 atlas planes (K7-bwd's texel-interleaved sum)
+    (3, 6144, False),    # the sky planes: staged
 ])
 def test_reads_rows(f, t, want):
     assert gk.reads_rows(f, t) == want
@@ -182,6 +184,10 @@ def test_gather_cols_row_major_copy_keeps_the_table_gradient():
     ("void (anonymous namespace)::gather_texels_kernel<int, true, false>(float const*, ...)",
      "K7 gather_texels"),
     ("(anonymous namespace)::gather_texels_bwd_kernel(float const*, int, int, ...)",
+     "K7-bwd gather_texels_bwd"),
+    ("void (anonymous namespace)::gather_texels_bwd_kernel<int, true, true>(float const*, ...)",
+     "K7-bwd gather_texels_bwd"),
+    ("void (anonymous namespace)::gather_texels_bwd_rows_kernel<int, true>(float const*, ...)",
      "K7-bwd gather_texels_bwd"),
 ])
 def test_prof_frame_groups_the_gather_kernels(name, group):

@@ -1,5 +1,6 @@
-"""K3-bwd, the column scatter-add: what its wrapper decides on the CPU, and
-the tools that hold it on the card (tools/fetch_check.py).
+"""K3-bwd, the column scatter-add, and K7-bwd, which shares its kernels:
+what their wrappers decide on the CPU, and the tools that hold them on the
+card (tools/fetch_check.py).
 
 - `gather_bwd_variant` picks the kernel form a CUDA call launches: the
   [F, t] sum staged in shared memory up to STAGE_MAX_BYTES (the material
@@ -8,7 +9,10 @@ the tools that hold it on the card (tools/fetch_check.py).
   that is a multiple of 4 with the indices and the gradient 16-byte aligned.
   Its constants are the ones csrc/gather_tiles.cuh compiles in, and the
   kernel's staged sum is a row slice no larger than a staged table.
-- On the CPU the wrapper is the plain `index_add_` and launches nothing.
+  K7-bwd takes the same forms with every lane clipped into range: the
+  sky's [3, 6144] sum staged, the atlas's [4, 32768] one added into
+  texel-interleaved rows (`reads_rows`).
+- On the CPU both wrappers are the plain `index_add_` and launch nothing.
 - `scatter_error` accepts any summation order of float32 adds and refuses
   a sum off by more than gamma(adds - 1) * sum |g|; `lane_counts` counts a
   call's lanes at column 0 and with a zero gradient.
@@ -56,6 +60,15 @@ LIMIT = gk.STAGE_MAX_BYTES // 4  # floats of the largest staged sum
     # offsets past int32: a gradient of 2^31 floats, or such a sum
     (48, 108, 2**26, 256, 512, (True, True, True)),
     (1, 2**31, 8, 256, 512, (False, True, True)),
+    # K7-bwd on the main path: the sky's [3, 6144] sum staged, the atlas's
+    # [4, 32768] one not (it goes to the texel-interleaved rows, reads_rows)
+    (3, 6144, 4 * N, 256, 512, (True, False, True)),
+    (4, 32768, 12 * N, 256, 512, (False, False, True)),
+    # K7-bwd past int32, and with K*N not a multiple of 4 or misaligned
+    (4, 32768, 2**29, 256, 512, (False, True, True)),
+    (3, 6144, 4 * N - 1, 256, 512, (True, False, False)),
+    (4, 32768, 12 * N, 264, 512, (False, False, False)),
+    (4, 32768, 12 * N, 256, 520, (False, False, False)),
 ])
 def test_gather_bwd_variant(f, t, n, idx_ptr, g_ptr, want):
     assert tuple(gk.gather_bwd_variant(f, t, n, idx_ptr, g_ptr)) == want
@@ -83,6 +96,12 @@ def test_bwd_constants_match_the_kernel():
     body = src[src.index("int launch_bwd_as("):]
     assert "sizeof(float) * (f < kRows ? f : kRows) * t" in body
     assert "pim_gather::staged_blocks(tiles, blocks_y, smem)" in body
+    # K7-bwd takes K3-bwd's forms (staged, wide, vec; the rows form where
+    # reads_rows) with every lane clipped into range
+    texels = body[body.index("int pim_gather_texels_bwd("):]
+    assert "launch_bwd<int32_t, true>(g, c, t, idx, kn, grad, staged, wide, vec" in texels
+    assert "launch_bwd_rows<int32_t, true>(g, c, t, idx, kn, sum_tc, wide, vec" in texels
+    assert "ok[j] = pim_gather::lane<kVec>(tile, j) < n;" in src
 
 
 @pytest.mark.parametrize("f,t,n,dtype", [(48, 300, 4096, torch.int32), (4, 7, 1001, torch.int64)])
@@ -98,6 +117,23 @@ def test_cpu_wrapper_is_the_plain_scatter_add(f, t, n, dtype):
     np.add.at(want.T, idx.numpy()[ok], g.numpy()[:, ok].T.astype(np.float64))
     assert torch.equal(got, gk.gather_cols_bwd_plain(g, idx, t))
     assert fc.scatter_error(got, gk.gather_cols_bwd_plain, g, idx, t)[0]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("c,t,k,n", [(4, 300, 12, 1001), (3, 96, 4, 512)])
+def test_cpu_texel_wrapper_is_the_plain_scatter_add(c, t, k, n):
+    rs = np.random.default_rng(c * t + n)
+    g = torch.from_numpy(rs.standard_normal((c, k, n)).astype(np.float32))
+    idx = torch.from_numpy(rs.integers(-3, t + 3, (k, n)).astype(np.int32))
+    g[:, idx < 1] = 0.0  # lanes clipped to texel 0 mostly carry no gradient
+    before = dict(native.launches)
+    got = tg.gather_texels_bwd(g, idx, t)
+    assert native.launches == before
+    assert torch.equal(got, tg.gather_texels_bwd_plain(g, idx, t))
+    assert fc.scatter_error(got, tg.gather_texels_bwd_plain, g, idx, t)[0]
+    want = np.zeros((c, t), np.float64)
+    np.add.at(want.T, np.clip(idx.numpy(), 0, t - 1).ravel(),
+              g.numpy().reshape(c, -1).T.astype(np.float64))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 

@@ -7,7 +7,9 @@ versions, which the wrappers run for CPU tensors, against pim_tpu.
   included (both clip them).
 - Plain K3 backward against `jax.vjp` of `_fetch_cols_pallas` (the custom
   VJP whose backward the kernel replaces), indices outside [0, T) adding
-  nothing; plain K7 backward against `jax.vjp` of the clipped `jnp.take`.
+  nothing; plain K7 backward against `jax.vjp` of the clipped `jnp.take`,
+  also on indices piled the main path's way (most lanes clipped onto texel
+  0 or T-1, nearly all of those with a zero gradient).
   Both sum in another order than XLA's scatter-add, so they are held within
   4 eps of the sum of |g| that lands in each output (float32 rounding of a
   sum of that many terms is far inside it), not bitwise.
@@ -87,12 +89,19 @@ def test_k3_bwd_plain_matches_fetch_vjp(f, t, n):
     assert np.allclose(got.sum(axis=1), g[:, ok].sum(axis=1), rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("c,t,k,n", [(4, 3000, 12, 1024), (3, 384, 4, 2048)])
-def test_k7_bwd_plain_matches_take_vjp(c, t, k, n):
+@pytest.mark.parametrize("c,t,k,n,piled", [(4, 3000, 12, 1024, False), (3, 384, 4, 2048, False),
+                                           (4, 3000, 12, 1024, True), (3, 384, 4, 2048, True)])
+def test_k7_bwd_plain_matches_take_vjp(c, t, k, n, piled):
     rs = np.random.default_rng(c * t)
     planes = rs.normal(size=(c, t)).astype(np.float32)
     idx = _idx(rs, k, n, t)
     g = rs.normal(size=(c, k, n)).astype(np.float32)
+    if piled:
+        # the main path's way: untextured and miss lanes clipped onto texel 0
+        # and T-1, nearly all of them with a zero gradient
+        pile = rs.random((k, n)) < 0.7
+        idx[pile] = rs.choice([-5, -1, 0, t - 1, t, t + 7], size=int(pile.sum()))
+        g[:, pile & (rs.random((k, n)) < 0.95)] = 0.0
     _, vjp = jax.vjp(lambda p: jnp.take(p, jnp.clip(jnp.asarray(idx), 0, t - 1), axis=1),
                      jnp.asarray(planes))
     (want,) = vjp(jnp.asarray(g))
