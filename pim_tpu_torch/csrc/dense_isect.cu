@@ -88,23 +88,28 @@ __device__ __forceinline__ void stage_rows(float* s_tris, const float* __restric
 }
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kIsectWarps = kIsectThreads / 32;
 // 1 + 2^-20: |num| >= lim * |den| * kMargin, each product rounded, proves
 // |num / den| >= lim (see may_pass)
 constexpr float kMargin = 1.0f + 0x1p-20f;
 constexpr float kMinNormal = 0x1p-126f;
 
-// Whether a test of a row whose den and num are these can still pass for a
-// ray whose acceptance limit is `lim` (min(t_far, best t)): false only
-// where the exact float32 test must fail.  t = num / den is > 0 only where
-// num and den are nonzero with one sign; any other t fails t > t_near when
-// t_near >= 0 (`sign_gate`).  A positive t fails t < lim where p = lim *
-// |den| is a normal float and |num| >= p * kMargin: then |num / den| >= lim
-// * (1 + 2^-20) * (1 - 2^-24)^2 > lim, so the rounded quotient is >= lim.
-__device__ __forceinline__ bool may_pass(float num, float den, float lim, bool sign_gate) {
-  const bool pos = (num > 0.0f) == (den > 0.0f) && num != 0.0f && den != 0.0f;
+// Whether the test of a row whose den and num are these can still pass for
+// a ray whose acceptance limit is `lim` (min(t_far, best t)): false only
+// where the exact float32 test must fail.  den == 0 gives t = +-inf or NaN,
+// which fails t < lim (lim <= kBig) or t > t_near.  With kSignGate (t_near
+// >= 0), num and den of opposite signs give t <= -0, which fails t >
+// t_near.  A t >= 0 fails t < lim where p = lim * |den| is a normal float
+// and |num| >= p * kMargin: then |num / den| >= lim * (1 + 2^-20) *
+// (1 - 2^-24)^2 > lim, so the rounded quotient is >= lim.  Every term is a
+// compare or a bit operation, so the predicate has no branch.
+template <bool kSignGate>
+__device__ __forceinline__ bool may_pass(float num, float den, float lim) {
+  const bool opposite = (__float_as_int(num) ^ __float_as_int(den)) < 0;
   const float p = lim * fabsf(den);
-  const bool far = p >= kMinNormal && fabsf(num) >= p * kMargin;
-  return pos ? !far : !sign_gate;
+  const bool far = (p >= kMinNormal) & (fabsf(num) >= p * kMargin);
+  if (kSignGate) return !((den == 0.0f) | opposite | far);
+  return !((den == 0.0f) | (!opposite & far));
 }
 
 // Copies rows [c0, c0 + cnt) into shared memory as three float4 a row (the
@@ -122,16 +127,21 @@ __device__ __forceinline__ void stage_rows4(float4* s_rows, const float* __restr
   }
 }
 
-// K1: each thread holds kRays rays (kIsectThreads apart, so every ray load
-// is coalesced) and walks the rows in index order; a row's three float4
-// loads from shared memory serve all of them.  Per ray the limit `lim`
-// starts at min(t_far, kBig) and becomes the t of each accepted hit, so one
-// compare t < lim stands for the reference's t < t_far && t < best_t.  With
-// kSkip, a warp skips the division and the u/v test of a row for one of its
-// ray slots where no lane's test can pass (may_pass).  Blocks walk ray tiles
-// (grid sized to residency) and stage the rows once when they fit in one
-// chunk.
-template <int kRays, bool kSkip>
+// K1.  A block takes tiles of kSlots * kIsectThreads rays.  It writes the
+// results of the tile's dead rays at once and packs its live rays, in ray
+// order, into shared memory (warp ballots and one scan); its threads then
+// walk them kIsectThreads at a time, one ray a thread, so that a dead lane
+// costs nothing and a warp holds 32 live rays.  The lanes past the last
+// live ray copy their warp's first ray and discard their result (a zero
+// ray would send every division down its slow path).  Each ray walks the
+// rows in index order from shared memory (three 16-byte loads a row, the
+// same for all lanes); its limit `lim` starts at min(t_far, kBig) and
+// becomes the t of each accepted hit, so one compare t < lim stands for
+// the reference's t < t_far && t < best_t.  With kSkip, a warp leaves out
+// the division and the u/v test of a row where no lane can pass
+// (may_pass).  The rows are staged once per block when they fit in one
+// chunk, and the grid holds no more blocks than stay resident.
+template <int kSlots, bool kSkip, bool kSignGate>
 __global__ void __launch_bounds__(kIsectThreads)
 dense_isect_kernel(const float* __restrict__ tris, int ntri, const float* __restrict__ rox,
                    const float* __restrict__ roy, const float* __restrict__ roz,
@@ -140,33 +150,64 @@ dense_isect_kernel(const float* __restrict__ tris, int ntri, const float* __rest
                    float tfar_all, int n, float* __restrict__ t_out,
                    int* __restrict__ tri_out) {
   __shared__ float4 s_rows[kTriChunk * 3];
+  __shared__ int s_live[kSlots * kIsectThreads];
+  __shared__ int s_base[kSlots * kIsectWarps + 1];
   const int nchunk = (ntri + kTriChunk - 1) / kTriChunk;
-  const int tile_rays = kIsectThreads * kRays;
+  const int tile_rays = kSlots * kIsectThreads;
   const int tiles = (n + tile_rays - 1) / tile_rays;
-  const bool sign_gate = tnear >= 0.0f;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   bool staged = false;  // block-uniform
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    float ox[kRays], oy[kRays], oz[kRays], dx[kRays], dy[kRays], dz[kRays], lim[kRays];
-    int best[kRays];
-    bool live[kRays];
-    bool any = false;
+    unsigned ballot[kSlots];
+    __syncthreads();  // the previous tile is done with s_live and s_base
 #pragma unroll
-    for (int k = 0; k < kRays; ++k) {
+    for (int k = 0; k < kSlots; ++k) {
       const int r = tile * tile_rays + k * kIsectThreads + threadIdx.x;
-      const bool in_range = r < n;
-      const float tf = in_range ? (tfar != nullptr ? tfar[r] : tfar_all) : 0.0f;
-      ox[k] = in_range ? rox[r] : 0.0f;
-      oy[k] = in_range ? roy[r] : 0.0f;
-      oz[k] = in_range ? roz[r] : 0.0f;
-      dx[k] = in_range ? rdx[r] : 0.0f;
-      dy[k] = in_range ? rdy[r] : 0.0f;
-      dz[k] = in_range ? rdz[r] : 0.0f;
-      live[k] = tf > 0.0f;
-      lim[k] = fminf(tf, kBig);
-      best[k] = -1;
-      any = any || live[k];
+      const float tf = r < n ? (tfar != nullptr ? tfar[r] : tfar_all) : 0.0f;
+      const bool live = tf > 0.0f;
+      if (r < n && !live) {
+        t_out[r] = -1.0f;
+        tri_out[r] = -1;
+      }
+      ballot[k] = __ballot_sync(kFull, live);
+      if (lane == 0) s_base[k * kIsectWarps + warp] = __popc(ballot[k]);
     }
-    if (__syncthreads_or(any)) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int sum = 0;
+      for (int e = 0; e < kSlots * kIsectWarps; ++e) {
+        const int c = s_base[e];
+        s_base[e] = sum;
+        sum += c;
+      }
+      s_base[kSlots * kIsectWarps] = sum;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      if ((ballot[k] >> lane) & 1u) {
+        s_live[s_base[k * kIsectWarps + warp] + __popc(ballot[k] & ((1u << lane) - 1u))] =
+            tile * tile_rays + k * kIsectThreads + threadIdx.x;
+      }
+    }
+    __syncthreads();
+    const int count = s_base[kSlots * kIsectWarps];
+    for (int q0 = 0; q0 < count; q0 += kIsectThreads) {
+      const int q = q0 + threadIdx.x;
+      const bool warp_live = q0 + warp * 32 < count;  // its lane 0 holds a ray
+      const int r = warp_live ? s_live[q < count ? q : q0 + warp * 32] : 0;
+      float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f, lim = 0.0f;
+      if (warp_live) {
+        ox = rox[r];
+        oy = roy[r];
+        oz = roz[r];
+        dx = rdx[r];
+        dy = rdy[r];
+        dz = rdz[r];
+        lim = fminf(tfar != nullptr ? tfar[r] : tfar_all, kBig);
+      }
+      int best = -1;
       for (int c = 0; c < nchunk; ++c) {
         const int c0 = c * kTriChunk;
         const int cnt = min(kTriChunk, ntri - c0);
@@ -176,50 +217,40 @@ dense_isect_kernel(const float* __restrict__ tris, int ntri, const float* __rest
           __syncthreads();
           staged = true;
         }
+        if (!warp_live) continue;
         for (int j = 0; j < cnt; ++j) {
-          const float4 a = s_rows[3 * j];      // n, d
+          const float4 a = s_rows[3 * j];  // n, d
+          const float den = a.x * dx + a.y * dy + a.z * dz;
+          const float num = a.w - (a.x * ox + a.y * oy + a.z * oz);
+          if (kSkip && !__any_sync(kFull, may_pass<kSignGate>(num, den, lim))) continue;
           const float4 b = s_rows[3 * j + 1];  // U, uw
           const float4 e = s_rows[3 * j + 2];  // V, vw
-#pragma unroll
-          for (int k = 0; k < kRays; ++k) {
-            const float den = a.x * dx[k] + a.y * dy[k] + a.z * dz[k];
-            const float num = a.w - (a.x * ox[k] + a.y * oy[k] + a.z * oz[k]);
-            if (kSkip && !__any_sync(kFull, live[k] && may_pass(num, den, lim[k], sign_gate))) {
-              continue;
-            }
-            const float t = num / den;
-            const float px = ox[k] + t * dx[k];
-            const float py = oy[k] + t * dy[k];
-            const float pz = oz[k] + t * dz[k];
-            const float u = b.x * px + b.y * py + b.z * pz + b.w;
-            const float v = e.x * px + e.y * py + e.z * pz + e.w;
-            if (live[k] && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tnear && t < lim[k]) {
-              lim[k] = t;
-              best[k] = c0 + j;
-            }
+          const float t = num / den;
+          const float px = ox + t * dx;
+          const float py = oy + t * dy;
+          const float pz = oz + t * dz;
+          const float u = b.x * px + b.y * py + b.z * pz + b.w;
+          const float v = e.x * px + e.y * py + e.z * pz + e.w;
+          if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tnear && t < lim) {
+            lim = t;
+            best = c0 + j;
           }
         }
       }
-    }
-#pragma unroll
-    for (int k = 0; k < kRays; ++k) {
-      const int r = tile * tile_rays + k * kIsectThreads + threadIdx.x;
-      if (r < n) {
-        t_out[r] = best[k] >= 0 ? lim[k] : -1.0f;
-        tri_out[r] = best[k];
+      if (q < count) {
+        t_out[r] = best >= 0 ? lim : -1.0f;
+        tri_out[r] = best;
       }
     }
   }
 }
 
-// grid.x of a K1 launch: no more blocks than the ray tiles, nor than stay
-// resident at once.
-template <int kRays, bool kSkip>
-int launch_isect(const float* tris, int ntri, const float* rox, const float* roy,
-                 const float* roz, const float* rdx, const float* rdy, const float* rdz,
-                 float tnear, const float* tfar, float tfar_all, int n, float* t_out,
-                 int* tri_out, cudaStream_t stream) {
-  auto kernel = dense_isect_kernel<kRays, kSkip>;
+template <int kSlots, bool kSkip, bool kSignGate>
+int launch_isect_as(const float* tris, int ntri, const float* rox, const float* roy,
+                    const float* roz, const float* rdx, const float* rdy, const float* rdz,
+                    float tnear, const float* tfar, float tfar_all, int n, float* t_out,
+                    int* tri_out, cudaStream_t stream) {
+  auto kernel = dense_isect_kernel<kSlots, kSkip, kSignGate>;
   static int resident = 0;
   if (resident == 0) {
     int dev = 0, sms = 0, per_sm = 0;
@@ -228,10 +259,24 @@ int launch_isect(const float* tris, int ntri, const float* rox, const float* roy
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kIsectThreads, 0);
     resident = sms * (per_sm > 0 ? per_sm : 1);
   }
-  const int tiles = (n + kIsectThreads * kRays - 1) / (kIsectThreads * kRays);
-  kernel<<<tiles < resident ? tiles : resident, kIsectThreads, 0, stream>>>(
-      tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar, tfar_all, n, t_out, tri_out);
+  const int tiles = (n + kSlots * kIsectThreads - 1) / (kSlots * kIsectThreads);
+  const int grid = tiles < resident ? (tiles > 0 ? tiles : 1) : resident;
+  kernel<<<grid, kIsectThreads, 0, stream>>>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear,
+                                             tfar, tfar_all, n, t_out, tri_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// grid.x: no more blocks than the ray tiles, nor than stay resident.
+template <int kSlots, bool kSkip>
+int launch_isect(const float* tris, int ntri, const float* rox, const float* roy,
+                 const float* roz, const float* rdx, const float* rdy, const float* rdz,
+                 float tnear, const float* tfar, float tfar_all, int n, float* t_out,
+                 int* tri_out, cudaStream_t stream) {
+  return tnear >= 0.0f
+      ? launch_isect_as<kSlots, kSkip, true>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear,
+                                             tfar, tfar_all, n, t_out, tri_out, stream)
+      : launch_isect_as<kSlots, kSkip, false>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear,
+                                              tfar, tfar_all, n, t_out, tri_out, stream);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -279,32 +324,29 @@ int pim_dense_isect(const float* tris, int ntri, const float* rox, const float* 
                     const float* roz, const float* rdx, const float* rdy, const float* rdz,
                     float tnear, const float* tfar, float tfar_all, int n, float* t_out,
                     int* tri_out, void* stream) {
-  return launch_isect<2, true>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar, tfar_all,
+  return launch_isect<4, true>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar, tfar_all,
                                n, t_out, tri_out, static_cast<cudaStream_t>(stream));
 }
 
-// K1 in one of its measured forms: `rays` (1, 2 or 4) a thread, with or
-// without the warp's skip.
+// K1 in one of its measured forms: tiles of `slots` (1, 4 or 8) x 128
+// rays, with or without the warp's skip.
 int pim_dense_isect_form(const float* tris, int ntri, const float* rox, const float* roy,
                          const float* roz, const float* rdx, const float* rdy, const float* rdz,
                          float tnear, const float* tfar, float tfar_all, int n, float* t_out,
-                         int* tri_out, int rays, int skip, void* stream) {
+                         int* tri_out, int slots, int skip, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (rays * 2 + (skip ? 1 : 0)) {
-    case 2: return launch_isect<1, false>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar,
-                                          tfar_all, n, t_out, tri_out, s);
-    case 3: return launch_isect<1, true>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar,
-                                         tfar_all, n, t_out, tri_out, s);
-    case 4: return launch_isect<2, false>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar,
-                                          tfar_all, n, t_out, tri_out, s);
-    case 5: return launch_isect<2, true>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar,
-                                         tfar_all, n, t_out, tri_out, s);
-    case 8: return launch_isect<4, false>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar,
-                                          tfar_all, n, t_out, tri_out, s);
-    case 9: return launch_isect<4, true>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar,
-                                         tfar_all, n, t_out, tri_out, s);
+#define PIM_K1_ARGS tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar, tfar_all, n, t_out, \
+                    tri_out, s
+  switch (slots * 2 + (skip ? 1 : 0)) {
+    case 2: return launch_isect<1, false>(PIM_K1_ARGS);
+    case 3: return launch_isect<1, true>(PIM_K1_ARGS);
+    case 8: return launch_isect<4, false>(PIM_K1_ARGS);
+    case 9: return launch_isect<4, true>(PIM_K1_ARGS);
+    case 16: return launch_isect<8, false>(PIM_K1_ARGS);
+    case 17: return launch_isect<8, true>(PIM_K1_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef PIM_K1_ARGS
 }
 
 int pim_dense_anyhit(const float* tris, int ntri, const float* rox, const float* roy,

@@ -1,5 +1,7 @@
-// Texel gather for Hopper (sm_90a): K7, out[c, k, n] = planes[c, clip(idx[k, n], 0, T-1)],
-// and its backward, grad[c, clip(idx[k, n], 0, T-1)] += g[c, k, n].
+// Texel gather for Hopper (sm_90a): K7, out[c, k, n] = planes[c, clip(idx[k, n], 0, T-1)].
+// Its backward, K7-bwd, grad[c, clip(idx[k, n], 0, T-1)] += g[c, k, n], is
+// K3-bwd's scatter-add with every lane clipped into range
+// (gather_cols.cu: gather_texels_bwd_kernel, gather_texels_bwd_rows_kernel).
 //
 // Replaces: pim_tpu/render/table_gather.py:_gather_kernel, reached through
 // gather_texels_pallas and gather_texels (the four bilinear corners of every
@@ -7,16 +9,14 @@
 // [4, H*W] parameter planes, and the sky cube's four corners on its
 // [3, 6*S*S] planes).  The TPU kernel has no backward; JAX differentiates the
 // CPU form of the same gather (jnp.take, whose transpose is a scatter-add),
-// which the backward here computes.
+// which K7-bwd computes.
 //
 // What bounds it on this card: device-memory bytes, the K*N indices read
 // and the C*K*N floats written (an e1m1 fetch of K = 12 sets at 262,144
 // lanes: 12.6 MB of indices, 50 MB written), and the L2 sectors of the
 // scattered texel reads: in the [C, T] layout one query's C channels lie in
 // C sectors T floats apart (12.6M sector reads for the atlas fetch).  The
-// planes are 512 KiB for the e1m1 atlas and 72 KiB for a 32^2 sky.  The
-// backward reads the same indices and the C*K*N gradient and adds into the
-// [C, T] planes' gradient, whose columns many lanes share.
+// planes are 512 KiB for the e1m1 atlas and 72 KiB for a 32^2 sky.
 //
 // What the design does about it (gather_tiles.cuh): a thread owns four
 // queries; it loads their indices once (one 16-byte load where K*N is a
@@ -26,16 +26,14 @@
 // other K*N).  32-bit offsets whenever C*K*N and C*T fit: the 64-bit form
 // took 1.42x as long on random atlas indices and 1.12x on the sky's
 // (pim_tpu_torch/tools/gather_variants.py, NVIDIA H100 80GB HBM3, 700.00 W).
-// Planes of up to kStageMaxBytes (the sky) are staged in shared memory once per block,
-// with 16-byte loads, and the grid holds no more blocks than stay resident.
-// Larger planes (the atlas) are read through the read-only cache one plane
-// per row of blocks (grid y = C): the blocks that run together then share
-// one 128 KiB atlas plane in their SMs' L1 instead of all four.  The
-// forward reads f32, so it is exact: the TPU kernel's one-hot MXU
+// Planes of up to kStageMaxBytes (the sky) are staged in shared memory once
+// per block, with 16-byte loads, and the grid holds no more blocks than stay
+// resident.  Larger planes (the atlas) are read through the read-only cache
+// one plane per row of blocks (grid y = C): the blocks that run together
+// then share one 128 KiB atlas plane in their SMs' L1 instead of all four.
+// The forward reads f32, so it is exact: the TPU kernel's one-hot MXU
 // contraction and its bf16 split (parts = 1, 2, 3) exist only because the
-// MXU multiplies bf16.  The backward adds with float atomicAdd into a
-// zeroed output that the wrapper allocates, so the last bits of a texel's
-// gradient vary from run to run with the order of adds.
+// MXU multiplies bf16.
 
 #include <cuda_runtime.h>
 

@@ -8,8 +8,9 @@ chip_smoke.py, tests/test_torch_dense_check.py and tools/dense_variants.py.
   `tie_scene` makes rows with coincident triangles and rays aimed at them.
 - References: `may_pass` is a torch copy of the kernel's skip predicate
   (csrc/dense_isect.cu); `walk_skips` replays K1's walk in row order with
-  that skip, counts the warp tests it leaves out and checks that no test it
-  leaves out would have passed.
+  its packing of live rays into warps and its skip, counts the warp tests
+  the skip leaves out and checks that no test it leaves out would have
+  passed.
 
 Every import of the package is made inside the function that needs it, so
 tools/dense_variants.py can load this file beside an older tree of the
@@ -24,6 +25,7 @@ import torch
 
 MARGIN = 1.0 + 2.0**-20   # csrc/dense_isect.cu: kMargin
 MIN_NORMAL = 2.0**-126    # kMinNormal
+TILE_RAYS = 4 * 128       # the rays a block packs: pim_dense_isect's kSlots x kIsectThreads
 WARP = 32
 
 
@@ -90,20 +92,23 @@ def may_pass(num: torch.Tensor, den: torch.Tensor, lim: torch.Tensor,
     """The kernel's skip predicate on float32 tensors: False only where the
     exact test of a row with these den and num must fail for a ray whose
     acceptance limit is `lim` (sign_gate: t_near >= 0)."""
-    pos = ((num > 0.0) == (den > 0.0)) & (num != 0.0) & (den != 0.0)
+    opposite = (num.view(torch.int32) ^ den.view(torch.int32)) < 0
     p = lim * den.abs()
     far = (p >= MIN_NORMAL) & (num.abs() >= p * torch.tensor(MARGIN, dtype=torch.float32))
-    return torch.where(pos, ~far, torch.full_like(pos, not sign_gate))
+    if sign_gate:
+        return ~((den == 0.0) | opposite | far)
+    return ~((den == 0.0) | (~opposite & far))
 
 
-def walk_skips(tris12, ro, rd, t_near: float, t_far) -> dict:
-    """K1's walk replayed on [N] rays, N a multiple of 32, row by row with
-    the kernel's limit (min(t_far, 3e38), then each accepted t) and its
-    warp skip (a warp of 32 consecutive rays leaves a row out where
-    `may_pass` is False on every live lane): "tests", the warp tests of
-    warps with a live lane; "skipped", those left out; "passed_in_skipped",
-    the lane tests left out that would have been accepted (0 for a sound
-    skip); "t", "tri", the walk's results, which K1 must equal."""
+def walk_skips(tris12, ro, rd, t_near: float, t_far, tile_rays: int = TILE_RAYS) -> dict:
+    """K1's walk replayed on [N] rays, row by row with the kernel's limit
+    (min(t_far, 3e38), then each accepted t) and its warp skip: a block
+    packs the live rays of each tile of `tile_rays` rays in ray order, a
+    warp takes 32 of them, and it leaves a row out where `may_pass` is
+    False on all of them.  Returns "tests", the (warp, row) pairs;
+    "skipped", those left out; "passed_in_skipped", the lane tests left out
+    that would have been accepted (0 for a sound skip); "t", "tri", the
+    walk's results, which K1 must equal."""
     from pim_tpu_torch.render.dense_kernels import _BIG, _bw_test_plain
 
     n = ro.x.shape[0]
@@ -112,21 +117,32 @@ def walk_skips(tris12, ro, rd, t_near: float, t_far) -> dict:
     live = tf > 0.0
     lim = torch.clamp_max(tf, _BIG)
     best = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    live_warps = live.view(-1, WARP).any(dim=1)
+    # each live ray's warp: its tile, then its rank among the tile's live rays
+    ray = torch.arange(n, device=dev)
+    before = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                        torch.cumsum(live.to(torch.int64), 0)])
+    tile = ray // tile_rays
+    rank = before[ray] - before[tile * tile_rays]
+    n_warps = -(-n // tile_rays) * (tile_rays // WARP)
+    warp = (tile * (tile_rays // WARP) + rank // WARP)[live]
+    ones = torch.ones_like(warp)
+    warps = int((torch.zeros(n_warps, dtype=torch.int64, device=dev).index_add_(0, warp, ones)
+                 > 0).sum())
     tests = skipped = passed_in_skipped = 0
     for j in range(tris12.shape[0]):
         row = tris12[j : j + 1]
         nx, ny, nz, d = (row[:, k] for k in range(4))
         den = nx * rd.x + ny * rd.y + nz * rd.z
         num = d - (nx * ro.x + ny * ro.y + nz * ro.z)
-        maybe = live & may_pass(num, den, lim, t_near >= 0.0)
-        skip = live_warps & ~maybe.view(-1, WARP).any(dim=1)
+        maybe = may_pass(num, den, lim, t_near >= 0.0)[live].to(torch.int64)
+        open_ = torch.zeros(n_warps, dtype=torch.int64, device=dev).index_add_(0, warp, maybe)
+        skip = open_[warp] == 0
         t, ok = _bw_test_plain(row, ro, rd, t_near)
         t, ok = t[0], ok[0]
         acc = live & ok & (t < lim)
-        tests += int(live_warps.sum())
-        skipped += int(skip.sum())
-        passed_in_skipped += int((acc.view(-1, WARP) & skip[:, None]).sum())
+        tests += warps
+        skipped += warps - int((open_ > 0).sum())
+        passed_in_skipped += int((acc[live] & skip).sum())
         best = torch.where(acc, j, best)
         lim = torch.where(acc, t, lim)
     return {"tests": tests, "skipped": skipped, "passed_in_skipped": passed_in_skipped,

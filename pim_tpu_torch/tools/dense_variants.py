@@ -12,9 +12,10 @@ bounce).  Beside them it makes 262,144 seeded random rays inside the box,
 and times it (device ms a call: DEVICE_RUNS calls queued behind a GPU
 sleep, the median of BATCHES), and prints the share of warp tests that
 K1's skip leaves out (`dense_check.walk_skips`, whose replay must equal
-the kernel too).  With `--forms` it also launches every form of K1 (1, 2
-or 4 rays a thread, with and without the skip) through the library's C
-interface, holds each bit for bit against the wrapper and times it.
+the kernel too).  With `--forms` it also launches every form of K1 (live
+rays packed over tiles of 1, 4 or 8 x 128 rays, with and without the
+skip) through the library's C interface, holds each bit for bit against
+the wrapper and times it.
 
 It drives only the package's wrappers and plain versions, so it also times
 an older tree of the package, for a comparison of two trees in turns in one
@@ -41,7 +42,7 @@ import torch
 
 N = 262_144
 SEED = 1234
-FORMS = [(rays, skip) for rays in (1, 2, 4) for skip in (0, 1)]
+FORMS = [(slots, skip) for slots in (1, 4, 8) for skip in (0, 1)]
 
 
 def _dense_check():
@@ -73,7 +74,7 @@ def random_rays(dev, seed: int = SEED):
     return V3(*(cuda(c) for c in ro)), V3(*(cuda(c) for c in d)), cuda(t_far)
 
 
-def form_launcher(tris12, ro, rd, t_near, t_far, rays: int, skip: int):
+def form_launcher(tris12, ro, rd, t_near, t_far, slots: int, skip: int):
     """fn() -> (t, tri) of K1 in one form, launched through the C interface
     (no launch is counted)."""
     from pim_tpu_torch import native
@@ -88,7 +89,7 @@ def form_launcher(tris12, ro, rd, t_near, t_far, rays: int, skip: int):
         t = torch.empty((n,), dtype=torch.float32, device=dev)
         tri = torch.empty((n,), dtype=torch.int32, device=dev)
         native.check(lib, lib.pim_dense_isect_form(tris12.data_ptr(), tris12.shape[0], *args, n,
-                                                   t.data_ptr(), tri.data_ptr(), rays, skip, s),
+                                                   t.data_ptr(), tri.data_ptr(), slots, skip, s),
                      "dense_isect_form")
         return t, tri
 
@@ -151,15 +152,15 @@ def main(argv=None) -> None:
             raise AssertionError(f"K1 {label}: kernel, plain version and replay disagree")
         if args.forms:
             row["forms"] = {}
-            for rays, skip in FORMS:
-                run = form_launcher(rows, o, d, t_near, tf, rays, skip)
+            for slots, skip in FORMS:
+                run = form_launcher(rows, o, d, t_near, tf, slots, skip)
                 eq = same_bits(run(), got)
                 fms = queued_ms(run)
-                row["forms"][f"{rays}x{'skip' if skip else 'all'}"] = dict(equal=eq, ms=fms)
-                print(f"  {rays} rays a thread, skip {skip}: bitwise equal {eq}; "
+                row["forms"][f"{slots}x{'skip' if skip else 'all'}"] = dict(equal=eq, ms=fms)
+                print(f"  tiles of {slots} x 128 rays, skip {skip}: bitwise equal {eq}; "
                       f"{statistics.median(fms):.4f} ms {fms}")
                 if not eq:
-                    raise AssertionError(f"K1 {label}: form {rays}x{skip} differs")
+                    raise AssertionError(f"K1 {label}: form {slots}x{skip} differs")
         result["k1"].append(row)
     for label, rows, o, d, t_near, tf in k2_cases:
         got = dk.dense_anyhit(rows, o, d, t_near, tf)

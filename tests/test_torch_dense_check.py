@@ -50,10 +50,13 @@ def _t(x):
 def test_skip_constants_match_the_kernel():
     with open(os.path.join(native.CSRC, "dense_isect.cu")) as fh:
         src = fh.read()
-    consts = dict(re.findall(r"constexpr float (k\w+) = ([^;]+);", src))
+    consts = dict(re.findall(r"constexpr (?:float|int) (k\w+) = ([^;]+);", src))
     assert consts["kMargin"] == "1.0f + 0x1p-20f" and dc.MARGIN == 1.0 + 2.0**-20
     assert consts["kMinNormal"] == "0x1p-126f" and dc.MIN_NORMAL == 2.0**-126
     assert np.float32(dc.MARGIN) == dc.MARGIN  # exact in float32
+    # the replay packs live rays into warps as the kernel the wrapper launches
+    slots = re.search(r"return launch_isect<(\d+), true>\(", src[src.index("int pim_dense_isect("):])
+    assert int(slots.group(1)) * int(consts["kIsectThreads"]) == dc.TILE_RAYS
 
 
 @st.composite
