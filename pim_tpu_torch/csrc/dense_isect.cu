@@ -38,8 +38,7 @@ namespace {
 
 constexpr int kRowFloats = 12;
 constexpr int kTriChunk = 256;  // 12 KB of shared memory per block
-constexpr int kThreads = 128;      // K2
-constexpr int kIsectThreads = 128;  // K1
+constexpr int kThreads = 128;  // K2
 constexpr float kBig = 3.0e38f;
 
 struct Ray {
@@ -88,29 +87,6 @@ __device__ __forceinline__ void stage_rows(float* s_tris, const float* __restric
 }
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kIsectWarps = kIsectThreads / 32;
-// 1 + 2^-20: |num| >= lim * |den| * kMargin, each product rounded, proves
-// |num / den| >= lim (see may_pass)
-constexpr float kMargin = 1.0f + 0x1p-20f;
-constexpr float kMinNormal = 0x1p-126f;
-
-// Whether the test of a row whose den and num are these can still pass for
-// a ray whose acceptance limit is `lim` (min(t_far, best t)): false only
-// where the exact float32 test must fail.  den == 0 gives t = +-inf or NaN,
-// which fails t < lim (lim <= kBig) or t > t_near.  With kSignGate (t_near
-// >= 0), num and den of opposite signs give t <= -0, which fails t >
-// t_near.  A t >= 0 fails t < lim where p = lim * |den| is a normal float
-// and |num| >= p * kMargin: then |num / den| >= lim * (1 + 2^-20) *
-// (1 - 2^-24)^2 > lim, so the rounded quotient is >= lim.  Every term is a
-// compare or a bit operation, so the predicate has no branch.
-template <bool kSignGate>
-__device__ __forceinline__ bool may_pass(float num, float den, float lim) {
-  const bool opposite = (__float_as_int(num) ^ __float_as_int(den)) < 0;
-  const float p = lim * fabsf(den);
-  const bool far = (p >= kMinNormal) & (fabsf(num) >= p * kMargin);
-  if (kSignGate) return !((den == 0.0f) | opposite | far);
-  return !((den == 0.0f) | (!opposite & far));
-}
 
 // Copies rows [c0, c0 + cnt) into shared memory as three float4 a row (the
 // rows are 48 bytes, so a 16-byte aligned table keeps every row aligned);
@@ -127,156 +103,129 @@ __device__ __forceinline__ void stage_rows4(float4* s_rows, const float* __restr
   }
 }
 
-// K1.  A block takes tiles of kSlots * kIsectThreads rays.  It writes the
+// K1.  A block of kBlock threads takes tiles of kBlock rays.  It writes the
 // results of the tile's dead rays at once and packs its live rays, in ray
-// order, into shared memory (warp ballots and one scan); its threads then
-// walk them kIsectThreads at a time, one ray a thread, so that a dead lane
-// costs nothing and a warp holds 32 live rays.  The lanes past the last
-// live ray copy their warp's first ray and discard their result (a zero
-// ray would send every division down its slow path).  Each ray walks the
-// rows in index order from shared memory (three 16-byte loads a row, the
-// same for all lanes); its limit `lim` starts at min(t_far, kBig) and
-// becomes the t of each accepted hit, so one compare t < lim stands for
-// the reference's t < t_far && t < best_t.  With kSkip, a warp leaves out
-// the division and the u/v test of a row where no lane can pass
-// (may_pass).  The rows are staged once per block when they fit in one
-// chunk, and the grid holds no more blocks than stay resident.
-template <int kSlots, bool kSkip, bool kSignGate>
-__global__ void __launch_bounds__(kIsectThreads)
+// order, into the block's first threads (warp ballots and one scan), so
+// that a dead lane costs nothing and a warp with a live ray holds 32 of
+// them but for the last one.  Its lanes past the last live ray copy their
+// warp's first ray and discard their result (a zero ray would send every
+// division down its slow path).  Each ray walks the rows in index order
+// from shared memory (three 16-byte loads a row, the same address for all
+// lanes); its limit `lim` starts at min(t_far, kBig) and becomes the t of
+// each accepted hit, so one compare t < lim stands for the reference's
+// t < t_far && t < best_t.  The rows are staged once per block when they
+// fit in one chunk, and the grid holds no more blocks than stay resident.
+// kMinBlocks > 0 caps the registers so that many blocks stay resident.
+template <int kBlock, int kMinBlocks>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
 dense_isect_kernel(const float* __restrict__ tris, int ntri, const float* __restrict__ rox,
                    const float* __restrict__ roy, const float* __restrict__ roz,
                    const float* __restrict__ rdx, const float* __restrict__ rdy,
                    const float* __restrict__ rdz, float tnear, const float* __restrict__ tfar,
                    float tfar_all, int n, float* __restrict__ t_out,
                    int* __restrict__ tri_out) {
+  constexpr int kWarps = kBlock / 32;
   __shared__ float4 s_rows[kTriChunk * 3];
-  __shared__ int s_live[kSlots * kIsectThreads];
-  __shared__ int s_base[kSlots * kIsectWarps + 1];
+  __shared__ int s_live[kBlock];
+  __shared__ int s_base[kWarps + 1];
   const int nchunk = (ntri + kTriChunk - 1) / kTriChunk;
-  const int tile_rays = kSlots * kIsectThreads;
-  const int tiles = (n + tile_rays - 1) / tile_rays;
+  const int tiles = (n + kBlock - 1) / kBlock;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   bool staged = false;  // block-uniform
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    unsigned ballot[kSlots];
     __syncthreads();  // the previous tile is done with s_live and s_base
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      const int r = tile * tile_rays + k * kIsectThreads + threadIdx.x;
-      const float tf = r < n ? (tfar != nullptr ? tfar[r] : tfar_all) : 0.0f;
-      const bool live = tf > 0.0f;
-      if (r < n && !live) {
-        t_out[r] = -1.0f;
-        tri_out[r] = -1;
-      }
-      ballot[k] = __ballot_sync(kFull, live);
-      if (lane == 0) s_base[k * kIsectWarps + warp] = __popc(ballot[k]);
+    const int r0 = tile * kBlock + threadIdx.x;
+    const float tf0 = r0 < n ? (tfar != nullptr ? tfar[r0] : tfar_all) : 0.0f;
+    const bool live0 = tf0 > 0.0f;
+    if (r0 < n && !live0) {
+      t_out[r0] = -1.0f;
+      tri_out[r0] = -1;
     }
+    const unsigned ballot = __ballot_sync(kFull, live0);
+    if (lane == 0) s_base[warp] = __popc(ballot);
     __syncthreads();
     if (threadIdx.x == 0) {
       int sum = 0;
-      for (int e = 0; e < kSlots * kIsectWarps; ++e) {
-        const int c = s_base[e];
-        s_base[e] = sum;
+      for (int w = 0; w < kWarps; ++w) {
+        const int c = s_base[w];
+        s_base[w] = sum;
         sum += c;
       }
-      s_base[kSlots * kIsectWarps] = sum;
+      s_base[kWarps] = sum;
     }
     __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      if ((ballot[k] >> lane) & 1u) {
-        s_live[s_base[k * kIsectWarps + warp] + __popc(ballot[k] & ((1u << lane) - 1u))] =
-            tile * tile_rays + k * kIsectThreads + threadIdx.x;
+    if (live0) s_live[s_base[warp] + __popc(ballot & ((1u << lane) - 1u))] = r0;
+    __syncthreads();
+    const int count = s_base[kWarps];
+    const bool warp_live = warp * 32 < count;  // its lane 0 holds a ray
+    const int r = warp_live ? s_live[threadIdx.x < count ? threadIdx.x : warp * 32] : 0;
+    float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f, lim = 0.0f;
+    if (warp_live) {
+      ox = rox[r];
+      oy = roy[r];
+      oz = roz[r];
+      dx = rdx[r];
+      dy = rdy[r];
+      dz = rdz[r];
+      lim = fminf(tfar != nullptr ? tfar[r] : tfar_all, kBig);
+    }
+    int best = -1;
+    for (int c = 0; c < nchunk && count > 0; ++c) {
+      const int c0 = c * kTriChunk;
+      const int cnt = min(kTriChunk, ntri - c0);
+      if (nchunk > 1 || !staged) {
+        __syncthreads();
+        stage_rows4(s_rows, tris, c0, cnt, kBlock);
+        __syncthreads();
+        staged = true;
+      }
+      if (!warp_live) continue;
+      for (int j = 0; j < cnt; ++j) {
+        const float4 a = s_rows[3 * j];      // n, d
+        const float4 b = s_rows[3 * j + 1];  // U, uw
+        const float4 e = s_rows[3 * j + 2];  // V, vw
+        const float den = a.x * dx + a.y * dy + a.z * dz;
+        const float num = a.w - (a.x * ox + a.y * oy + a.z * oz);
+        const float t = num / den;
+        const float px = ox + t * dx;
+        const float py = oy + t * dy;
+        const float pz = oz + t * dz;
+        const float u = b.x * px + b.y * py + b.z * pz + b.w;
+        const float v = e.x * px + e.y * py + e.z * pz + e.w;
+        if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tnear && t < lim) {
+          lim = t;
+          best = c0 + j;
+        }
       }
     }
-    __syncthreads();
-    const int count = s_base[kSlots * kIsectWarps];
-    for (int q0 = 0; q0 < count; q0 += kIsectThreads) {
-      const int q = q0 + threadIdx.x;
-      const bool warp_live = q0 + warp * 32 < count;  // its lane 0 holds a ray
-      const int r = warp_live ? s_live[q < count ? q : q0 + warp * 32] : 0;
-      float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f, lim = 0.0f;
-      if (warp_live) {
-        ox = rox[r];
-        oy = roy[r];
-        oz = roz[r];
-        dx = rdx[r];
-        dy = rdy[r];
-        dz = rdz[r];
-        lim = fminf(tfar != nullptr ? tfar[r] : tfar_all, kBig);
-      }
-      int best = -1;
-      for (int c = 0; c < nchunk; ++c) {
-        const int c0 = c * kTriChunk;
-        const int cnt = min(kTriChunk, ntri - c0);
-        if (nchunk > 1 || !staged) {
-          __syncthreads();
-          stage_rows4(s_rows, tris, c0, cnt, kIsectThreads);
-          __syncthreads();
-          staged = true;
-        }
-        if (!warp_live) continue;
-        for (int j = 0; j < cnt; ++j) {
-          const float4 a = s_rows[3 * j];  // n, d
-          const float den = a.x * dx + a.y * dy + a.z * dz;
-          const float num = a.w - (a.x * ox + a.y * oy + a.z * oz);
-          if (kSkip && !__any_sync(kFull, may_pass<kSignGate>(num, den, lim))) continue;
-          const float4 b = s_rows[3 * j + 1];  // U, uw
-          const float4 e = s_rows[3 * j + 2];  // V, vw
-          const float t = num / den;
-          const float px = ox + t * dx;
-          const float py = oy + t * dy;
-          const float pz = oz + t * dz;
-          const float u = b.x * px + b.y * py + b.z * pz + b.w;
-          const float v = e.x * px + e.y * py + e.z * pz + e.w;
-          if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tnear && t < lim) {
-            lim = t;
-            best = c0 + j;
-          }
-        }
-      }
-      if (q < count) {
-        t_out[r] = best >= 0 ? lim : -1.0f;
-        tri_out[r] = best;
-      }
+    if (static_cast<int>(threadIdx.x) < count) {
+      t_out[r] = best >= 0 ? lim : -1.0f;
+      tri_out[r] = best;
     }
   }
 }
 
-template <int kSlots, bool kSkip, bool kSignGate>
-int launch_isect_as(const float* tris, int ntri, const float* rox, const float* roy,
-                    const float* roz, const float* rdx, const float* rdy, const float* rdz,
-                    float tnear, const float* tfar, float tfar_all, int n, float* t_out,
-                    int* tri_out, cudaStream_t stream) {
-  auto kernel = dense_isect_kernel<kSlots, kSkip, kSignGate>;
+// grid.x: no more blocks than the ray tiles, nor than stay resident.
+template <int kBlock, int kMinBlocks>
+int launch_isect(const float* tris, int ntri, const float* rox, const float* roy,
+                 const float* roz, const float* rdx, const float* rdy, const float* rdz,
+                 float tnear, const float* tfar, float tfar_all, int n, float* t_out,
+                 int* tri_out, cudaStream_t stream) {
+  auto kernel = dense_isect_kernel<kBlock, kMinBlocks>;
   static int resident = 0;
   if (resident == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kIsectThreads, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, 0);
     resident = sms * (per_sm > 0 ? per_sm : 1);
   }
-  const int tiles = (n + kSlots * kIsectThreads - 1) / (kSlots * kIsectThreads);
+  const int tiles = (n + kBlock - 1) / kBlock;
   const int grid = tiles < resident ? (tiles > 0 ? tiles : 1) : resident;
-  kernel<<<grid, kIsectThreads, 0, stream>>>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear,
-                                             tfar, tfar_all, n, t_out, tri_out);
+  kernel<<<grid, kBlock, 0, stream>>>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar,
+                                      tfar_all, n, t_out, tri_out);
   return static_cast<int>(cudaGetLastError());
-}
-
-// grid.x: no more blocks than the ray tiles, nor than stay resident.
-template <int kSlots, bool kSkip>
-int launch_isect(const float* tris, int ntri, const float* rox, const float* roy,
-                 const float* roz, const float* rdx, const float* rdy, const float* rdz,
-                 float tnear, const float* tfar, float tfar_all, int n, float* t_out,
-                 int* tri_out, cudaStream_t stream) {
-  return tnear >= 0.0f
-      ? launch_isect_as<kSlots, kSkip, true>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear,
-                                             tfar, tfar_all, n, t_out, tri_out, stream)
-      : launch_isect_as<kSlots, kSkip, false>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear,
-                                              tfar, tfar_all, n, t_out, tri_out, stream);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -324,26 +273,25 @@ int pim_dense_isect(const float* tris, int ntri, const float* rox, const float* 
                     const float* roz, const float* rdx, const float* rdy, const float* rdz,
                     float tnear, const float* tfar, float tfar_all, int n, float* t_out,
                     int* tri_out, void* stream) {
-  return launch_isect<4, true>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar, tfar_all,
-                               n, t_out, tri_out, static_cast<cudaStream_t>(stream));
+  return launch_isect<512, 4>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar, tfar_all, n,
+                              t_out, tri_out, static_cast<cudaStream_t>(stream));
 }
 
-// K1 in one of its measured forms: tiles of `slots` (1, 4 or 8) x 128
-// rays, with or without the warp's skip.
+// K1 in one of its measured forms: 0, blocks of 128; 1, of 512; 2, of 512
+// at <= 32 registers; 3, of 256 at <= 32 registers; 4, of 1024 at <= 32.
 int pim_dense_isect_form(const float* tris, int ntri, const float* rox, const float* roy,
                          const float* roz, const float* rdx, const float* rdy, const float* rdz,
                          float tnear, const float* tfar, float tfar_all, int n, float* t_out,
-                         int* tri_out, int slots, int skip, void* stream) {
+                         int* tri_out, int form, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
 #define PIM_K1_ARGS tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar, tfar_all, n, t_out, \
                     tri_out, s
-  switch (slots * 2 + (skip ? 1 : 0)) {
-    case 2: return launch_isect<1, false>(PIM_K1_ARGS);
-    case 3: return launch_isect<1, true>(PIM_K1_ARGS);
-    case 8: return launch_isect<4, false>(PIM_K1_ARGS);
-    case 9: return launch_isect<4, true>(PIM_K1_ARGS);
-    case 16: return launch_isect<8, false>(PIM_K1_ARGS);
-    case 17: return launch_isect<8, true>(PIM_K1_ARGS);
+  switch (form) {
+    case 0: return launch_isect<128, 0>(PIM_K1_ARGS);
+    case 1: return launch_isect<512, 0>(PIM_K1_ARGS);
+    case 2: return launch_isect<512, 4>(PIM_K1_ARGS);
+    case 3: return launch_isect<256, 8>(PIM_K1_ARGS);
+    case 4: return launch_isect<1024, 2>(PIM_K1_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PIM_K1_ARGS

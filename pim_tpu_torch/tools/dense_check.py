@@ -1,16 +1,10 @@
-"""What K1 (and K2 beside it) is checked on and held against, shared by
-chip_smoke.py, tests/test_torch_dense_check.py and tools/dense_variants.py.
-
-- Rays: `recorded_calls` keeps a copy of the arguments that the main path
-  hands dense_isect (K1) and dense_anyhit (K2); `main_path_calls` records
-  those of sample 0 of one Cornell serving step (the primary rays, then
-  one closest-hit call a bounce, dead lanes carrying t_far = 0);
-  `tie_scene` makes rows with coincident triangles and rays aimed at them.
-- References: `may_pass` is a torch copy of the kernel's skip predicate
-  (csrc/dense_isect.cu); `walk_skips` replays K1's walk in row order with
-  its packing of live rays into warps and its skip, counts the warp tests
-  the skip leaves out and checks that no test it leaves out would have
-  passed.
+"""What K1 (and K2 beside it) is checked on, shared by chip_smoke.py,
+tests/test_torch_dense_check.py and tools/dense_variants.py:
+`recorded_calls` keeps a copy of the arguments that the main path hands
+dense_isect (K1) and dense_anyhit (K2); `main_path_calls` records those of
+sample 0 of one Cornell serving step (the primary rays, then one
+closest-hit call a bounce, dead lanes carrying t_far = 0); `tie_scene`
+makes rows with coincident triangles and rays aimed at them.
 
 Every import of the package is made inside the function that needs it, so
 tools/dense_variants.py can load this file beside an older tree of the
@@ -22,12 +16,6 @@ from __future__ import annotations
 import contextlib
 
 import torch
-
-MARGIN = 1.0 + 2.0**-20   # csrc/dense_isect.cu: kMargin
-MIN_NORMAL = 2.0**-126    # kMinNormal
-TILE_RAYS = 4 * 128       # the rays a block packs: pim_dense_isect's kSlots x kIsectThreads
-WARP = 32
-
 
 @contextlib.contextmanager
 def recorded_calls(limit: int = 1 << 30):
@@ -85,65 +73,3 @@ def tie_scene(distinct: int, copies: int, n: int, seed: int):
     ro[:, 32:64], rd[:, 32:64], t_far[32:64] = ro[:, 32:33], rd[:, 32:33], 1e6
     t_far[64:96:2] = 0.0
     return pack_tris(soup), ro, rd, t_far
-
-
-def may_pass(num: torch.Tensor, den: torch.Tensor, lim: torch.Tensor,
-             sign_gate: bool) -> torch.Tensor:
-    """The kernel's skip predicate on float32 tensors: False only where the
-    exact test of a row with these den and num must fail for a ray whose
-    acceptance limit is `lim` (sign_gate: t_near >= 0)."""
-    opposite = (num.view(torch.int32) ^ den.view(torch.int32)) < 0
-    p = lim * den.abs()
-    far = (p >= MIN_NORMAL) & (num.abs() >= p * torch.tensor(MARGIN, dtype=torch.float32))
-    if sign_gate:
-        return ~((den == 0.0) | opposite | far)
-    return ~((den == 0.0) | (~opposite & far))
-
-
-def walk_skips(tris12, ro, rd, t_near: float, t_far, tile_rays: int = TILE_RAYS) -> dict:
-    """K1's walk replayed on [N] rays, row by row with the kernel's limit
-    (min(t_far, 3e38), then each accepted t) and its warp skip: a block
-    packs the live rays of each tile of `tile_rays` rays in ray order, a
-    warp takes 32 of them, and it leaves a row out where `may_pass` is
-    False on all of them.  Returns "tests", the (warp, row) pairs;
-    "skipped", those left out; "passed_in_skipped", the lane tests left out
-    that would have been accepted (0 for a sound skip); "t", "tri", the
-    walk's results, which K1 must equal."""
-    from pim_tpu_torch.render.dense_kernels import _BIG, _bw_test_plain
-
-    n = ro.x.shape[0]
-    dev = ro.x.device
-    tf = torch.as_tensor(t_far, dtype=torch.float32, device=dev).expand(n)
-    live = tf > 0.0
-    lim = torch.clamp_max(tf, _BIG)
-    best = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    # each live ray's warp: its tile, then its rank among the tile's live rays
-    ray = torch.arange(n, device=dev)
-    before = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                        torch.cumsum(live.to(torch.int64), 0)])
-    tile = ray // tile_rays
-    rank = before[ray] - before[tile * tile_rays]
-    n_warps = -(-n // tile_rays) * (tile_rays // WARP)
-    warp = (tile * (tile_rays // WARP) + rank // WARP)[live]
-    ones = torch.ones_like(warp)
-    warps = int((torch.zeros(n_warps, dtype=torch.int64, device=dev).index_add_(0, warp, ones)
-                 > 0).sum())
-    tests = skipped = passed_in_skipped = 0
-    for j in range(tris12.shape[0]):
-        row = tris12[j : j + 1]
-        nx, ny, nz, d = (row[:, k] for k in range(4))
-        den = nx * rd.x + ny * rd.y + nz * rd.z
-        num = d - (nx * ro.x + ny * ro.y + nz * ro.z)
-        maybe = may_pass(num, den, lim, t_near >= 0.0)[live].to(torch.int64)
-        open_ = torch.zeros(n_warps, dtype=torch.int64, device=dev).index_add_(0, warp, maybe)
-        skip = open_[warp] == 0
-        t, ok = _bw_test_plain(row, ro, rd, t_near)
-        t, ok = t[0], ok[0]
-        acc = live & ok & (t < lim)
-        tests += warps
-        skipped += warps - int((open_ > 0).sum())
-        passed_in_skipped += int((acc[live] & skip).sum())
-        best = torch.where(acc, j, best)
-        lim = torch.where(acc, t, lim)
-    return {"tests": tests, "skipped": skipped, "passed_in_skipped": passed_in_skipped,
-            "t": torch.where(best >= 0, lim, -1.0), "tri": best}

@@ -10,12 +10,11 @@ bounce).  Beside them it makes 262,144 seeded random rays inside the box,
 ~10% of them dead and one 2048-ray run all dead, with t_far 1e6 (K1) or 3
 (K2).  On each it holds the wrapper bit for bit against the plain version
 and times it (device ms a call: DEVICE_RUNS calls queued behind a GPU
-sleep, the median of BATCHES), and prints the share of warp tests that
-K1's skip leaves out (`dense_check.walk_skips`, whose replay must equal
-the kernel too).  With `--forms` it also launches every form of K1 (live
-rays packed over tiles of 1, 4 or 8 x 128 rays, with and without the
-skip) through the library's C interface, holds each bit for bit against
-the wrapper and times it.
+sleep, the median of BATCHES).  With `--forms` it also launches every
+form of K1 (FORMS: blocks of 128 to 1024 threads, each packing the live
+rays of as many rays, with and without a cap on registers) through the
+library's C interface, holds each bit for bit against the wrapper and
+times it.
 
 It drives only the package's wrappers and plain versions, so it also times
 an older tree of the package, for a comparison of two trees in turns in one
@@ -42,7 +41,9 @@ import torch
 
 N = 262_144
 SEED = 1234
-FORMS = [(slots, skip) for slots in (1, 4, 8) for skip in (0, 1)]
+# pim_dense_isect_form: (threads a block, register cap)
+FORMS = {0: "128", 1: "512", 2: "512 at <= 32 registers", 3: "256 at <= 32 registers",
+         4: "1024 at <= 32 registers"}
 
 
 def _dense_check():
@@ -74,7 +75,7 @@ def random_rays(dev, seed: int = SEED):
     return V3(*(cuda(c) for c in ro)), V3(*(cuda(c) for c in d)), cuda(t_far)
 
 
-def form_launcher(tris12, ro, rd, t_near, t_far, slots: int, skip: int):
+def form_launcher(tris12, ro, rd, t_near, t_far, form: int):
     """fn() -> (t, tri) of K1 in one form, launched through the C interface
     (no launch is counted)."""
     from pim_tpu_torch import native
@@ -89,7 +90,7 @@ def form_launcher(tris12, ro, rd, t_near, t_far, slots: int, skip: int):
         t = torch.empty((n,), dtype=torch.float32, device=dev)
         tri = torch.empty((n,), dtype=torch.int32, device=dev)
         native.check(lib, lib.pim_dense_isect_form(tris12.data_ptr(), tris12.shape[0], *args, n,
-                                                   t.data_ptr(), tri.data_ptr(), slots, skip, s),
+                                                   t.data_ptr(), tri.data_ptr(), form, s),
                      "dense_isect_form")
         return t, tri
 
@@ -136,31 +137,24 @@ def main(argv=None) -> None:
     for label, rows, o, d, t_near, tf in k1_cases:
         got = dk.dense_isect(rows, o, d, t_near, tf)
         same = same_bits(got, dk.dense_isect_plain(rows, o, d, t_near, tf))
-        walk = dc.walk_skips(rows, o, d, t_near, tf)
         live = int((torch.as_tensor(tf, device=dev).expand(o.x.shape[0]) > 0.0).sum())
         ms = queued_ms(lambda: dk.dense_isect(rows, o, d, t_near, tf))
-        row = dict(case=label, n=o.x.shape[0], live=live, bitwise_equal=same, ms=ms,
-                   warp_tests=walk["tests"], warp_tests_skipped=walk["skipped"],
-                   replay_equal=same_bits(got, (walk["t"], walk["tri"])),
-                   passed_in_skipped=walk["passed_in_skipped"])
+        row = dict(case=label, n=o.x.shape[0], live=live, bitwise_equal=same, ms=ms)
         print(f"K1 {label}: {row['n']} rays, {live} live; bitwise equal {same}; "
-              f"{statistics.median(ms):.4f} ms {ms}; skip would leave out "
-              f"{walk['skipped']} of {walk['tests']} warp tests "
-              f"({walk['skipped'] / max(walk['tests'], 1):.3f}), replay equal "
-              f"{row['replay_equal']}, passing tests among them {walk['passed_in_skipped']}")
-        if not same or not row["replay_equal"] or walk["passed_in_skipped"]:
-            raise AssertionError(f"K1 {label}: kernel, plain version and replay disagree")
+              f"{statistics.median(ms):.4f} ms {ms}")
+        if not same:
+            raise AssertionError(f"K1 {label} differs from its plain version")
         if args.forms:
             row["forms"] = {}
-            for slots, skip in FORMS:
-                run = form_launcher(rows, o, d, t_near, tf, slots, skip)
+            for form, name in FORMS.items():
+                run = form_launcher(rows, o, d, t_near, tf, form)
                 eq = same_bits(run(), got)
                 fms = queued_ms(run)
-                row["forms"][f"{slots}x{'skip' if skip else 'all'}"] = dict(equal=eq, ms=fms)
-                print(f"  tiles of {slots} x 128 rays, skip {skip}: bitwise equal {eq}; "
-                      f"{statistics.median(fms):.4f} ms {fms}")
+                row["forms"][name] = dict(equal=eq, ms=fms)
+                print(f"  blocks of {name}: bitwise equal {eq}; {statistics.median(fms):.4f} ms "
+                      f"{fms}")
                 if not eq:
-                    raise AssertionError(f"K1 {label}: form {slots}x{skip} differs")
+                    raise AssertionError(f"K1 {label}: form {name} differs")
         result["k1"].append(row)
     for label, rows, o, d, t_near, tf in k2_cases:
         got = dk.dense_anyhit(rows, o, d, t_near, tf)

@@ -1,29 +1,19 @@
-"""K1's warp skip and the tools that hold K1 on the card
-(pim_tpu_torch/tools/dense_check.py).
+"""The tools that hold K1 on the card (pim_tpu_torch/tools/dense_check.py)
+and the tie rule they check it on.
 
-- `may_pass`, the torch copy of csrc/dense_isect.cu's skip predicate, is
-  False only where the exact float32 test must fail: on quotients num / den
-  against any limit (hypothesis, subnormal and infinite values and
-  quotients within a few ulp of the limit included), and on whole
-  Baldwin-Weber tests against `_bw_test_plain`.  Its constants are the
-  ones the kernel compiles in.
-- `walk_skips` replays K1's walk with the skip: its result equals
-  `dense_isect_plain` bit for bit on seeded rays, the Cornell camera's rays
-  and the tie scene, the skip leaves out some warp tests there, and none
-  of those would pass.
+- `tie_scene` makes coincident triangles in shuffled rows over two chunks
+  of 256 rows, padded with degenerate rows, and rays aimed at them with a
+  dead warp, a warp of one ray and a half-dead warp; the plain K1 (what
+  the kernel must equal bit for bit) keeps the lowest row among equal t
+  there, as a float32 numpy walk in row order does, for a per-ray and a
+  scalar t_far.
 - `main_path_calls` keeps the K1 and K2 calls of sample 0 of a Cornell step
   (the primary rays, then one K1 call a bounce) without changing the step.
 """
 
-import os
-import re
-
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings
-from hypothesis import strategies as st
-from hypothesis.extra.numpy import arrays
 
 from pim_tpu_torch import native
 from pim_tpu_torch.app import bench_camera, build_cornell_scene
@@ -35,77 +25,30 @@ from pim_tpu_torch.tools import dense_check as dc
 
 torch.set_num_threads(2)
 
-M = 64  # values a hypothesis example holds
-F32 = dict(width=32, allow_nan=True, allow_infinity=True, allow_subnormal=True)
-
-
-def _f32(x) -> float:
-    return float(np.float32(x))
-
 
 def _t(x):
     return torch.from_numpy(np.asarray(x, np.float32))
 
 
-def test_skip_constants_match_the_kernel():
-    with open(os.path.join(native.CSRC, "dense_isect.cu")) as fh:
-        src = fh.read()
-    consts = dict(re.findall(r"constexpr (?:float|int) (k\w+) = ([^;]+);", src))
-    assert consts["kMargin"] == "1.0f + 0x1p-20f" and dc.MARGIN == 1.0 + 2.0**-20
-    assert consts["kMinNormal"] == "0x1p-126f" and dc.MIN_NORMAL == 2.0**-126
-    assert np.float32(dc.MARGIN) == dc.MARGIN  # exact in float32
-    # the replay packs live rays into warps as the kernel the wrapper launches
-    slots = re.search(r"return launch_isect<(\d+), true>\(", src[src.index("int pim_dense_isect("):])
-    assert int(slots.group(1)) * int(consts["kIsectThreads"]) == dc.TILE_RAYS
-
-
-@st.composite
-def _quotients(draw):
-    """(num, den, lim): arbitrary float32 values, and num within a few ulp
-    of lim * den, where the skip's margin is tight."""
-    num = draw(arrays(np.float32, M, elements=st.floats(**F32)))
-    den = draw(arrays(np.float32, M, elements=st.floats(**F32)))
-    lim = draw(arrays(np.float32, M, elements=st.floats(min_value=0.0, exclude_min=True,
-                                                        max_value=_f32(3e38), width=32)))
-    near = draw(arrays(np.float32, M, elements=st.floats(_f32(-1e-5), _f32(1e-5), width=32)))
-    close = draw(arrays(np.bool_, M))
+def _numpy_walk(rows, ro, rd, t_far):
+    """K1 in float32 numpy, one op at a time in the kernels' order: walk
+    the rows in index order, accept t < min(t_far, best t)."""
+    n = ro.shape[1]
+    lim = np.minimum(np.broadcast_to(np.float32(t_far), (n,)), np.float32(3e38))
+    best = np.full(n, -1, np.int32)
+    live = lim > 0
     with np.errstate(all="ignore"):
-        tight = (lim.astype(np.float64) * den * (1.0 + near)).astype(np.float32)
-    return np.where(close, tight, num), den, lim
-
-
-@settings(max_examples=400, deadline=None)
-@given(_quotients(), st.sampled_from([0.0, 1e-3, -1.0]))
-def test_may_pass_is_false_only_where_the_quotient_fails(q, t_near):
-    num, den, lim = (_t(x) for x in q)
-    t = num / den  # the kernel's IEEE division
-    passes = (t > t_near) & (t < lim)
-    assert not bool((passes & ~dc.may_pass(num, den, lim, t_near >= 0.0)).any())
-
-
-@settings(max_examples=300, deadline=None)
-@given(arrays(np.float32, (1, 12), elements=st.floats(-1e3, 1e3, width=32)),
-       arrays(np.float32, (6, M), elements=st.floats(-1e2, 1e2, width=32)),
-       arrays(np.float32, M, elements=st.floats(_f32(1e-6), 1e6, width=32)))
-def test_may_pass_never_skips_a_test_that_passes(row, ray, lim):
-    rows, lim = _t(row), _t(lim)
-    ro, rd = V3(*(_t(c) for c in ray[:3])), V3(*(_t(c) for c in ray[3:]))
-    t, ok = dk._bw_test_plain(rows, ro, rd, 0.0)
-    nx, ny, nz, d = (rows[:, k] for k in range(4))
-    den = nx * rd.x + ny * rd.y + nz * rd.z
-    num = d - (nx * ro.x + ny * ro.y + nz * ro.z)
-    passes = ok[0] & (t[0] < lim)
-    assert not bool((passes & ~dc.may_pass(num, den, lim, True)).any())
-
-
-def _seeded_rays(n, seed):
-    rs = np.random.default_rng(seed)
-    ro = rs.uniform(-4.9, 4.9, (3, n)).astype(np.float32)
-    d = rs.normal(size=(3, n))
-    rd = (d / np.linalg.norm(d, axis=0)).astype(np.float32)
-    t_far = np.where(rs.random(n) < 0.1, 0.0, 1e6).astype(np.float32)
-    t_far[n // 2 : n // 2 + 64] = 0.0  # two dead warps
-    return V3(*(_t(c) for c in ro)), V3(*(_t(c) for c in rd)), _t(t_far)
+        for j, r in enumerate(rows):
+            den = r[0] * rd[0] + r[1] * rd[1] + r[2] * rd[2]
+            num = r[3] - (r[0] * ro[0] + r[1] * ro[1] + r[2] * ro[2])
+            t = num / den
+            p = [ro[k] + t * rd[k] for k in range(3)]
+            u = r[4] * p[0] + r[5] * p[1] + r[6] * p[2] + r[7]
+            v = r[8] * p[0] + r[9] * p[1] + r[10] * p[2] + r[11]
+            acc = live & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 0) & (t < lim)
+            best = np.where(acc, j, best)
+            lim = np.where(acc, t, lim)
+    return np.where(best >= 0, lim, np.float32(-1.0)).astype(np.float32), best
 
 
 @pytest.fixture(scope="module")
@@ -120,26 +63,25 @@ def _camera_rays(n_side):
     return ro, rd, RCP_EPS
 
 
-@pytest.mark.parametrize("case", ["seeded", "camera", "tie"])
-def test_walk_replay_equals_the_plain_version(cornell, case):
-    tris12 = cornell[1].tris12
-    if case == "seeded":
-        ro, rd, t_far = _seeded_rays(2048, 5)
-    elif case == "camera":
-        ro, rd, t_far = _camera_rays(32)
-    else:
-        rows, o, d, tf = dc.tie_scene(10, 30, 2048, seed=21)
-        assert rows.shape == (512, 12) and not rows[300:].any()  # two chunks, padded
-        assert (tf[:32] == 0.0).all() and (o[:, 32:64] == o[:, 32:33]).all()
-        tris12, t_far = _t(rows), _t(tf)
-        ro, rd = V3(*(_t(c) for c in o)), V3(*(_t(c) for c in d))
-    walk = dc.walk_skips(tris12, ro, rd, 0.0, t_far)
-    t, tri = dk.dense_isect_plain(tris12, ro, rd, 0.0, t_far)
-    assert torch.equal(walk["tri"], tri) and torch.equal(walk["t"].view(torch.int32),
-                                                         t.view(torch.int32))
-    assert walk["passed_in_skipped"] == 0
-    assert 0 < walk["skipped"] < walk["tests"]
-    assert (tri >= 0).float().mean() > 0.5
+@pytest.mark.parametrize("scalar_t_far", [False, True])
+def test_tie_scene_keeps_the_lowest_row(scalar_t_far):
+    rows, ro, rd, t_far = dc.tie_scene(10, 30, 2048, seed=21)
+    assert rows.shape == (512, 12) and not rows[300:].any()  # two chunks, padded
+    assert (t_far[:32] == 0.0).all() and (ro[:, 32:64] == ro[:, 32:33]).all()
+    tf = np.float32(1e6) if scalar_t_far else t_far
+    t, tri = dk.dense_isect_plain(_t(rows), V3(*(_t(c) for c in ro)), V3(*(_t(c) for c in rd)),
+                                  0.0, float(tf) if scalar_t_far else _t(tf))
+    want_t, want_tri = _numpy_walk(rows, ro, rd, tf)
+    np.testing.assert_array_equal(tri.numpy(), want_tri)
+    np.testing.assert_array_equal(t.numpy().view(np.int32), want_t.view(np.int32))
+    # the rays meet copies: the same t in several rows, of which the first wins
+    t_all, ok = dk._bw_test_plain(_t(rows), V3(*(_t(c) for c in ro)),
+                                  V3(*(_t(c) for c in rd)), 0.0)
+    hit = tri.numpy() >= 0
+    ties = ((t_all == t.unsqueeze(0)) & ok).sum(dim=0).numpy()
+    assert hit.mean() > 0.5 and (ties[hit] > 1).mean() > 0.5
+    if not scalar_t_far:
+        assert (tri.numpy()[:32] == -1).all() and (t.numpy()[:32] == -1.0).all()
 
 
 def test_main_path_calls_record_sample_0(cornell):
