@@ -38,7 +38,10 @@ namespace {
 
 constexpr int kRowFloats = 12;
 constexpr int kTriChunk = 256;  // 12 KB of shared memory per block
-constexpr int kThreads = 128;  // K2
+constexpr int kThreads = 128;    // K2's block
+constexpr int kBlock = 512;      // K1's block: the rays whose live ones it packs
+constexpr int kWarps = kBlock / 32;
+constexpr int kMinBlocks = 4;    // K1 blocks resident an SM (<= 32 registers)
 constexpr float kBig = 3.0e38f;
 
 struct Ray {
@@ -114,9 +117,8 @@ __device__ __forceinline__ void stage_rows4(float4* s_rows, const float* __restr
 // lanes); its limit `lim` starts at min(t_far, kBig) and becomes the t of
 // each accepted hit, so one compare t < lim stands for the reference's
 // t < t_far && t < best_t.  The rows are staged once per block when they
-// fit in one chunk, and the grid holds no more blocks than stay resident.
-// kMinBlocks > 0 caps the registers so that many blocks stay resident.
-template <int kBlock, int kMinBlocks>
+// fit in one chunk, and the grid holds no more blocks than stay resident:
+// kMinBlocks blocks an SM, which caps the registers at 32 a thread.
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 dense_isect_kernel(const float* __restrict__ tris, int ntri, const float* __restrict__ rox,
                    const float* __restrict__ roy, const float* __restrict__ roz,
@@ -124,7 +126,6 @@ dense_isect_kernel(const float* __restrict__ tris, int ntri, const float* __rest
                    const float* __restrict__ rdz, float tnear, const float* __restrict__ tfar,
                    float tfar_all, int n, float* __restrict__ t_out,
                    int* __restrict__ tri_out) {
-  constexpr int kWarps = kBlock / 32;
   __shared__ float4 s_rows[kTriChunk * 3];
   __shared__ int s_live[kBlock];
   __shared__ int s_base[kWarps + 1];
@@ -159,7 +160,8 @@ dense_isect_kernel(const float* __restrict__ tris, int ntri, const float* __rest
     __syncthreads();
     const int count = s_base[kWarps];
     const bool warp_live = warp * 32 < count;  // its lane 0 holds a ray
-    const int r = warp_live ? s_live[threadIdx.x < count ? threadIdx.x : warp * 32] : 0;
+    const int q = threadIdx.x;
+    const int r = warp_live ? s_live[q < count ? q : warp * 32] : 0;
     float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f, lim = 0.0f;
     if (warp_live) {
       ox = rox[r];
@@ -199,33 +201,11 @@ dense_isect_kernel(const float* __restrict__ tris, int ntri, const float* __rest
         }
       }
     }
-    if (static_cast<int>(threadIdx.x) < count) {
+    if (q < count) {
       t_out[r] = best >= 0 ? lim : -1.0f;
       tri_out[r] = best;
     }
   }
-}
-
-// grid.x: no more blocks than the ray tiles, nor than stay resident.
-template <int kBlock, int kMinBlocks>
-int launch_isect(const float* tris, int ntri, const float* rox, const float* roy,
-                 const float* roz, const float* rdx, const float* rdy, const float* rdz,
-                 float tnear, const float* tfar, float tfar_all, int n, float* t_out,
-                 int* tri_out, cudaStream_t stream) {
-  auto kernel = dense_isect_kernel<kBlock, kMinBlocks>;
-  static int resident = 0;
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, 0);
-    resident = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  const int tiles = (n + kBlock - 1) / kBlock;
-  const int grid = tiles < resident ? (tiles > 0 ? tiles : 1) : resident;
-  kernel<<<grid, kBlock, 0, stream>>>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar,
-                                      tfar_all, n, t_out, tri_out);
-  return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -269,32 +249,24 @@ dense_anyhit_kernel(const float* __restrict__ tris, int ntri, const float* __res
 
 extern "C" {
 
+// grid.x: no more blocks than the ray tiles, nor than stay resident.
 int pim_dense_isect(const float* tris, int ntri, const float* rox, const float* roy,
                     const float* roz, const float* rdx, const float* rdy, const float* rdz,
                     float tnear, const float* tfar, float tfar_all, int n, float* t_out,
                     int* tri_out, void* stream) {
-  return launch_isect<512, 4>(tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar, tfar_all, n,
-                              t_out, tri_out, static_cast<cudaStream_t>(stream));
-}
-
-// K1 in one of its measured forms: 0, blocks of 128; 1, of 512; 2, of 512
-// at <= 32 registers; 3, of 256 at <= 32 registers; 4, of 1024 at <= 32.
-int pim_dense_isect_form(const float* tris, int ntri, const float* rox, const float* roy,
-                         const float* roz, const float* rdx, const float* rdy, const float* rdz,
-                         float tnear, const float* tfar, float tfar_all, int n, float* t_out,
-                         int* tri_out, int form, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-#define PIM_K1_ARGS tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar, tfar_all, n, t_out, \
-                    tri_out, s
-  switch (form) {
-    case 0: return launch_isect<128, 0>(PIM_K1_ARGS);
-    case 1: return launch_isect<512, 0>(PIM_K1_ARGS);
-    case 2: return launch_isect<512, 4>(PIM_K1_ARGS);
-    case 3: return launch_isect<256, 8>(PIM_K1_ARGS);
-    case 4: return launch_isect<1024, 2>(PIM_K1_ARGS);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dense_isect_kernel, kBlock, 0);
+    resident = sms * (per_sm > 0 ? per_sm : 1);
   }
-#undef PIM_K1_ARGS
+  const int tiles = (n + kBlock - 1) / kBlock;
+  const int grid = tiles < resident ? (tiles > 0 ? tiles : 1) : resident;
+  dense_isect_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      tris, ntri, rox, roy, roz, rdx, rdy, rdz, tnear, tfar, tfar_all, n, t_out, tri_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int pim_dense_anyhit(const float* tris, int ntri, const float* rox, const float* roy,

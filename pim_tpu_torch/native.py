@@ -133,9 +133,6 @@ def load() -> ctypes.CDLL:
         ray_args = [p, i] + [p] * 6 + [f, p, f]
         lib.pim_dense_isect.argtypes = ray_args + [i, p, p, p]
         lib.pim_dense_isect.restype = i
-        # ... n, t, tri, the form, stream
-        lib.pim_dense_isect_form.argtypes = ray_args + [i, p, p, i, p]
-        lib.pim_dense_isect_form.restype = i
         lib.pim_dense_anyhit.argtypes = ray_args + [i, p, p]
         lib.pim_dense_anyhit.restype = i
         # table (or gradient), f, t, idx, n, out (or gradient table), the

@@ -1,7 +1,7 @@
 """K1 (and K2 beside it) timed on seeded random rays and on the Cornell
 main path's own rays, on a CUDA device.
 
-    python -m pim_tpu_torch.tools.dense_variants [--forms] [--out FILE]
+    python -m pim_tpu_torch.tools.dense_variants [--out FILE]
 
 Builds the Cornell scene on the card and records, with
 `dense_check.main_path_calls`, the K1 and K2 calls of sample 0 of one
@@ -10,16 +10,11 @@ bounce).  Beside them it makes 262,144 seeded random rays inside the box,
 ~10% of them dead and one 2048-ray run all dead, with t_far 1e6 (K1) or 3
 (K2).  On each it holds the wrapper bit for bit against the plain version
 and times it (device ms a call: DEVICE_RUNS calls queued behind a GPU
-sleep, the median of BATCHES).  With `--forms` it also launches every
-form of K1 (FORMS: blocks of 128 to 1024 threads, each packing the live
-rays of as many rays, with and without a cap on registers) through the
-library's C interface, holds each bit for bit against the wrapper and
-times it.
+sleep, the median of BATCHES).
 
 It drives only the package's wrappers and plain versions, so it also times
 an older tree of the package, for a comparison of two trees in turns in one
-run on the card: run it as a file with that tree first on the path (no
-`--forms` there),
+run on the card: run it as a file with that tree first on the path,
 
     PYTHONPATH=OLD_TREE python pim_tpu_torch/tools/dense_variants.py
 
@@ -41,9 +36,6 @@ import torch
 
 N = 262_144
 SEED = 1234
-# pim_dense_isect_form: (threads a block, register cap)
-FORMS = {0: "128", 1: "512", 2: "512 at <= 32 registers", 3: "256 at <= 32 registers",
-         4: "1024 at <= 32 registers"}
 
 
 def _dense_check():
@@ -75,28 +67,6 @@ def random_rays(dev, seed: int = SEED):
     return V3(*(cuda(c) for c in ro)), V3(*(cuda(c) for c in d)), cuda(t_far)
 
 
-def form_launcher(tris12, ro, rd, t_near, t_far, form: int):
-    """fn() -> (t, tri) of K1 in one form, launched through the C interface
-    (no launch is counted)."""
-    from pim_tpu_torch import native
-    from pim_tpu_torch.render.dense_kernels import ray_args
-
-    lib = native.load()
-    dev = tris12.device
-    n, args = ray_args(ro, rd, t_near, t_far, "dense_variants", dev)
-    s = native.stream_ptr(dev)
-
-    def run():
-        t = torch.empty((n,), dtype=torch.float32, device=dev)
-        tri = torch.empty((n,), dtype=torch.int32, device=dev)
-        native.check(lib, lib.pim_dense_isect_form(tris12.data_ptr(), tris12.shape[0], *args, n,
-                                                   t.data_ptr(), tri.data_ptr(), form, s),
-                     "dense_isect_form")
-        return t, tri
-
-    return run
-
-
 def same_bits(got, want) -> bool:
     return all(a.shape == b.shape and bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
                for a, b in zip(got, want))
@@ -108,7 +78,6 @@ def main(argv=None) -> None:
     from pim_tpu_torch.tools.fetch_variants import queued_ms
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--forms", action="store_true", help="time every form of K1")
     ap.add_argument("--out", default=None, help="JSON file for every number")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -144,17 +113,6 @@ def main(argv=None) -> None:
               f"{statistics.median(ms):.4f} ms {ms}")
         if not same:
             raise AssertionError(f"K1 {label} differs from its plain version")
-        if args.forms:
-            row["forms"] = {}
-            for form, name in FORMS.items():
-                run = form_launcher(rows, o, d, t_near, tf, form)
-                eq = same_bits(run(), got)
-                fms = queued_ms(run)
-                row["forms"][name] = dict(equal=eq, ms=fms)
-                print(f"  blocks of {name}: bitwise equal {eq}; {statistics.median(fms):.4f} ms "
-                      f"{fms}")
-                if not eq:
-                    raise AssertionError(f"K1 {label}: form {name} differs")
         result["k1"].append(row)
     for label, rows, o, d, t_near, tf in k2_cases:
         got = dk.dense_anyhit(rows, o, d, t_near, tf)
