@@ -333,27 +333,6 @@ def _bits_equal(a, b) -> bool:
     return a.shape == b.shape and bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
 
 
-def _seeded_rays(dev):
-    """262,144 seeded rays inside the box; ~10% dead lanes plus one fully
-    dead 2048-ray run."""
-    import numpy as np
-    import torch
-
-    from pim_tpu_torch.math.vec3 import V3
-
-    rs = np.random.default_rng(1234)
-    ro = rs.uniform(-4.9, 4.9, (3, N_RAYS)).astype(np.float32)
-    d = rs.normal(size=(3, N_RAYS))
-    d = (d / np.linalg.norm(d, axis=0, keepdims=True)).astype(np.float32)
-    t_far = np.where(rs.random(N_RAYS) < 0.1, 0.0, 1e6).astype(np.float32)
-    t_far[5 * 2048 : 6 * 2048] = 0.0
-
-    def cuda(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-
-    return V3(*(cuda(c) for c in ro)), V3(*(cuda(c) for c in d)), cuda(t_far)
-
-
 def check_kernels(dev, cpu_scene):
     """K1/K2/K3 against their plain versions on the card."""
     import numpy as np
@@ -362,10 +341,11 @@ def check_kernels(dev, cpu_scene):
     from pim_tpu_torch.math.vec3 import RCP_EPS
     from pim_tpu_torch.render import dense_kernels as dk
     from pim_tpu_torch.render.lights import make_light_table
+    from pim_tpu_torch.tools.dense_check import random_rays
 
     meta, arrays, lights = cpu_scene
     tris12 = arrays.tris12.to(dev)
-    ro, rd, t_far = _seeded_rays(dev)
+    ro, rd, t_far = random_rays(dev)
     dead = t_far <= 0.0
     live = int((~dead).sum())
     n_tri = meta.tri_count

@@ -5,30 +5,47 @@
 // :_anyhit_kernel (K2), reached through intersect_pallas_raw and
 // occluded_pallas.
 //
-// What bounds it on this card: arithmetic.  Each (ray, tri) test is about
-// 20 float32 operations plus one IEEE division; a ray reads 32 bytes and
-// writes 8, while the triangle rows (Tpad x 12 floats, 5.4 KB for the
-// Cornell box) are read by every ray.  At 262,144 rays x 112 tris a call is
-// ~0.6 GFLOP against ~10 MB of device memory traffic.
+// What bounds it on this card (K1): issue slots.  With --fmad=false every
+// product and sum is an instruction of its own, so a (ray, row) test is 15
+// products, 15 sums, the IEEE division (a reciprocal, five FMAs of its own
+// refinement, a range check and a branch to its slow path), six compares
+// and two selects: about 50 instructions by count of the source's
+// operations, at most 4 issued a cycle an SM.
+// A ray reads 28 bytes and writes 8, and the rows (Tpad x 48 bytes, 5.4 KB
+// for the Cornell box) come from shared memory as three 16-byte loads a
+// row, one address for all lanes.  The bound of 31 operations a test at
+// 67 TFLOP/s counts an FMA as two, so about twice it is the floor here.  On
+// the main path most rays are dead after the first bounces: in sample 0 of
+// a Cornell 512^2 step, 99,765 of 262,144 rays are live at bounce 1 and
+// 15,650 at bounce 3, spread over every warp.
 //
-// What the design does about it: one thread per ray keeps the ray in
-// registers and walks the triangles in index order; the triangle rows are
-// staged in shared memory in chunks of kTriChunk rows, and every thread of a
-// warp reads the same row, so each read is a shared-memory broadcast.  Rays
-// are read directly from their SoA [N] tensors (no packing or padding; the
-// ragged tail is masked).  t_near is one value for all rays (every caller
-// passes 0), and t_far is either a per-ray [N] array or, when its pointer is
-// null, one value for all rays, so no caller fills an [N] tensor with a
-// constant.  A ray with t_far <= 0 is dead and does no work; a block with no
-// live ray skips the triangle loop entirely.
+// What the design does about it: a block of kBlock = 512 threads takes 512
+// rays, writes the dead rays' results at once and packs the live ones into
+// its first warps (ballots and one scan), so dead lanes issue nothing; one
+// ray a thread walks the rows in index order with a single limit compare
+// (t < min(t_far, best t)); 32 registers a thread keep 4 blocks resident an
+// SM.  Measured (tools/dense_variants.py, NVIDIA H100 80GB HBM3, 700.00 W;
+// PERF.md): 262,144 random rays 0.0586 ms against the unpacked kernel's
+// 0.0641, the 11 K1 calls of a Cornell sample 0.2400 against 0.4361.  Two
+// or four rays a thread, and a warp's conservative skip of the division
+// and the u/v test where no lane can pass (64% of the warp tests of the
+// primary rays), cost more than they saved and were dropped.
+//
+// K2 (unchanged): one thread per ray walks the rows staged in shared
+// memory in chunks of kTriChunk rows; t_near is one value for all rays
+// (every caller passes 0), and t_far is either a per-ray [N] array or,
+// when its pointer is null, one value for all rays.  A ray with t_far <= 0
+// is dead and does no work; a block with no live ray skips the triangle
+// loop entirely.
 //
 // Exactness: the file is compiled with --fmad=false and without fast math,
 // so every product, sum and the division round as the reference's separate
 // float32 operations, in the reference's order (pallas_kernels.py:130-138).
 // Degenerate (padding) rows have n = 0, so their t is NaN and fails every
-// compare.  K1 accepts a triangle only when it is valid and t < best_t,
-// walking in increasing index, which keeps the lowest index on ties.  K2
-// keeps the reference's dead-lane result: a ray with t_far <= 0 reports 1.
+// compare.  K1 accepts a triangle only when it is valid and t < lim,
+// walking in increasing index, which keeps the lowest index on ties; a
+// dead ray reports (-1, -1).  K2 keeps the reference's dead-lane result: a
+// ray with t_far <= 0 reports 1.
 
 #include <cuda_runtime.h>
 

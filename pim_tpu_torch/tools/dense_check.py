@@ -3,8 +3,9 @@ tests/test_torch_dense_check.py and tools/dense_variants.py:
 `recorded_calls` keeps a copy of the arguments that the main path hands
 dense_isect (K1) and dense_anyhit (K2); `main_path_calls` records those of
 sample 0 of one Cornell serving step (the primary rays, then one
-closest-hit call a bounce, dead lanes carrying t_far = 0); `tie_scene`
-makes rows with coincident triangles and rays aimed at them.
+closest-hit call a bounce, dead lanes carrying t_far = 0); `random_rays`
+makes seeded rays inside the Cornell box; `tie_scene` makes rows with
+coincident triangles and rays aimed at them.
 
 Every import of the package is made inside the function that needs it, so
 tools/dense_variants.py can load this file beside an older tree of the
@@ -56,6 +57,29 @@ def main_path_calls(scene, width: int = 512, height: int = 512, bounces: int = 1
     with recorded_calls(bounces + 1) as calls:
         render_step(scene, bench_camera("cornell", width, height), width, height, bounces, 1, 0)
     return calls
+
+
+N = 262_144
+
+
+def random_rays(dev, seed: int = 1234):
+    """(ro, rd, t_far) of N seeded rays inside the Cornell box: ~10% dead
+    lanes plus the fully dead run [10240, 12288)."""
+    import numpy as np
+
+    from pim_tpu_torch.math.vec3 import V3
+
+    rs = np.random.default_rng(seed)
+    ro = rs.uniform(-4.9, 4.9, (3, N)).astype(np.float32)
+    d = rs.normal(size=(3, N))
+    d = (d / np.linalg.norm(d, axis=0, keepdims=True)).astype(np.float32)
+    t_far = np.where(rs.random(N) < 0.1, 0.0, 1e6).astype(np.float32)
+    t_far[5 * 2048 : 6 * 2048] = 0.0
+
+    def cuda(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    return V3(*(cuda(c) for c in ro)), V3(*(cuda(c) for c in d)), cuda(t_far)
 
 
 def tie_scene(distinct: int, copies: int, n: int, seed: int):

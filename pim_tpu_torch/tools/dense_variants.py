@@ -6,9 +6,8 @@ main path's own rays, on a CUDA device.
 Builds the Cornell scene on the card and records, with
 `dense_check.main_path_calls`, the K1 and K2 calls of sample 0 of one
 512^2, 10-bounce serving step (K1: the primary rays, then one call a
-bounce).  Beside them it makes 262,144 seeded random rays inside the box,
-~10% of them dead and one 2048-ray run all dead, with t_far 1e6 (K1) or 3
-(K2).  On each it holds the wrapper bit for bit against the plain version
+bounce).  Beside them it takes `dense_check.random_rays`, 262,144 seeded
+rays inside the box, with t_far 1e6 (K1) or 3 (K2).  On each it holds the wrapper bit for bit against the plain version
 and times it (device ms a call: DEVICE_RUNS calls queued behind a GPU
 sleep, the median of BATCHES).
 
@@ -34,9 +33,6 @@ import time
 
 import torch
 
-N = 262_144
-SEED = 1234
-
 
 def _dense_check():
     """tools/dense_check.py of this file's tree, loaded by its path."""
@@ -47,34 +43,10 @@ def _dense_check():
     return module
 
 
-def random_rays(dev, seed: int = SEED):
-    """(ro, rd, t_far) of N seeded rays inside the Cornell box: ~10% dead
-    lanes plus the fully dead run [10240, 12288)."""
-    import numpy as np
-
-    from pim_tpu_torch.math.vec3 import V3
-
-    rs = np.random.default_rng(seed)
-    ro = rs.uniform(-4.9, 4.9, (3, N)).astype(np.float32)
-    d = rs.normal(size=(3, N))
-    d = (d / np.linalg.norm(d, axis=0, keepdims=True)).astype(np.float32)
-    t_far = np.where(rs.random(N) < 0.1, 0.0, 1e6).astype(np.float32)
-    t_far[5 * 2048 : 6 * 2048] = 0.0
-
-    def cuda(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-
-    return V3(*(cuda(c) for c in ro)), V3(*(cuda(c) for c in d)), cuda(t_far)
-
-
-def same_bits(got, want) -> bool:
-    return all(a.shape == b.shape and bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
-               for a, b in zip(got, want))
-
-
 def main(argv=None) -> None:
     from pim_tpu_torch.app import build_cornell_scene
     from pim_tpu_torch.render import dense_kernels as dk
+    from pim_tpu_torch.tools.cluster_check import same_bits
     from pim_tpu_torch.tools.fetch_variants import queued_ms
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -95,7 +67,7 @@ def main(argv=None) -> None:
     print(f"Cornell build and sample 0 of a serving step: {time.perf_counter() - t0:.1f} s; "
           f"K1 calls {len(calls['isect'])}, K2 calls {len(calls['anyhit'])}")
     tris12 = scene[1].tris12
-    ro, rd, t_far = random_rays(dev)
+    ro, rd, t_far = dc.random_rays(dev)
     k1_cases = [("random", tris12, ro, rd, 0.0, t_far)]
     k1_cases += [(f"main {i}", *call) for i, call in enumerate(calls["isect"])]
     k2_cases = [("random", tris12, ro, rd, 0.0, torch.where(t_far > 0.0, 3.0, 0.0))]
