@@ -11,6 +11,7 @@ exits non-zero:
   3. the Cornell slice: hold K1/K2/K3 against their plain PyTorch versions
      on the card at the frame's shapes (K1/K2: 262,144 rays against the
      Cornell BW rows, about 10% dead lanes and one fully dead 2048-ray run;
+     K1 also on N - 100 of them and on three copies of them;
      K3: the three real tables and a random [48, 4096] table, indices
      including -1 and T; on the tri table also int64 indices and N - 1
      indices from an aligned and a misaligned pointer) and time both (see
@@ -338,7 +339,7 @@ def check_kernels(dev, cpu_scene):
     import numpy as np
     import torch
 
-    from pim_tpu_torch.math.vec3 import RCP_EPS
+    from pim_tpu_torch.math.vec3 import RCP_EPS, V3
     from pim_tpu_torch.render import dense_kernels as dk
     from pim_tpu_torch.render.lights import make_light_table
     from pim_tpu_torch.tools.dense_check import random_rays
@@ -376,6 +377,12 @@ def check_kernels(dev, cpu_scene):
     print(f"K1 dense_isect, one t_far for all rays: diffs={scalar_diff}")
     if scalar_diff:
         raise AssertionError(f"K1 with one t_far differs from its plain version: {scalar_diff}")
+    # a ragged last tile, and more tiles than blocks stay resident (each
+    # block then walks several tiles with its rows staged once)
+    _check_k1("seeded rays, N - 100", tris12, V3(*(c[:-100] for c in ro)),
+              V3(*(c[:-100] for c in rd)), 0.0, t_far[:-100])
+    _check_k1("seeded rays x 3", tris12, V3(*(c.repeat(3) for c in ro)),
+              V3(*(c.repeat(3) for c in rd)), 0.0, t_far.repeat(3))
     times = _time_pair("K1 time", lambda: dk.dense_isect(tris12, ro, rd, 0.0, t_far),
                        lambda: dk.dense_isect_plain(tris12, ro, rd, 0.0, t_far))
     # every live ray tests every triangle; t and tri are written
