@@ -309,6 +309,18 @@ def _bound(n_bytes: float, flops: float) -> dict:
                 bound_bytes=float(n_bytes), bound_flops=float(flops))
 
 
+def _ray_bytes(n: int, t_far) -> int:
+    """Bytes of rays a ray kernel must read: every ray's t_far where it is
+    an [n] tensor (a scalar t_far is an argument), and the origin and
+    direction of the live rays only (t_far > 0): a dead ray needs neither."""
+    import torch
+
+    if not torch.is_tensor(t_far):
+        return n * 6 * 4 if t_far > 0.0 else 0
+    live = int((t_far.expand(n) > 0.0).sum())
+    return n * 4 + live * 6 * 4
+
+
 def _row(max_abs_err: float, k, p, bound: dict, library=None) -> dict:
     """A kernel's row of the JSON report: its error against the plain
     version; the device ms per call of the kernel, its plain version and
@@ -350,7 +362,6 @@ def check_kernels(dev, cpu_scene):
     dead = t_far <= 0.0
     live = int((~dead).sum())
     n_tri = meta.tri_count
-    ray_bytes = N_RAYS * (6 * 4 + 4)  # origins, directions, t_far
     rows_bytes = n_tri * 12 * 4
     results = {}
 
@@ -388,7 +399,7 @@ def check_kernels(dev, cpu_scene):
     # every live ray tests every triangle; t and tri are written
     results["dense_isect"] = _row(
         float((t_k - t_p).abs().max()), *times,
-        _bound(ray_bytes + rows_bytes + N_RAYS * 8, live * n_tri * BW_TEST_FLOPS))
+        _bound(_ray_bytes(N_RAYS, t_far) + rows_bytes + N_RAYS * 8, live * n_tri * BW_TEST_FLOPS))
 
     # K2: any hit (shadow rays to a finite distance)
     t_far2 = torch.where(dead, 0.0, 3.0)
@@ -411,7 +422,7 @@ def check_kernels(dev, cpu_scene):
     need = int(tests[~dead].sum())
     del t_all, ok_all, blk
     results["dense_anyhit"] = _row(float((h_k - h_p).abs().max()), *times,
-                                   _bound(ray_bytes + rows_bytes + N_RAYS * 4,
+                                   _bound(_ray_bytes(N_RAYS, t_far2) + rows_bytes + N_RAYS * 4,
                                           need * BW_TEST_FLOPS))
 
     # K3: the three real tables and a random one; indices include -1 and T
@@ -631,8 +642,8 @@ def check_k1_main_path(scene) -> dict:
     for i, (tris12, ro, rd, t_near, t_far) in enumerate(calls):
         chk = _check_k1(f"main path {i}", tris12, ro, rd, t_near, t_far)
         n = ro.x.shape[0]
-        ray_bytes = n * (6 * 4 + (4 if torch.is_tensor(t_far) else 0))
-        bound = _bound(ray_bytes + n_tri * 12 * 4 + n * 8, chk["live"] * n_tri * BW_TEST_FLOPS)
+        bound = _bound(_ray_bytes(n, t_far) + n_tri * 12 * 4 + n * 8,
+                       chk["live"] * n_tri * BW_TEST_FLOPS)
 
         def kernel(tris12=tris12, ro=ro, rd=rd, t_near=t_near, t_far=t_far):
             return dk.dense_isect(tris12, ro, rd, t_near, t_far)
@@ -1037,7 +1048,7 @@ def check_cluster_pair(cl, anyhit: bool, random_args, main_args) -> dict:
         counts, err = check_cluster(f"{name} [{which}]", cl, args, anyhit)
         k = _timing(lambda: wrap(cl, ro, rd, t_near, t_far), cold=True)
         out_bytes = n * (4 if anyhit else 8)
-        bound = _bound(n * (6 * 4 + (4 if torch.is_tensor(t_far) else 0)) + cl_bytes + out_bytes,
+        bound = _bound(_ray_bytes(n, t_far) + cl_bytes + out_bytes,
                        counts["needed_tests"] * BW_TEST_FLOPS)
         if which == "random":
             sub = slice(0, PLAIN_LANES)

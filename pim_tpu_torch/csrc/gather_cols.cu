@@ -562,23 +562,9 @@ gather_texels_bwd_rows_kernel(const float* __restrict__ g, int c, int t,
   scatter_rows<int32_t, Off, kVec, true>(g, c, t, idx, kn, sum_tc);
 }
 
-template <typename Index, typename Off, bool kStaged, bool kVec, bool kClip>
-auto bwd_kernel() {
-  if constexpr (kClip) {
-    return gather_texels_bwd_kernel<Off, kStaged, kVec>;
-  } else {
-    return gather_cols_bwd_kernel<Index, Off, kStaged, kVec>;
-  }
-}
-
-template <typename Index, typename Off, bool kVec, bool kClip>
-auto bwd_rows_kernel() {
-  if constexpr (kClip) {
-    return gather_texels_bwd_rows_kernel<Off, kVec>;
-  } else {
-    return gather_cols_bwd_rows_kernel<Index, Off, kVec>;
-  }
-}
+// A backward kernel's signature; kClip picks K7-bwd's (Index is int32_t).
+template <typename Index>
+using BwdKernel = void (*)(const float*, int, int, const Index*, long long, float*);
 
 template <typename Index, typename Off, bool kStaged, bool kVec, bool kClip>
 int launch_bwd_as(const float* g, int f, int t, const Index* idx, long long n, float* grad,
@@ -586,7 +572,12 @@ int launch_bwd_as(const float* g, int f, int t, const Index* idx, long long n, f
   const long long tiles = (n + kTileLanes - 1) / kTileLanes;
   const int blocks_y = (f + kRows - 1) / kRows;
   const size_t smem = kStaged ? sizeof(float) * (f < kRows ? f : kRows) * t : 0;
-  auto kernel = bwd_kernel<Index, Off, kStaged, kVec, kClip>();
+  BwdKernel<Index> kernel;
+  if constexpr (kClip) {
+    kernel = gather_texels_bwd_kernel<Off, kStaged, kVec>;
+  } else {
+    kernel = gather_cols_bwd_kernel<Index, Off, kStaged, kVec>;
+  }
   if (const int rc = pim_gather::allow_smem(kernel, smem)) {
     return rc;
   }
@@ -604,7 +595,12 @@ int launch_bwd_rows_as(const float* g, int f, int t, const Index* idx, long long
                        cudaStream_t stream) {
   const long long tiles = (n + kTileLanes - 1) / kTileLanes;
   const dim3 grid(pim_gather::direct_blocks(tiles), (f + kRows - 1) / kRows);
-  auto kernel = bwd_rows_kernel<Index, Off, kVec, kClip>();
+  BwdKernel<Index> kernel;
+  if constexpr (kClip) {
+    kernel = gather_texels_bwd_rows_kernel<Off, kVec>;
+  } else {
+    kernel = gather_cols_bwd_rows_kernel<Index, Off, kVec>;
+  }
   kernel<<<grid, kThreads, 0, stream>>>(g, f, t, idx, n, sum_tf);
   return static_cast<int>(cudaGetLastError());
 }
