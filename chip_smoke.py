@@ -10,8 +10,10 @@ exits non-zero:
      at once, sm_90a);
   3. the Cornell slice: hold K1/K2/K3 against their plain PyTorch versions
      on the card at the frame's shapes (K1/K2: 262,144 rays against the
-     Cornell BW rows, about 10% dead lanes and one fully dead 2048-ray run;
-     K1 also on N - 100 of them and on three copies of them;
+     Cornell BW rows, about 10% dead lanes and one fully dead 2048-ray run,
+     also with one t_far for all rays, on N - 100 of them and on three
+     copies of them; K2 also in both of its forms, forced through the C
+     interface, and its dead lanes must report 1;
      K3: the three real tables and a random [48, 4096] table, indices
      including -1 and T; on the tri table also int64 indices and N - 1
      indices from an aligned and a misaligned pointer) and time both (see
@@ -21,12 +23,16 @@ exits non-zero:
      before and read just after; the mean must lie in the `cornell512`
      band of pim_tpu_torch/render/gate_bands.json and K1-K3 must have
      launched; a small frame on the card must agree with the CPU's; then
-     K1 on the main path's own rays (the calls of sample 0 of one 512^2,
-     10-bounce step: the primary rays and one call a bounce, recorded by
-     tools/dense_check.py; each timed, the primary, bounce-1 and last
-     beside the plain version) and on a tie scene (coincident triangles in
-     shuffled rows over two chunks of rows), bitwise against the plain
-     version;
+     K1 and K2 on the main path's own rays (the calls of sample 0 of one
+     512^2, 10-bounce step: K1's primary rays and one call a bounce, K2's
+     one NEE shadow-ray call a bounce, recorded by tools/dense_check.py;
+     each timed beside its bound, K1's primary, bounce-1 and last and K2's
+     first, second and last beside the plain version) and on a tie scene
+     (coincident triangles in shuffled rows over two chunks of rows);
+     K2 also on the light-grid bake's call of a Cornell build on the card
+     and on a table of 8,192 distinct rows whose rays meet their first
+     blocker in any chunk of rows; all bitwise against the plain version,
+     K2 in both forms;
   4. the e1m1 slice: its main path (the map built on the card, sky and
      light grid included, then the 512^2, 10-bounce, 1-spp-per-step frame
      for 16 steps with the exposure pass), counted as above; the frame must
@@ -354,7 +360,7 @@ def check_kernels(dev, cpu_scene):
     from pim_tpu_torch.math.vec3 import RCP_EPS, V3
     from pim_tpu_torch.render import dense_kernels as dk
     from pim_tpu_torch.render.lights import make_light_table
-    from pim_tpu_torch.tools.dense_check import random_rays
+    from pim_tpu_torch.tools.dense_check import anyhit_tests, random_rays
 
     meta, arrays, lights = cpu_scene
     tris12 = arrays.tris12.to(dev)
@@ -401,27 +407,21 @@ def check_kernels(dev, cpu_scene):
         float((t_k - t_p).abs().max()), *times,
         _bound(_ray_bytes(N_RAYS, t_far) + rows_bytes + N_RAYS * 8, live * n_tri * BW_TEST_FLOPS))
 
-    # K2: any hit (shadow rays to a finite distance)
+    # K2: any hit (shadow rays to a finite distance), in the wrapper's form
+    # and both forced forms; also one t_far for all rays, a ragged last
+    # tile and more tiles than blocks stay resident
     t_far2 = torch.where(dead, 0.0, 3.0)
-    h_k = dk.dense_anyhit(tris12, ro, rd, 0.0, t_far2)
-    h_p = dk.dense_anyhit_plain(tris12, ro, rd, 0.0, t_far2)
-    torch.cuda.synchronize()
-    flag_diff = int((h_k != h_p).sum())
-    print(f"K2 dense_anyhit: blocked={int(h_k.sum())} flag_diffs={flag_diff} "
-          f"dead_reporting_1={int(h_k[dead].sum())}/{int(dead.sum())}")
-    if flag_diff:
-        raise AssertionError(f"K2 differs from its plain version on {flag_diff} rays")
-    if not bool((h_k[dead] == 1).all()):
-        raise AssertionError("K2: a dead lane did not report 1")
+    k2_err = _check_k2("seeded rays", tris12, ro, rd, 0.0, t_far2)["max_abs_err"]
+    _check_k2("seeded rays, one t_far for all rays", tris12, ro, rd, 0.0, 3.0)
+    _check_k2("seeded rays, N - 100", tris12, V3(*(c[:-100] for c in ro)),
+              V3(*(c[:-100] for c in rd)), 0.0, t_far2[:-100])
+    _check_k2("seeded rays x 3", tris12, V3(*(c.repeat(3) for c in ro)),
+              V3(*(c.repeat(3) for c in rd)), 0.0, t_far2.repeat(3))
     times = _time_pair("K2 time", lambda: dk.dense_anyhit(tris12, ro, rd, 0.0, t_far2),
                        lambda: dk.dense_anyhit_plain(tris12, ro, rd, 0.0, t_far2))
     # a live ray needs the tests up to its first blocker in index order
-    t_all, ok_all = dk._bw_test_plain(tris12[:n_tri], ro, rd, 0.0)
-    blk = ok_all & (t_all < t_far2[None, :])
-    tests = torch.where(blk.any(dim=0), blk.to(torch.int32).argmax(dim=0) + 1, n_tri)
-    need = int(tests[~dead].sum())
-    del t_all, ok_all, blk
-    results["dense_anyhit"] = _row(float((h_k - h_p).abs().max()), *times,
+    need = int(anyhit_tests(tris12[:n_tri], ro, rd, 0.0, t_far2).sum())
+    results["dense_anyhit"] = _row(k2_err, *times,
                                    _bound(_ray_bytes(N_RAYS, t_far2) + rows_bytes + N_RAYS * 4,
                                           need * BW_TEST_FLOPS))
 
@@ -594,9 +594,11 @@ def _check_frame(fr, n_pixels: int, kernels) -> None:
             raise AssertionError(f"kernel {name} was not launched during the frame")
 
 
-K1_TIE_DISTINCT = 40  # distinct triangles of K1's tie scene
-K1_TIE_COPIES = 10    # copies of each: 400 rows, padded to 512 (two chunks of rows)
+DENSE_TIE_DISTINCT = 40  # distinct triangles of K1's and K2's tie scene
+DENSE_TIE_COPIES = 10    # copies of each: 400 rows, padded to 512 (two chunks of rows)
 K1_NAMED = {0: "primary", 1: "bounce1", BOUNCES: "last"}  # main-path calls timed with plain
+K2_NAMED = {0: "first", 1: "second", BOUNCES - 1: "last"}  # main-path calls timed with plain
+K2_WIDE_ROWS = 8192      # DENSE_CROSSOVER_TRIS: the top of the dense backend's range
 
 
 def _check_k1(label: str, tris12, ro, rd, t_near, t_far) -> dict:
@@ -618,10 +620,11 @@ def _check_k1(label: str, tris12, ro, rd, t_near, t_far) -> dict:
     return dict(live=live, max_abs_err=float((t_k - t_p).abs().max()))
 
 
-def check_k1_main_path(scene) -> dict:
-    """K1 on the Cornell main path's own rays: the calls of sample 0 of one
-    WIDTH^2, BOUNCES-bounce step (`dense_check.main_path_calls`: the
-    primary rays, then one call a bounce, dead lanes at t_far = 0), each
+def check_k1_main_path(scene, calls) -> dict:
+    """K1 on the Cornell main path's own rays: `calls`, the K1 calls of
+    sample 0 of one WIDTH^2, BOUNCES-bounce step
+    (`dense_check.main_path_calls`: the primary rays, then one call a
+    bounce, dead lanes at t_far = 0), each
     checked by `_check_k1` and timed, the K1_NAMED ones beside their plain
     version (given t_far as a tensor, which it can queue without a host
     sync); and a tie scene (coincident triangles in shuffled rows over two
@@ -635,8 +638,6 @@ def check_k1_main_path(scene) -> dict:
     from pim_tpu_torch.tools import dense_check as dc
 
     meta, arrays, _ = scene
-    calls = dc.main_path_calls(scene, WIDTH, HEIGHT, BOUNCES)["isect"]
-    torch.cuda.synchronize()
     n_tri = meta.tri_count
     out = dict(main_calls=[], main_ms_sum=0.0, main_bound_ms_sum=0.0, max_abs_err=0.0)
     for i, (tris12, ro, rd, t_near, t_far) in enumerate(calls):
@@ -667,7 +668,7 @@ def check_k1_main_path(scene) -> dict:
     print(f"K1 all {len(calls)} main-path calls of sample 0: {out['main_ms_sum']:.4f} ms device "
           f"(bound {out['main_bound_ms_sum']:.4f} ms)")
 
-    rows, ro, rd, t_far = dc.tie_scene(K1_TIE_DISTINCT, K1_TIE_COPIES, TIE_LANES, seed=21)
+    rows, ro, rd, t_far = dc.tie_scene(DENSE_TIE_DISTINCT, DENSE_TIE_COPIES, TIE_LANES, seed=21)
 
     def cuda(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(arrays.tris12.device)
@@ -677,12 +678,108 @@ def check_k1_main_path(scene) -> dict:
     return out
 
 
+def _check_k2(label: str, tris12, ro, rd, t_near, t_far) -> dict:
+    """K2 against its plain version on one call, bit for bit, through the
+    wrapper and in both forms forced through the C interface
+    (`dense_check.K2_FORMS`); dead lanes must report 1."""
+    import torch
+
+    from pim_tpu_torch.render import dense_kernels as dk
+    from pim_tpu_torch.tools.dense_check import K2_FORMS
+
+    got = dk.dense_anyhit(tris12, ro, rd, t_near, t_far)
+    plain = dk.dense_anyhit_plain(tris12, ro, rd, t_near, t_far)
+    forms = {name: dk.anyhit_launch(tris12, ro, rd, t_near, t_far, wb)
+             for name, wb in K2_FORMS.items()}
+    torch.cuda.synchronize()
+    n = ro.x.shape[0]
+    dead = torch.as_tensor(t_far, device=ro.x.device).expand(n) <= 0.0
+    equal = {"wrapper": bool(torch.equal(got, plain)),
+             **{name: bool(torch.equal(h, plain)) for name, h in forms.items()}}
+    dead_ones = bool((got[dead] == 1).all())
+    print(f"K2 dense_anyhit[{label}]: {n} rays, {n - int(dead.sum())} live, blocked "
+          f"{int(got.sum())}; bitwise equal to plain {equal}; dead lanes report 1 {dead_ones}")
+    if not all(equal.values()):
+        raise AssertionError(f"K2 [{label}] differs from its plain version: {equal}")
+    if not dead_ones:
+        raise AssertionError(f"K2 [{label}]: a dead lane did not report 1")
+    return dict(live=n - int(dead.sum()), max_abs_err=float((got - plain).abs().max()))
+
+
+def check_k2_main_path(scene, calls, dev) -> dict:
+    """K2 on the Cornell main path's own rays: `calls`, the K2 calls of
+    sample 0 of one WIDTH^2, BOUNCES-bounce step (one NEE shadow-ray call a
+    bounce, dead lanes at t_far = 0), each checked by `_check_k2` and timed
+    beside its bound (the tests each live ray needs up to its first blocker,
+    `dense_check.anyhit_tests`), the K2_NAMED ones beside their plain
+    version; the light-grid bake's call of a Cornell build on the card; a
+    tie scene (coincident triangles in shuffled rows over two chunks of
+    rows, a dead warp, a warp of one ray, a half-dead warp); and a table of
+    K2_WIDE_ROWS distinct triangles whose rays meet their first blocker in
+    any chunk of rows.  Returns the K2 row's main-path and bake keys."""
+    import numpy as np
+    import torch
+
+    from pim_tpu_torch.math.vec3 import V3
+    from pim_tpu_torch.render import dense_kernels as dk
+    from pim_tpu_torch.tools import dense_check as dc
+
+    meta, arrays, _ = scene
+    n_tri = meta.tri_count
+    rows_bytes = n_tri * 12 * 4
+    out = dict(main_calls=[], main_ms_sum=0.0, main_bound_ms_sum=0.0, max_abs_err=0.0)
+
+    def timed(label, tris12, ro, rd, t_near, t_far, with_plain):
+        chk = _check_k2(label, tris12, ro, rd, t_near, t_far)
+        n = ro.x.shape[0]
+        need = int(dc.anyhit_tests(tris12[:n_tri], ro, rd, t_near, t_far).sum())
+        bound = _bound(_ray_bytes(n, t_far) + rows_bytes + n * 4, need * BW_TEST_FLOPS)
+        k = _timing(lambda: dk.dense_anyhit(tris12, ro, rd, t_near, t_far))
+        row = dict(n=n, live=chk["live"], tests=need, ms=k["ms"], call_ms=k["call"][0],
+                   bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+        if with_plain:
+            tf = torch.as_tensor(t_far, dtype=torch.float32, device=ro.x.device).expand(n)
+            p = _timing(lambda: dk.dense_anyhit_plain(tris12, ro, rd, t_near, tf.contiguous()))
+            row["plain_ms"] = p["ms"]
+        print(f"K2 time[{label}]: kernel {_fmt(k)}"
+              + (f"; plain {row['plain_ms']:.4f} ms" if with_plain else "")
+              + f"; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, {need} tests)")
+        out["max_abs_err"] = max(out["max_abs_err"], chk["max_abs_err"])
+        return row
+
+    for i, call in enumerate(calls):
+        row = timed(f"main path {i}", *call, i in K2_NAMED)
+        if i in K2_NAMED:
+            out.update({f"main_{K2_NAMED[i]}_{key}": row[key]
+                        for key in ("ms", "call_ms", "plain_ms", "bound_ms", "live")})
+        out["main_calls"].append(dict(call=i, **row))
+        out["main_ms_sum"] += row["ms"]
+        out["main_bound_ms_sum"] += row["bound_ms"]
+    print(f"K2 all {len(calls)} main-path calls of sample 0: {out['main_ms_sum']:.4f} ms device "
+          f"(bound {out['main_bound_ms_sum']:.4f} ms)")
+    bake = dc.bake_calls(dev)
+    for i, call in enumerate(bake):
+        row = timed(f"light-grid bake {i}", *call, False)
+        out.update({f"bake_{key}": row[key] for key in ("n", "ms", "call_ms", "bound_ms")})
+
+    def cuda(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    for label, (rows, ro, rd, t_far) in (
+            ("tie scene", dc.tie_scene(DENSE_TIE_DISTINCT, DENSE_TIE_COPIES, TIE_LANES, seed=21)),
+            (f"{K2_WIDE_ROWS} distinct rows", dc.wide_scene(K2_WIDE_ROWS, TIE_LANES, seed=31))):
+        _check_k2(f"{label}, rows {rows.shape}", cuda(rows), V3(*(cuda(c) for c in ro)),
+                  V3(*(cuda(c) for c in rd)), 0.0, cuda(t_far))
+    return out
+
+
 def run_cornell(dev):
     """Phase 3; returns (kernel rows, launches of the main path)."""
     import torch
 
     from pim_tpu_torch import native
     from pim_tpu_torch.app import build_cornell_scene, render_frame
+    from pim_tpu_torch.tools import dense_check as dc
 
     cpu_scene = build_cornell_scene("cpu")
     kernels = check_kernels(dev, cpu_scene)
@@ -704,10 +801,13 @@ def run_cornell(dev):
     if not lo <= fr.mean <= hi:
         raise AssertionError(f"frame mean {fr.mean} outside the cornell512 band [{lo}, {hi}]")
     check_small_frame("cornell", _scene_to(cpu_scene, dev), cpu_scene)
-    k1 = kernels["dense_isect"]
-    main = check_k1_main_path(scene)
-    k1["max_abs_err"] = max(k1["max_abs_err"], main.pop("max_abs_err"))
-    k1.update(main)
+    calls = dc.main_path_calls(scene, WIDTH, HEIGHT, BOUNCES)
+    torch.cuda.synchronize()
+    for name, main in (("dense_isect", check_k1_main_path(scene, calls["isect"])),
+                       ("dense_anyhit", check_k2_main_path(scene, calls["anyhit"], dev))):
+        row = kernels[name]
+        row["max_abs_err"] = max(row["max_abs_err"], main.pop("max_abs_err"))
+        row.update(main)
     return kernels, launches, cpu_scene
 
 

@@ -128,40 +128,45 @@ def load() -> ctypes.CDLL:
             return _lib
         info = build()
         lib = ctypes.CDLL(info.path)
-        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        # tris, ntri, ro/rd x6, t_near, t_far (or null), t_far for all rays
-        ray_args = [p, i] + [p] * 6 + [f, p, f]
-        lib.pim_dense_isect.argtypes = ray_args + [i, p, p, p]
-        lib.pim_dense_isect.restype = i
-        lib.pim_dense_anyhit.argtypes = ray_args + [i, p, p]
-        lib.pim_dense_anyhit.restype = i
-        # table (or gradient), f, t, idx, n, out (or gradient table), the
-        # variant (staged, wide, vec), stream
-        for fn in (lib.pim_gather_cols_i32, lib.pim_gather_cols_i64, lib.pim_gather_texels,
-                   lib.pim_gather_cols_bwd_i32, lib.pim_gather_cols_bwd_i64,
-                   lib.pim_gather_texels_bwd):
-            fn.argtypes = [p, i, i, p, ll, p, i, i, i, p]
-            fn.restype = i
-        # row-major table copy (or gradient), f, t, idx, n, out (or row-major
-        # gradient table), wide, vec, stream
-        for fn in (lib.pim_gather_cols_rows_i32, lib.pim_gather_cols_rows_i64,
-                   lib.pim_gather_cols_bwd_rows_i32, lib.pim_gather_cols_bwd_rows_i64,
-                   lib.pim_gather_texels_bwd_rows):
-            fn.argtypes = [p, i, i, p, ll, p, i, i, p]
-            fn.restype = i
-        # scb, spad, clb, n_sc, tris, stride, the ray arguments, lane_loop_min
-        cluster_args = [p, i, p, i, p, i] + [p] * 6 + [f, p, f, i, i]
-        lib.pim_cluster_isect.argtypes = cluster_args + [p, p, p]
-        lib.pim_cluster_isect.restype = i
-        lib.pim_cluster_anyhit.argtypes = cluster_args + [p, p]
-        lib.pim_cluster_anyhit.restype = i
-        # texel rows, c, t, idx, tx, ty, valid, k * n, out, stream
-        lib.pim_gather_bilinear.argtypes = [p, i, i, p, p, p, p, ll, p, p]
-        lib.pim_gather_bilinear.restype = i
-        lib.pim_cuda_error_string.argtypes = [i]
-        lib.pim_cuda_error_string.restype = ctypes.c_char_p
+        bind(lib)
         _lib, _info = lib, info
         return _lib
+
+
+def bind(lib) -> None:
+    """Sets the argument and result types of every C entry point of `lib`."""
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    # tris, ntri, ro/rd x6, t_near, t_far (or null), t_far for all rays
+    ray_args = [p, i] + [p] * 6 + [f, p, f]
+    lib.pim_dense_isect.argtypes = ray_args + [i, p, p, p]
+    lib.pim_dense_isect.restype = i
+    lib.pim_dense_anyhit.argtypes = ray_args + [i, i, p, p]  # n, warp_below, out, stream
+    lib.pim_dense_anyhit.restype = i
+    # table (or gradient), f, t, idx, n, out (or gradient table), the
+    # variant (staged, wide, vec), stream
+    for fn in (lib.pim_gather_cols_i32, lib.pim_gather_cols_i64, lib.pim_gather_texels,
+               lib.pim_gather_cols_bwd_i32, lib.pim_gather_cols_bwd_i64,
+               lib.pim_gather_texels_bwd):
+        fn.argtypes = [p, i, i, p, ll, p, i, i, i, p]
+        fn.restype = i
+    # row-major table copy (or gradient), f, t, idx, n, out (or row-major
+    # gradient table), wide, vec, stream
+    for fn in (lib.pim_gather_cols_rows_i32, lib.pim_gather_cols_rows_i64,
+               lib.pim_gather_cols_bwd_rows_i32, lib.pim_gather_cols_bwd_rows_i64,
+               lib.pim_gather_texels_bwd_rows):
+        fn.argtypes = [p, i, i, p, ll, p, i, i, p]
+        fn.restype = i
+    # scb, spad, clb, n_sc, tris, stride, the ray arguments, lane_loop_min
+    cluster_args = [p, i, p, i, p, i] + [p] * 6 + [f, p, f, i, i]
+    lib.pim_cluster_isect.argtypes = cluster_args + [p, p, p]
+    lib.pim_cluster_isect.restype = i
+    lib.pim_cluster_anyhit.argtypes = cluster_args + [p, p]
+    lib.pim_cluster_anyhit.restype = i
+    # texel rows, c, t, idx, tx, ty, valid, k * n, out, stream
+    lib.pim_gather_bilinear.argtypes = [p, i, i, p, p, p, p, ll, p, p]
+    lib.pim_gather_bilinear.restype = i
+    lib.pim_cuda_error_string.argtypes = [i]
+    lib.pim_cuda_error_string.restype = ctypes.c_char_p
 
 
 def build_info() -> BuildInfo:

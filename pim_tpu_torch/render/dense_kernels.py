@@ -33,6 +33,12 @@ from pim_tpu_torch import native
 from pim_tpu_torch.math.vec3 import V3
 
 TRI_BLOCK = 256     # padding granularity of pack_tris (as the reference)
+# K2 packs the live rays of each tile of 512 rays; a tile with fewer than
+# ANYHIT_WARP_BELOW live rays runs one ray a warp, the others one ray a
+# thread (csrc/dense_isect.cu).  The flag is the same either way: 0 forces
+# one ray a thread, 513 one ray a warp.  128 took the least time over the
+# 10 K2 calls of a Cornell sample (tools/dense_variants.py --sweep).
+ANYHIT_WARP_BELOW = 128
 _PLAIN_TRI_CHUNK = 256
 _BIG = 3.0e38
 
@@ -209,15 +215,23 @@ def dense_anyhit(tris12, ro: V3, rd: V3, t_near: float, t_far):
     """K2 on [N] rays: [N] i32 flag (1 = blocked; dead rays report 1)."""
     if tris12.device.type == "cpu":
         return dense_anyhit_plain(tris12, ro, rd, t_near, t_far)
+    hit = anyhit_launch(tris12, ro, rd, t_near, t_far, ANYHIT_WARP_BELOW)
+    if hit.shape[0]:
+        native.launches["dense_anyhit"] += 1
+    return hit
+
+
+def anyhit_launch(tris12, ro: V3, rd: V3, t_near: float, t_far, warp_below: int):
+    """K2's kernel on CUDA tensors with the given warp_below, not counted:
+    the wrapper's launch, and the checks' way to force either form."""
     n, args = _ray_args(tris12, ro, rd, t_near, t_far, "dense_anyhit")
     hit = torch.empty((n,), dtype=torch.int32, device=tris12.device)
     if n == 0:
         return hit
     lib = native.load()
-    rc = lib.pim_dense_anyhit(tris12.data_ptr(), tris12.shape[0], *args, n,
+    rc = lib.pim_dense_anyhit(tris12.data_ptr(), tris12.shape[0], *args, n, warp_below,
                               hit.data_ptr(), native.stream_ptr(tris12.device))
     native.check(lib, rc, "dense_anyhit")
-    native.launches["dense_anyhit"] += 1
     return hit
 
 

@@ -10,6 +10,7 @@ inside the Pallas kernel's domain (|x| <= 3.38e38, no magnitude below
 2^-100)."""
 
 import contextlib
+import ctypes
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +28,9 @@ from pim_tpu_torch import native
 from pim_tpu_torch.math.vec3 import V3
 from pim_tpu_torch.render import dense_kernels as dk
 from pim_tpu_torch.render import gather_kernel as gk
+from pim_tpu_torch.tools import dense_check as dc
 from pim_tpu_torch.tools import prof_frame
+from pim_tpu_torch.tools.cluster_check import aimed_rays, tie_soup
 
 torch.set_num_threads(2)
 
@@ -156,6 +159,130 @@ def test_dense_anyhit_plain_matches_pallas(positions, seed, t_far_max):
     assert (flag.numpy()[t_far <= 0] == 1).all()
     occ = dk.occluded_dense(torch.from_numpy(np.array(tris)), tro, trd, 0.0, tf)
     np.testing.assert_array_equal(occ.numpy(), np.asarray(jhit))
+
+
+def _late_blocker_rows(n, seed):
+    """(rows [512, 12], ro, rd, t_far) as numpy: tie_soup's 400 triangles
+    with the first chunk's 256 moved 1000 away on every axis, so that rays
+    aimed at the base triangles meet blockers only in the second chunk."""
+    soup, base = tie_soup(40, 10, seed=seed)
+    tris = soup.reshape(-1, 3, 3).copy()
+    tris[:256] += np.float32(1000.0)
+    ro, rd, t_far = aimed_rays(base, n, seed=seed + 1)
+    return dk.pack_tris(tris.reshape(-1, 3)), ro, rd, t_far
+
+
+def _fma_flippable(rows, ro, rd, t_far):
+    """[n] bool: rays with a row whose u, v, u + v or t lies within an
+    FMA-contraction bound of its limit, where interpret mode (F5) may
+    decide a compare the other way: 4 eps times the magnitudes of the
+    terms summed, plus t's error (4 eps times its cancellation scale
+    (|d| + |n.o|) / |den|, as in test_dense_isect_plain_matches_pallas)
+    carried into u and v through U.dir and V.dir.  Float64 numpy."""
+    r = rows.astype(np.float64)[:, :, None]  # [T, 12, 1]
+    o = ro.astype(np.float64)[None]  # [1, 3, n]
+    d = rd.astype(np.float64)[None]
+    eps = 4 * np.finfo(np.float32).eps
+    nrm = r[:, 0:3]
+    with np.errstate(all="ignore"):
+        t = (r[:, 3] - (nrm * o).sum(1)) / (nrm * d).sum(1)
+        dt = (eps * (np.abs(r[:, 3]) + np.abs(nrm * o).sum(1)) / np.abs((nrm * d).sum(1))
+              + eps * np.abs(t))
+        p = o + t[:, None] * d
+
+        def bary(k):  # (u, its bound) for k = 4, (v, its bound) for k = 8
+            w, c = r[:, k : k + 3], r[:, k + 3]
+            return ((w * p).sum(1) + c,
+                    eps * (np.abs(w * p).sum(1) + np.abs(c)) + np.abs(w * d).sum(1) * dt)
+
+        (u, eu), (v, ev) = bary(4), bary(8)
+        near = ((np.abs(u) <= eu) | (np.abs(v) <= ev) | (np.abs(1.0 - u - v) <= eu + ev)
+                | (np.abs(t) <= dt) | (np.abs(np.float64(t_far)[None] - t) <= dt))
+    return near.any(axis=0)
+
+
+@pytest.mark.parametrize("scene", ["tie", "late blocker"])
+@pytest.mark.parametrize("scalar_t_far", [False, True])
+def test_dense_anyhit_plain_matches_pallas_over_two_chunks(scene, scalar_t_far):
+    """Two chunks of 256 rows: the Pallas kernel's early-exit while loop and
+    the plain version's chunk loop give the same flags, but on rays that
+    pass within the FMA-contraction bound of an edge or a limit
+    (`_fma_flippable`: the tie scene aims rays at uniform points of its
+    triangles, and a grazing one there has a cancellation scale of 1.4e5);
+    those are at most 2 of the 1,024."""
+    n = 1024
+    if scene == "tie":
+        rows, ro, rd, t_far = dc.tie_scene(40, 10, n, seed=21)
+    else:
+        rows, ro, rd, t_far = _late_blocker_rows(n, seed=41)
+    assert rows.shape == (512, 12)
+    if scalar_t_far:
+        t_far = np.full(n, 1e6, np.float32)
+    with pallas_interpret():
+        jhit = pk.occluded_pallas(jnp.asarray(rows), jnp.asarray(ro.T), jnp.asarray(rd.T),
+                                  jnp.zeros(n, jnp.float32), jnp.asarray(t_far))
+    tro, trd, tf = _torch_rays(ro, rd, t_far)
+    flag = dk.dense_anyhit(torch.from_numpy(rows), tro, trd, 0.0, 1e6 if scalar_t_far else tf)
+    assert flag.dtype == torch.int32 and flag.shape == (n,)
+    flippable = _fma_flippable(rows, ro, rd, t_far) & (t_far > 0)
+    assert flippable.sum() <= 2
+    np.testing.assert_array_equal((flag.numpy() > 0)[~flippable], np.asarray(jhit)[~flippable])
+    assert (flag.numpy()[t_far <= 0] == 1).all()
+    live = t_far > 0
+    assert flag.numpy()[live].mean() > 0.5
+    if scene == "late blocker":
+        t, ok = dk._bw_test_plain(torch.from_numpy(rows), tro, trd, 0.0)
+        blocks = (ok & (t < torch.from_numpy(t_far))).numpy()
+        assert not blocks[:256].any() and blocks[256:].any(axis=0)[live].all()
+
+
+class _FakeLib:
+    """Stands in for the kernel library: each entry point records the
+    arguments of its last call and returns 0."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __getattr__(self, name):
+        calls = self.calls
+
+        class Fn:
+            def __call__(self, *args):
+                calls[name] = args
+                return 0
+
+        fn = Fn()
+        setattr(self, name, fn)
+        return fn
+
+
+def test_anyhit_warp_below_goes_through_the_argtypes(positions, monkeypatch):
+    """The wrapper hands pim_dense_anyhit ANYHIT_WARP_BELOW as the C int
+    after n, every argument matches native.bind's argtypes, and the launch
+    counts once (meta tensors stand in for CUDA ones)."""
+    lib = _FakeLib()
+    native.bind(lib)
+    monkeypatch.setattr(native, "load", lambda: lib)
+    monkeypatch.setattr(native, "stream_ptr", lambda dev: 0)
+    monkeypatch.setitem(native.launches, "dense_anyhit", 0)
+    ro, rd, _, t_far = _rays(7, 3.0)
+    meta = torch.device("meta")
+    tro, trd, tf = (x.to(meta) if torch.is_tensor(x) else V3(*(c.to(meta) for c in x))
+                    for x in _torch_rays(ro, rd, t_far))
+    tris = torch.from_numpy(dk.pack_tris(positions)).to(meta)
+    for t_far_arg in (tf, 3.0):
+        hit = dk.dense_anyhit(tris, tro, trd, 0.0, t_far_arg)
+        assert hit.shape == (N,) and hit.dtype == torch.int32
+        args, types = lib.calls["pim_dense_anyhit"], lib.pim_dense_anyhit.argtypes
+        assert len(args) == len(types) == 15
+        for argtype, arg in zip(types, args):
+            argtype.from_param(arg)
+        assert types[11:14] == [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        assert args[11:13] == (N, dk.ANYHIT_WARP_BELOW)
+    assert native.launches["dense_anyhit"] == 2
+    # a tile holds 512 rays: 0 and 513 force the two forms
+    assert dc.K2_FORMS == {"ray a thread": 0, "ray a warp": 513}
+    assert 0 < dk.ANYHIT_WARP_BELOW <= 512
 
 
 @pytest.mark.parametrize("fn", [dk.dense_isect, dk.dense_anyhit])
