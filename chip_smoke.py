@@ -92,7 +92,20 @@ exits non-zero:
      rendering at 512^2 (the last of INVERSE_STEPS losses below 0.2x the
      first); per-group directional derivatives on the card against the CPU
      at GRAD_RES^2 (within GRAD_RTOL) and against central differences at
-     FD_RES^2 (tests/test_grad.py's eps ladder).
+     FD_RES^2 (tests/test_grad.py's eps ladder);
+  6. the engine shell (`pim_tpu_torch.app.Engine` in process, on the card,
+     one device sync a frame to time it; each path's launches counted as
+     above): `pt_test -frames 64` at 512^2, 10 bounces (its pt_gate on the
+     port's Cornell tier, pim_tpu_torch/render/pt_gate_bands.json; both
+     screenshots must decode); 16 frames of Cornell with `pt_media 1` at
+     512^2, gated by the 16-sample Cornell tier (the default medium is near
+     vacuum); the unchanged scripts/pt_test_e1m1.cmd at 128^2 by `exec`,
+     gated by the port's e1m1 tier; a dense medium (tests/test_media.py's)
+     at 32^2, 3 bounces, on the card against the CPU on Cornell (K2's
+     in-media NEE) and e1m1 (K5's); a checkpoint on the card (ckpt_save
+     after 2 frames, ckpt_load into a fresh render system, 2 more frames:
+     bit for bit the 4 frames of an uninterrupted run); and the autofocus
+     probe's one-ray K1 call, bit for bit against its plain version.
 Timing: every kernel, its plain version and its library call get `ms`, the
 device time per call: a GPU sleep holds the stream while the host queues
 DEVICE_RUNS back-to-back calls behind it between two CUDA events, and the
@@ -511,12 +524,13 @@ E1M1_KERNELS = ("cluster_isect", "cluster_anyhit", "gather_bilinear")
 TRAIN_KERNELS = ("gather_cols_bwd", "gather_texels", "gather_texels_bwd")
 # the main paths that run each kernel
 PATHS = {
-    "dense_isect": ("cornell", "cornell_train"),
-    "dense_anyhit": ("cornell", "cornell_train"),
-    "gather_cols": ("cornell", "e1m1", "e1m1_train", "cornell_train"),
-    "cluster_isect": ("e1m1", "e1m1_train"),
-    "cluster_anyhit": ("e1m1", "e1m1_train"),
-    "gather_bilinear": ("e1m1",),
+    "dense_isect": ("cornell", "cornell_train", "cornell_shell", "cornell_media_shell"),
+    "dense_anyhit": ("cornell", "cornell_train", "cornell_shell", "cornell_media_shell"),
+    "gather_cols": ("cornell", "e1m1", "e1m1_train", "cornell_train", "cornell_shell",
+                    "cornell_media_shell", "e1m1_shell"),
+    "cluster_isect": ("e1m1", "e1m1_train", "e1m1_shell"),
+    "cluster_anyhit": ("e1m1", "e1m1_train", "e1m1_shell"),
+    "gather_bilinear": ("e1m1", "e1m1_shell"),
     "gather_cols_bwd": ("e1m1_train", "cornell_train"),
     "gather_texels": ("e1m1_train",),
     "gather_texels_bwd": ("e1m1_train",),
@@ -1758,6 +1772,222 @@ def check_ad_vs_fd(name: str, scene) -> None:
             raise AssertionError(f"{name} [{group}]: the gradient is zero")
 
 
+SHELL_RES = 512          # the Cornell shell's pt_test and media frames
+SHELL_FRAMES = 64        # pt_test -frames
+MEDIA_FRAMES = 16        # the Cornell media frame's samples
+E1M1_SHELL_RES = 128     # scripts/pt_test_e1m1.cmd's documented size
+MEDIA_RES = 32           # the dense-medium card-vs-CPU frames
+MEDIA_BOUNCES = 3
+DENSE_MEDIUM = dict(constant_mfp=15.0, noise_mfp=1e9, absorption=0.2)  # tests/test_media.py:167
+CKPT_RES = 512
+SHELL_KERNELS = {"cornell_shell": CORNELL_KERNELS, "cornell_media_shell": CORNELL_KERNELS,
+                 "e1m1_shell": ("gather_cols",) + E1M1_KERNELS}
+
+
+def _run_engine(label: str, res: int, script: str, smi: str):
+    """`script` through the port's engine shell in process, on the card, one
+    device sync a frame to time it; returns (engine, launches).  Fails when
+    a deferred command failed."""
+    import statistics as st
+
+    from pim_tpu_torch import native
+    from pim_tpu_torch.app import Engine
+    from pim_tpu_torch.core.console import get_console
+
+    get_console().clear()
+    eng = Engine(width=res, height=res, device="cuda", sync_frames=True)
+    eng.init()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    rc = eng.run(script)
+    launches = dict(native.launches)
+    wall = time.perf_counter() - t0
+    gate = [m for _, tag, m in get_console().lines() if m.startswith("pt_gate")]
+    ms = eng.frame_ms[1:] or eng.frame_ms
+    print(f"{label}: {eng.frame} frames, {eng.render.sample_count} samples, {wall:.1f} s; "
+          f"ms/frame median {st.median(ms):.3f} (min {min(ms):.3f}, max {max(ms):.3f}, "
+          f"frames after the first) [{smi}]")
+    print(f"{label} launches: {launches}")
+    if gate:
+        print(f"{label} {gate[-1]}")
+    if rc != 0:
+        raise AssertionError(f"{label}: the shell run failed (exit code {rc}); see its log")
+    return eng, launches
+
+
+def _new_pngs(before: set) -> list:
+    from pim_tpu_torch.render.screenshot import read_png
+
+    pngs = sorted(set(os.listdir("screenshots")) - before)
+    for p in pngs:
+        img = read_png(os.path.join("screenshots", p))
+        if img.ndim != 3 or img.shape[2] != 3 or not img.any():
+            raise AssertionError(f"screenshot {p} does not decode to an RGB image")
+    return pngs
+
+
+def check_media_frame(name: str, card_scene, cpu_scene) -> None:
+    """A MEDIA_RES^2, MEDIA_BOUNCES-bounce frame through DENSE_MEDIUM on
+    the card against the same frame on the CPU, with check_small_frame's
+    limits."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pim_tpu_torch.app import bench_camera
+    from pim_tpu_torch.core import rng
+    from pim_tpu_torch.render.camera import generate_primary_rays
+    from pim_tpu_torch.render.integrator import trace_rays
+    from pim_tpu_torch.render.media import make_media_desc
+
+    desc = make_media_desc(**DENSE_MEDIUM)
+    cam = bench_camera(name, MEDIA_RES, MEDIA_RES)
+    t0 = time.perf_counter()
+    out = []
+    for meta, arrays, lights in (card_scene, cpu_scene):
+        meta = dataclasses.replace(meta, media_enabled=True)
+        dev = arrays.tri_table.device
+        state = rng.make_state(torch.arange(MEDIA_RES * MEDIA_RES, device=dev), 0)
+        state, ro, rd = generate_primary_rays(cam, MEDIA_RES, MEDIA_RES, state)
+        res = trace_rays(meta, arrays, lights, ro, rd, state, MEDIA_BOUNCES, media_desc=desc)
+        out.append(res.color.cpu().numpy())
+    gpu, cpu = out
+    close = np.all(np.isclose(gpu, cpu, rtol=1e-4, atol=1e-5), axis=-1).mean()
+    rel = abs(gpu.mean() - cpu.mean()) / cpu.mean()
+    print(f"{name} dense-medium frame {MEDIA_RES}^2 card vs cpu: pixels_close={close:.4f} "
+          f"mean={gpu.mean():.6f} mean_rel_diff={rel:.6f} ({time.perf_counter() - t0:.1f} s)")
+    if not np.isfinite(gpu).all() or close < 0.97 or rel > 0.02:
+        raise AssertionError(f"the card's dense-medium {name} frame disagrees with the CPU's")
+
+
+def check_checkpoint(smi: str) -> None:
+    """ckpt_save after 2 Cornell frames, ckpt_load into a fresh render
+    system, 2 more frames: bit for bit the 4 frames of an uninterrupted run."""
+    import numpy as np
+    import torch
+
+    from pim_tpu_torch.core import cvars as cv
+    from pim_tpu_torch.core.cmd import CmdStat, get_cmd_system
+    from pim_tpu_torch.render.render_system import RenderSystem
+
+    cv.cv_pt_trace.set(True)
+    cv.cv_exp_manual.set(True)
+    q = get_cmd_system()
+    q.reset()
+
+    def fresh():
+        rs = RenderSystem(width=CKPT_RES, height=CKPT_RES, device="cuda")
+        rs.init()
+        return rs
+
+    t0 = time.perf_counter()
+    rs = fresh()
+    assert q.immediate("cornell_box; teleport -4 0 4; lookat 0 -1 0") == CmdStat.OK
+    for _ in range(2):
+        rs.update()
+    if q.immediate("ckpt_save smoke") != CmdStat.OK:
+        raise AssertionError("ckpt_save failed")
+    for _ in range(2):
+        rs.update()
+    want = (rs.buffers.color.clone(), rs.lights.live.clone(), rs.dof.focal_length)
+    rs2 = fresh()
+    if q.immediate("ckpt_load smoke") != CmdStat.OK:
+        raise AssertionError("ckpt_load failed")
+    for _ in range(2):
+        rs2.update()
+    torch.cuda.synchronize()
+    same = (torch.equal(rs2.buffers.color, want[0]) and torch.equal(rs2.lights.live, want[1])
+            and rs2.dof.focal_length == want[2] and rs2.sample_count == rs.sample_count == 4)
+    diff = int((rs2.buffers.color != want[0]).sum())
+    print(f"checkpoint on the card: {CKPT_RES}^2 Cornell, 2 frames + ckpt_save + ckpt_load + "
+          f"2 frames vs 4 frames: bit-identical {same} (color diffs {diff}, mean "
+          f"{float(np.float64(rs2.buffers.color.mean().item())):.6f}; "
+          f"{time.perf_counter() - t0:.1f} s) [{smi}]")
+    if not same:
+        raise AssertionError("the resumed checkpoint differs from the uninterrupted run")
+
+
+def run_shell(dev, e1m1_scene, cornell_cpu, smi: str):
+    """Phase 6, the engine shell; returns (launches of its paths, the
+    autofocus probe's K1 check)."""
+    import numpy as np
+    import torch
+
+    from pim_tpu_torch.core import cvars as cv
+    from pim_tpu_torch.math.vec3 import RCP_EPS, V3
+    from pim_tpu_torch.render.camera import Camera, DofInfo, camera_arrays
+    from pim_tpu_torch.render.render_system import load_gate_band
+
+    import shutil
+
+    out_dir = os.path.join(ROOT, "build", "shell")
+    shutil.rmtree(out_dir, ignore_errors=True)  # this phase's own outputs only
+    os.makedirs(os.path.join(out_dir, "screenshots"))
+    cwd = os.getcwd()
+    os.chdir(out_dir)
+    try:
+        cv.cv_basedir.set(os.path.join(ROOT, "data"))
+        launches = {}
+        before = set(os.listdir("screenshots"))
+        eng, launches["cornell_shell"] = _run_engine(
+            f"cornell shell {SHELL_RES}^2 pt_test -frames {SHELL_FRAMES}", SHELL_RES,
+            f"pt_max_bounces {BOUNCES}; pt_media 0; pt_test -frames {SHELL_FRAMES}", smi)
+        pngs = _new_pngs(before)
+        band = load_gate_band(eng.render.sample_count, "cornell")
+        print(f"cornell shell: stddev={eng.render.stddev():.6f} "
+              f"mean={float(eng.render.buffers.color.mean()):.6f} band(maxstddev, meanlo, "
+              f"meanhi)={band}; screenshots {pngs}")
+        if len(pngs) < 2:
+            raise AssertionError(f"pt_test wrote {pngs}, not its two screenshots")
+        tris12 = eng.render.arrays.tris12
+
+        eng, launches["cornell_media_shell"] = _run_engine(
+            f"cornell media shell {SHELL_RES}^2 {MEDIA_FRAMES} frames", SHELL_RES,
+            "cornell_box; teleport -4 0 4; lookat 0 -1 0; pt_denoise 0; exp_manual 1; "
+            f"exp_evoffset 5; pt_media 1; pt_trace 1; wait {MEDIA_FRAMES}; pt_stddev; pt_gate; "
+            "pt_trace 0; pt_media 0; quit", smi)
+        if not eng.render.meta.media_enabled:
+            raise AssertionError("the media shell's scene was built without media")
+        print(f"cornell media shell: stddev={eng.render.stddev():.6f} "
+              f"mean={float(eng.render.buffers.color.mean()):.6f} band="
+              f"{load_gate_band(eng.render.sample_count, 'cornell')}")
+
+        before = set(os.listdir("screenshots"))
+        script = os.path.join(ROOT, "scripts", "pt_test_e1m1.cmd")
+        cv.cv_pt_media.set(False)
+        cv.cv_exp_evoffset.set(0.0)  # the script's own settings, as in a fresh process
+        eng, launches["e1m1_shell"] = _run_engine(
+            f"e1m1 shell {E1M1_SHELL_RES}^2 exec scripts/pt_test_e1m1.cmd", E1M1_SHELL_RES,
+            f'pt_max_bounces {BOUNCES}; exec "{script}"', smi)
+        print(f"e1m1 shell: stddev={eng.render.stddev():.6f} "
+              f"mean={float(eng.render.buffers.color.mean()):.6f} band="
+              f"{load_gate_band(eng.render.sample_count, 'e1m1')} backend "
+              f"{eng.render.meta.backend}; screenshots {_new_pngs(before)}")
+        for path, counts in launches.items():
+            for name in SHELL_KERNELS[path]:
+                if counts[name] <= 0:
+                    raise AssertionError(f"kernel {name} was not launched on the {path} path")
+
+        check_media_frame("cornell", _scene_to(cornell_cpu, dev), cornell_cpu)
+        check_media_frame("e1m1", e1m1_scene, _scene_to(e1m1_scene, "cpu"))
+        check_checkpoint(smi)
+
+        # the autofocus probe: one ray down the pt_test camera's view
+        cam = Camera(position=np.asarray([-4.0, 0.0, 4.0], np.float32))
+        cam.look_at([0.0, -1.0, 0.0])
+        ca = camera_arrays(cam, DofInfo(), SHELL_RES, SHELL_RES)
+
+        def one(v):
+            return torch.full((1,), float(v), dtype=torch.float32, device=dev)
+
+        probe = _check_k1("autofocus probe, one ray", tris12, V3(*(one(v) for v in ca.eye)),
+                          V3(*(one(v) for v in ca.fwd)), 0.0, RCP_EPS)
+    finally:
+        os.chdir(cwd)
+    return launches, probe
+
+
 def main() -> int:
     import torch
 
@@ -1794,6 +2024,9 @@ def main() -> int:
     t0 = time.perf_counter()
     train_kernels, train_launches = run_training(dev, cornell_cpu, e1m1_scene, main_idx)
     print(f"training phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    shell_launches, probe = run_shell(dev, e1m1_scene, cornell_cpu, smi)
+    print(f"shell phases: {time.perf_counter() - t0:.1f} s")
     # K3 runs on both paths: its row keeps the Cornell times and adds the
     # e1m1 tri table's; its error is the larger of the two checks
     e1m1_k3 = e1m1_kernels.pop("gather_cols")
@@ -1802,7 +2035,10 @@ def main() -> int:
     k3 = kernels["gather_cols"]
     k3["max_abs_err"] = max(k3["max_abs_err"], e1m1_k3.pop("max_abs_err"))
     k3.update({f"e1m1_{key}": v for key, v in e1m1_k3.items()})
-    by_path = {"cornell": cornell_launches, "e1m1": e1m1_launches, **train_launches}
+    kernels["dense_isect"]["max_abs_err"] = max(kernels["dense_isect"]["max_abs_err"],
+                                                probe["max_abs_err"])
+    by_path = {"cornell": cornell_launches, "e1m1": e1m1_launches, **train_launches,
+               **shell_launches}
     launches = {name: {p: by_path[p][name] for p in ps} for name, ps in PATHS.items()}
     for name, counts in launches.items():
         for p, count in counts.items():

@@ -1,5 +1,18 @@
-"""The progressive-frame entry point of the port: the reference bench's
-Cornell and e1m1 frames.
+"""The port's entry points: the engine shell, and the bench frames.
+
+The engine shell (`Engine`, as `pim_tpu.app`): init -> frame loop ->
+shutdown, each frame the time system, the deferred command queue and one
+progressive frame of the render system.  A batch run enqueues `--exec`'s
+commands, loops until `quit` or until the queue drains, and exits non-zero
+when a deferred command failed (a failed `pt_gate`, for one):
+
+    python -m pim_tpu_torch.app --width 512 --height 512 \
+        --exec "pt_test -frames 64"
+    python -m pim_tpu_torch.app --width 128 --height 128 \
+        --exec "exec scripts/pt_test_e1m1.cmd"
+
+Without `--exec` (or `--frames`) it renders the reference bench's Cornell
+and e1m1 frames.
 
 Counterpart of the reference's bench frame steps: build the scene, then per
 step and per sample `make_state(arange(n), step * spp + i)` ->
@@ -13,8 +26,9 @@ settings of the cvars and a fresh state, as its reference bench does.
     python -m pim_tpu_torch.app --scene e1m1 --width 512 --height 512 \
         --bounces 10 --spp 1 --steps 16 --device cuda
 
-`--device cpu` runs the same path with the kernels' plain versions; it is
-meant for tests at small sizes.
+`--device cpu` runs either mode with the kernels' plain versions; it is
+meant for tests at small sizes.  `--device cuda` (the default) with no GPU
+is an error.
 """
 
 from __future__ import annotations
@@ -22,17 +36,21 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from pim_tpu_torch import native
-from pim_tpu_torch.core import rng
+from pim_tpu_torch.core import cvars  # noqa: F401 (registers the engine cvars)
+from pim_tpu_torch.core.cmd import get_cmd_system
+from pim_tpu_torch.core.console import LogSev, con_logf, get_console
+from pim_tpu_torch.core.profiler import get_profiler, profile
+from pim_tpu_torch.core.timesys import get_timesys
 from pim_tpu_torch.geom.cornell import build_cornell_box
 from pim_tpu_torch.geom.gltf import load_gltf_scene
-from pim_tpu_torch.render.camera import Camera, CameraArrays, DofInfo, camera_arrays, generate_primary_rays
+from pim_tpu_torch.render.camera import Camera, CameraArrays, DofInfo, camera_arrays
 from pim_tpu_torch.render.exposure import ExposureParams, exposure_pass, make_exposure_state
 from pim_tpu_torch.render.integrator import (
     TraceBuffers,
@@ -40,8 +58,8 @@ from pim_tpu_torch.render.integrator import (
     accumulate,
     luminance_stddev,
     make_trace_buffers,
-    trace_rays,
 )
+from pim_tpu_torch.render.render_system import RenderSystem, trace_samples
 from pim_tpu_torch.render.scene import build_scene
 from pim_tpu_torch.render.sky import bake_sky_cubemap, earth_atmosphere
 
@@ -101,30 +119,9 @@ def bench_camera(scene_name: str, width: int, height: int) -> CameraArrays:
 def render_step(scene, cam: CameraArrays, width: int, height: int, bounces: int,
                 spp: int, step: int) -> TraceResult:
     """One progressive step of `spp` one-sample traces with sample ids
-    step*spp .. step*spp + spp-1, as the reference's frame step folds them:
-    the mean of their color, albedo and normal; the sum of their light
-    histograms, wrapped to 32 bits as the reference's uint32 sum; and
-    rays_traced, the step's total (float64, on the device)."""
-    meta, arrays, lights = scene
-    dev = arrays.tri_table.device
-    n = width * height
-    pix = torch.arange(n, dtype=torch.int64, device=dev)
-    color, albedo, normal = (torch.zeros((n, 3), dtype=torch.float32, device=dev)
-                             for _ in range(3))
-    live = torch.zeros(lights.live.shape, dtype=torch.int64, device=dev)
-    rays = torch.zeros((), dtype=torch.float64, device=dev)
-    for i in range(spp):
-        state = rng.make_state(pix, step * spp + i)
-        state, ro, rd = generate_primary_rays(cam, width, height, state)
-        res = trace_rays(meta, arrays, lights, ro, rd, state, bounces)
-        color = color + res.color
-        albedo = albedo + res.albedo
-        normal = normal + res.normal
-        live = live + res.live
-        rays = rays + res.rays_traced.to(torch.float64)
-    inv = 1.0 / spp
-    return TraceResult(color=color * inv, albedo=albedo * inv, normal=normal * inv,
-                       live=live & 0xFFFFFFFF, rays_traced=rays)
+    step*spp .. step*spp + spp-1, folded as the reference's frame step
+    folds them (`render_system.trace_samples`)."""
+    return trace_samples(scene, cam, width, height, bounces, spp, step * spp)
 
 
 @dataclass
@@ -184,21 +181,116 @@ def render_frame(scene, scene_name: str, width: int, height: int, bounces: int, 
     )
 
 
+@dataclass
+class Engine:
+    """The headless engine shell.  `sync_frames` synchronises the device at
+    the end of each frame and records the frame's wall time in `frame_ms`
+    (for measurement; the shell itself syncs only where the reference
+    does)."""
+    width: Optional[int] = None
+    height: Optional[int] = None
+    max_frames: Optional[int] = None
+    device: str = "cuda"
+    sync_frames: bool = False
+
+    render: RenderSystem = None
+    frame: int = 0
+    frame_ms: List[float] = field(default_factory=list)
+
+    def init(self) -> None:
+        from pim_tpu_torch.core.cvars import cv_con_logpath, cv_r_height, cv_r_scale, cv_r_width
+
+        get_cmd_system().reset()
+        if cv_con_logpath.get():
+            get_console().set_log_path(cv_con_logpath.get())
+        # explicit --width/--height pin the base-resolution cvars; r_scale
+        # applies on top
+        if self.width is not None:
+            cv_r_width.set(self.width)
+        if self.height is not None:
+            cv_r_height.set(self.height)
+        w = max(1, int(round(cv_r_width.get() * cv_r_scale.get())))
+        h = max(1, int(round(cv_r_height.get() * cv_r_scale.get())))
+        if self.width is None and self.height is None and w * h > (1 << 20):
+            con_logf(LogSev.Warning, "app",
+                     "no --width/--height given; cvars resolve to %dx%d (r_width*r_scale) -- "
+                     "pass --width/--height or set r_scale for faster batch runs", w, h)
+        self.render = RenderSystem(width=w, height=h, device=self.device)
+        self.render.init()
+        con_logf(LogSev.Info, "app", "pim_tpu_torch engine initialized (%dx%d, %s)", w, h,
+                 self.render.device)
+
+    def update(self) -> None:
+        t0 = time.perf_counter()
+        get_timesys().update()
+        with profile("cmd"):
+            get_cmd_system().update()
+        with profile("render"):
+            self.render.update()
+        if self.sync_frames:
+            _sync(self.render.device)
+            self.frame_ms.append((time.perf_counter() - t0) * 1e3)
+        self.frame += 1
+
+    def run(self, script: Optional[str] = None) -> int:
+        """Batch mode: enqueue a script, loop until quit or until the queue
+        drains.  Returns the exit code: 1 when a deferred command failed."""
+        cmds = get_cmd_system()
+        if script:
+            cmds.enqueue(script)
+        while not cmds.quit_requested:
+            self.update()
+            if self.max_frames is not None and self.frame >= self.max_frames:
+                break
+            if not cmds.pending() and script is not None:
+                break
+        return 1 if cmds.error_count else 0
+
+    def shutdown(self) -> None:
+        prof = get_profiler()
+        if prof.stats:
+            con_logf(LogSev.Verbose, "prof", "\n%s", prof.report())
+
+
+def _check_device(device: torch.device) -> None:
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available")
+
+
+def shell_main(args) -> int:
+    _check_device(torch.device(args.device))
+    engine = Engine(width=args.width, height=args.height, max_frames=args.frames,
+                    device=args.device)
+    engine.init()
+    rc = engine.run(args.script)
+    engine.shutdown()
+    return rc
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--exec", dest="script", default=None,
+                    help="engine shell: the command script to run (e.g. 'pt_test -frames 64')")
+    ap.add_argument("--frames", type=int, default=None,
+                    help="engine shell: stop after this many frames")
     ap.add_argument("--scene", default="cornell", choices=sorted(SCENES))
-    ap.add_argument("--width", type=int, default=512)
-    ap.add_argument("--height", type=int, default=512)
+    ap.add_argument("--width", type=int, default=None,
+                    help="default: 512 for a bench frame, the cvar r_width in the shell")
+    ap.add_argument("--height", type=int, default=None,
+                    help="default: 512 for a bench frame, the cvar r_height in the shell")
     ap.add_argument("--bounces", type=int, default=10)
     ap.add_argument("--spp", type=int, default=None,
                     help="samples per step (default: 16 for cornell, 1 for e1m1)")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.script is not None or args.frames is not None:
+        raise SystemExit(shell_main(args))
 
     device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device is available")
+    _check_device(device)
+    args.width = 512 if args.width is None else args.width
+    args.height = 512 if args.height is None else args.height
     spec = SCENES[args.scene]
     spp = spec.spp if args.spp is None else args.spp
     scene = spec.build(device)

@@ -19,6 +19,7 @@ MASK32 = 0xFFFFFFFF
 _MUL = 1664525
 _ADD = 1013904223
 _TO_FLOAT = 1.0 / (1 << 24)
+DEFAULT_SEED = 0x9E3779B9  # the reference's default stream seed (cvar pt_seed)
 
 
 class RngState(NamedTuple):
@@ -74,7 +75,7 @@ def to_float(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * _TO_FLOAT
 
 
-def make_state(pixel_id: torch.Tensor, sample_id, seed=0x9E3779B9) -> RngState:
+def make_state(pixel_id: torch.Tensor, sample_id, seed=DEFAULT_SEED) -> RngState:
     """Seed per-ray streams from (pixel_id, sample_id, seed).
 
     pixel_id: integer tensor [N] (its device is the state's); sample_id and

@@ -79,6 +79,47 @@ class Entities:
     def touch(self) -> None:
         self.modtime += 1
 
+    # --- persistence hooks (crate) -----------------------------------------
+
+    def to_crate_entry(self) -> dict:
+        return {
+            "names": list(self.names),
+            "meshes": [
+                None if m is None else {"positions": m.positions, "normals": m.normals, "uvs": m.uvs}
+                for m in self.meshes
+            ],
+            "materials": [
+                {
+                    "albedo_tex": mat.albedo_tex, "rome_tex": mat.rome_tex,
+                    "normal_tex": mat.normal_tex, "flags": int(mat.flags),
+                    "ior": mat.ior, "mean_free_path": tuple(mat.mean_free_path),
+                }
+                for mat in self.materials
+            ],
+            "translations": np.asarray(self.translations, np.float32),
+            "rotations": np.asarray(self.rotations, np.float32),
+            "scales": np.asarray(self.scales, np.float32),
+        }
+
+    @classmethod
+    def from_crate_entry(cls, entry: dict) -> "Entities":
+        ents = cls()
+        for i, name in enumerate(entry["names"]):
+            idx = ents.add(name)
+            m = entry["meshes"][i]
+            if m is not None:
+                ents.meshes[idx] = MeshData(m["positions"], m["normals"], m["uvs"])
+            md = entry["materials"][i]
+            ents.materials[idx] = Material(
+                albedo_tex=int(md["albedo_tex"]), rome_tex=int(md["rome_tex"]),
+                normal_tex=int(md["normal_tex"]), flags=int(md["flags"]),
+                ior=float(md["ior"]), mean_free_path=tuple(md["mean_free_path"]),
+            )
+            ents.translations[idx] = np.asarray(entry["translations"][i], np.float32)
+            ents.rotations[idx] = np.asarray(entry["rotations"][i], np.float32)
+            ents.scales[idx] = np.asarray(entry["scales"][i], np.float32)
+        return ents
+
 
 class FlatScene(NamedTuple):
     """World-space triangle soup + per-entity material list (host, numpy)."""

@@ -4,7 +4,8 @@ Counterpart of `pim_tpu.geom.gltf.load_gltf_scene`, with the port's own
 copies of its buffer, accessor and node-matrix helpers and of the stdlib PNG
 reader (the reference decodes through `pim_tpu.render.screenshot.read_png`;
 8-bit, no interlace).  The atlas and the texture records come out bitwise
-the reference's.
+the reference's.  The exporter `save_gltf_scene` (behind `mapgen`) is a copy
+of the reference's.
 """
 
 from __future__ import annotations
@@ -330,3 +331,257 @@ def load_gltf_scene(path: str) -> Tuple[Entities, TexturePool]:
     for root in scene.get("nodes", []):
         emit_node(root, np.eye(4), os.path.basename(path))
     return ents, pool
+
+
+# ---------------------------------------------------------------------------
+# Exporter
+# ---------------------------------------------------------------------------
+#
+# Inverse of the importer above, used to materialize procedural maps as real
+# on-disk glTF assets under data/<name>/glTF/<name>.gltf — the reference's
+# map directory convention (render_system.c:1456-1458) — so `mapload` runs
+# the full parse -> de-index -> texture-import pipeline on genuine files.
+
+def _encode_png_bytes(rgba8: np.ndarray) -> bytes:
+    import io
+    import tempfile
+
+    from pim_tpu_torch.render.screenshot import write_png
+
+    with tempfile.NamedTemporaryFile(suffix=".png", delete=False) as tf:
+        tmp = tf.name
+    try:
+        write_png(tmp, rgba8, flip_vertical=False)
+        with open(tmp, "rb") as f:
+            return f.read()
+    finally:
+        os.unlink(tmp)
+
+
+def save_gltf_scene(
+    entities, pool, path: str, binary: bool = False
+) -> None:
+    """Write (Entities, TexturePool) as glTF 2.0.
+
+    ``path`` ending in .glb (or binary=True) produces a single binary file;
+    otherwise a .gltf JSON + sibling .bin + .png textures are written.
+
+    Material encoding mirrors what load_gltf_scene reads back:
+      * 1x1 albedo -> baseColorFactor (linear); images -> sRGB-encoded PNG
+      * ROME -> roughness/metallicFactor or a G=rough/B=metal MR texture
+      * flat emission e -> emissiveFactor e^2*100 (PackEmission inverse)
+      * flags -> material-name tokens (glass/water/lava/sky)
+    """
+    from pim_tpu_torch.geom.material import MatFlag, linear_to_srgb
+
+    binary = binary or path.endswith(".glb")
+    base_dir = os.path.dirname(path) or "."
+    os.makedirs(base_dir, exist_ok=True)
+    stem = os.path.splitext(os.path.basename(path))[0]
+
+    blob = bytearray()
+    buffer_views: List[dict] = []
+    accessors: List[dict] = []
+    images: List[dict] = []
+    textures: List[dict] = []
+    samplers = [{"wrapS": 10497, "wrapT": 10497}]  # REPEAT
+
+    def push_view(data: bytes, target: Optional[int] = None) -> int:
+        while len(blob) % 4:
+            blob.append(0)
+        view = {"buffer": 0, "byteOffset": len(blob), "byteLength": len(data)}
+        if target is not None:
+            view["target"] = target
+        blob.extend(data)
+        buffer_views.append(view)
+        return len(buffer_views) - 1
+
+    def push_accessor(arr: np.ndarray, gltf_type: str, with_minmax: bool) -> int:
+        a = np.ascontiguousarray(arr, np.float32)
+        view = push_view(a.tobytes(), target=34962)
+        acc = {
+            "bufferView": view,
+            "componentType": 5126,
+            "count": int(a.shape[0]),
+            "type": gltf_type,
+        }
+        if with_minmax:
+            acc["min"] = [float(v) for v in a.min(axis=0)]
+            acc["max"] = [float(v) for v in a.max(axis=0)]
+        accessors.append(acc)
+        return len(accessors) - 1
+
+    def push_image(rgba8: np.ndarray, name: str) -> int:
+        data = _encode_png_bytes(rgba8)
+        if binary:
+            view = push_view(data)
+            images.append({"bufferView": view, "mimeType": "image/png", "name": name})
+        else:
+            fname = f"{stem}_{name}.png"
+            with open(os.path.join(base_dir, fname), "wb") as f:
+                f.write(data)
+            images.append({"uri": fname, "name": name})
+        textures.append({"sampler": 0, "source": len(images) - 1})
+        return len(textures) - 1
+
+    # --- materials (deduped by content) ------------------------------------
+    mat_json: List[dict] = []
+    mat_index: Dict[tuple, int] = {}
+    tex_exported: Dict[Tuple[int, str], int] = {}
+
+    def export_albedo(tex_id: int) -> int:
+        key = (tex_id, "albedo")
+        if key not in tex_exported:
+            img = pool.get(tex_id)
+            rgb8 = np.clip(
+                linear_to_srgb(img[..., :3]) * 255.0 + 0.5, 0, 255
+            ).astype(np.uint8)
+            a8 = np.clip(img[..., 3:4] * 255.0 + 0.5, 0, 255).astype(np.uint8)
+            tex_exported[key] = push_image(
+                np.concatenate([rgb8, a8], axis=-1), f"albedo{tex_id}"
+            )
+        return tex_exported[key]
+
+    def export_mr(tex_id: int) -> int:
+        key = (tex_id, "mr")
+        if key not in tex_exported:
+            rome = pool.get(tex_id)  # (rough, occ, metal, emission)
+            h, w = rome.shape[:2]
+            mr = np.zeros((h, w, 3), np.float32)
+            mr[..., 1] = rome[..., 0]  # G = roughness
+            mr[..., 2] = rome[..., 2]  # B = metallic
+            mr8 = np.clip(mr * 255.0 + 0.5, 0, 255).astype(np.uint8)
+            tex_exported[key] = push_image(mr8, f"mr{tex_id}")
+        return tex_exported[key]
+
+    def export_normal(tex_id: int) -> int:
+        key = (tex_id, "normal")
+        if key not in tex_exported:
+            img = pool.get(tex_id)  # xy in [-1,1], z in [0,1]
+            enc = np.concatenate(
+                [img[..., :2] * 0.5 + 0.5, img[..., 2:3]], axis=-1
+            )
+            n8 = np.clip(enc * 255.0 + 0.5, 0, 255).astype(np.uint8)
+            tex_exported[key] = push_image(n8, f"normal{tex_id}")
+        return tex_exported[key]
+
+    def material_id(mat) -> int:
+        key = (mat.albedo_tex, mat.rome_tex, mat.normal_tex, int(mat.flags), mat.ior)
+        if key in mat_index:
+            return mat_index[key]
+        flags = MatFlag(mat.flags)
+        tokens = []
+        if flags & MatFlag.REFRACTIVE:
+            tokens.append("glass")
+        if flags & MatFlag.WATER:
+            tokens.append("water")
+        if flags & MatFlag.LAVA:
+            tokens.append("lava")
+        if flags & MatFlag.SKY:
+            tokens.append("sky")
+        entry: dict = {
+            "name": "_".join(["mat", str(len(mat_json))] + tokens),
+            "doubleSided": True,
+        }
+        pbr: dict = {}
+        if mat.albedo_tex >= 0:
+            img = pool.get(mat.albedo_tex)
+            if img.shape[0] == 1 and img.shape[1] == 1:
+                pbr["baseColorFactor"] = [float(v) for v in img[0, 0]]
+            else:
+                pbr["baseColorTexture"] = {"index": export_albedo(mat.albedo_tex)}
+        emission = 0.0
+        if mat.rome_tex >= 0:
+            rome = pool.get(mat.rome_tex)
+            if rome.shape[0] == 1 and rome.shape[1] == 1:
+                r, _occ, m, e = [float(v) for v in rome[0, 0]]
+                pbr["roughnessFactor"] = r
+                pbr["metallicFactor"] = m
+                emission = e
+            else:
+                pbr["metallicRoughnessTexture"] = {"index": export_mr(mat.rome_tex)}
+                pbr["roughnessFactor"] = 1.0
+                pbr["metallicFactor"] = 1.0
+                emission = float(rome[..., 3].max())
+        if emission > 0.0:
+            # inverse of import PackEmission: e = sqrt(max/100)
+            entry["emissiveFactor"] = [emission * emission * 100.0] * 3
+        if mat.normal_tex >= 0:
+            entry["normalTexture"] = {"index": export_normal(mat.normal_tex)}
+        entry["pbrMetallicRoughness"] = pbr
+        mat_json.append(entry)
+        mat_index[key] = len(mat_json) - 1
+        return mat_index[key]
+
+    # --- meshes (deduped by MeshData identity) ------------------------------
+    mesh_json: List[dict] = []
+    mesh_cache: Dict[int, Dict[int, int]] = {}  # id(MeshData) -> {mat: mesh idx}
+
+    def mesh_id(mesh, mat_idx: int) -> int:
+        per_mat = mesh_cache.setdefault(id(mesh), {})
+        if mat_idx in per_mat:
+            return per_mat[mat_idx]
+        if id(mesh) in mesh_cache and mesh_cache[id(mesh)]:
+            # attributes already uploaded for another material: reuse accessors
+            first = mesh_json[next(iter(mesh_cache[id(mesh)].values()))]
+            attrs = dict(first["primitives"][0]["attributes"])
+        else:
+            attrs = {
+                "POSITION": push_accessor(mesh.positions, "VEC3", True),
+                "NORMAL": push_accessor(mesh.normals, "VEC3", False),
+                "TEXCOORD_0": push_accessor(mesh.uvs, "VEC2", False),
+            }
+        mesh_json.append(
+            {"primitives": [{"attributes": attrs, "material": mat_idx, "mode": 4}]}
+        )
+        per_mat[mat_idx] = len(mesh_json) - 1
+        return per_mat[mat_idx]
+
+    # --- nodes --------------------------------------------------------------
+    nodes: List[dict] = []
+    for i in range(entities.count):
+        mesh = entities.meshes[i]
+        if mesh is None or mesh.length == 0:
+            continue
+        mat_idx = material_id(entities.materials[i])
+        node = {
+            "name": entities.names[i],
+            "mesh": mesh_id(mesh, mat_idx),
+            "translation": [float(v) for v in entities.translations[i]],
+            "rotation": [float(v) for v in entities.rotations[i]],  # xyzw
+            "scale": [float(v) for v in entities.scales[i]],
+        }
+        nodes.append(node)
+
+    doc = {
+        "asset": {"version": "2.0", "generator": "pim_tpu"},
+        "scene": 0,
+        "scenes": [{"nodes": list(range(len(nodes)))}],
+        "nodes": nodes,
+        "meshes": mesh_json,
+        "materials": mat_json,
+        "accessors": accessors,
+        "bufferViews": buffer_views,
+        "samplers": samplers,
+    }
+    if images:
+        doc["images"] = images
+        doc["textures"] = textures
+
+    if binary:
+        doc["buffers"] = [{"byteLength": len(blob)}]
+        js = json.dumps(doc, separators=(",", ":")).encode()
+        js += b" " * (-len(js) % 4)
+        bin_chunk = bytes(blob) + b"\x00" * (-len(blob) % 4)
+        total = 12 + 8 + len(js) + 8 + len(bin_chunk)
+        with open(path, "wb") as f:
+            f.write(struct.pack("<III", 0x46546C67, 2, total))
+            f.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+            f.write(struct.pack("<II", len(bin_chunk), 0x004E4942) + bin_chunk)
+    else:
+        bin_name = f"{stem}.bin"
+        with open(os.path.join(base_dir, bin_name), "wb") as f:
+            f.write(bytes(blob))
+        doc["buffers"] = [{"uri": bin_name, "byteLength": len(blob)}]
+        with open(path, "w") as f:
+            json.dump(doc, f, separators=(",", ":"))

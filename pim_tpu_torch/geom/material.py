@@ -83,6 +83,20 @@ class TexturePool:
     def __len__(self) -> int:
         return len(self._images)
 
+    # --- persistence hooks (crate) ----------------------------------------
+    # Textures ride with a saved map: material records hold atlas ids, which
+    # dangle without the pool.
+
+    def to_crate_entry(self) -> dict:
+        return {"images": list(self._images)}
+
+    @classmethod
+    def from_crate_entry(cls, entry: dict) -> "TexturePool":
+        pool = cls()
+        for img in entry["images"]:
+            pool.add(np.asarray(img, np.float32))
+        return pool
+
     def pack(self) -> Tuple[np.ndarray, np.ndarray]:
         """Shelf-pack all images. Returns (atlas [H, W, 4], records [T, 4]
         int32 rows of (x0, y0, w, h))."""
@@ -122,3 +136,10 @@ class TexturePool:
 def srgb_to_linear(c: np.ndarray) -> np.ndarray:
     c = np.clip(np.asarray(c, np.float32), 0.0, 1.0)
     return np.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4).astype(np.float32)
+
+
+def linear_to_srgb(c: np.ndarray) -> np.ndarray:
+    c = np.clip(np.asarray(c, np.float32), 0.0, 1.0)
+    return np.where(
+        c <= 0.0031308, c * 12.92, 1.055 * np.power(c, 1.0 / 2.4) - 0.055
+    ).astype(np.float32)

@@ -1,8 +1,8 @@
 """Batched 1-D piecewise-constant distributions (one row per grid cell).
 
 Counterpart of `pim_tpu.math.dist1d.bake` (Dist1D_Bake semantics: zero-
-integral rows get a uniform cdf and keep a zero pdf).  `update` is not on
-the Cornell frame's path and is not ported yet.
+integral rows get a uniform cdf and keep a zero pdf) and `update` (the
+per-frame fold of the light-learning histogram).
 
     pdf  [G, N]   float32
     cdf  [G, N+1] float32
@@ -15,7 +15,10 @@ from typing import NamedTuple
 
 import torch
 
+from pim_tpu_torch.core.rng import MASK32
 from pim_tpu_torch.math.vec3 import f32
+
+_ALPHA = f32(0.9)
 
 
 class Dist1D(NamedTuple):
@@ -54,3 +57,34 @@ def bake(pdf: torch.Tensor, prev_sum=None) -> Dist1D:
     if prev_sum is None:
         prev_sum = torch.zeros((g,), dtype=torch.int64, device=pdf.device)
     return Dist1D(pdf=pdf, cdf=cdf, integral=integral, sum=prev_sum)
+
+
+def update(dist: Dist1D, live: torch.Tensor):
+    """Fold the live hit histogram into the pdf by a ratio-derived EMA:
+    rows with fewer than 30 hits stay as they are; alpha =
+    sat(sum / prev_sum * 0.9)^2 (0.5 on the first fold); the live counters
+    of the folded rows halve.  `live` holds 32-bit words in int64, and its
+    row sums wrap to 32 bits as the reference's uint32 sums do.  Returns
+    (new_dist, new_live)."""
+    live = live & MASK32
+    s = torch.sum(live, dim=-1) & MASK32  # [G]
+    active = s >= 30
+
+    s_f = s.to(torch.float32)
+    prev_f = dist.sum.to(torch.float32)
+    ratio = torch.where(prev_f > 0.0, s_f / torch.clamp_min(prev_f, 1.0), 0.0)
+    alpha_ratio = torch.clamp(ratio, 0.0, 1.0) * _ALPHA
+    alpha = torch.where(dist.sum > 0, alpha_ratio * alpha_ratio, 0.5)
+
+    scale = 1.0 / torch.clamp_min(s_f, 1.0)
+    target = live.to(torch.float32) * scale[:, None]
+    new_pdf_active = dist.pdf + (target - dist.pdf) * alpha[:, None]
+    new_pdf = torch.where(active[:, None], new_pdf_active, dist.pdf)
+
+    rebaked = bake(new_pdf, prev_sum=torch.where(active, s, dist.sum))
+    # inactive rows keep their previous cdf, pdf and integral
+    cdf = torch.where(active[:, None], rebaked.cdf, dist.cdf)
+    pdf = torch.where(active[:, None], rebaked.pdf, dist.pdf)
+    integral = torch.where(active, rebaked.integral, dist.integral)
+    new_live = torch.where(active[:, None], live >> 1, live)
+    return Dist1D(pdf=pdf, cdf=cdf, integral=integral, sum=rebaked.sum), new_live

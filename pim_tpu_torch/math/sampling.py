@@ -185,6 +185,11 @@ def sample_gauss_pixel_filter(u, v, stddev: float = 1.0):
     return torch.cos(angle) * radius, torch.sin(angle) * radius
 
 
+def sample_free_path(xi, mfp):
+    """Exponential free-path sample; mfp a float32 constant or tensor."""
+    return -torch.log(torch.clamp_min(1.0 - xi, EPS)) * mfp
+
+
 _MIE_K = f32(np.float32(3.0) / (np.float32(8.0) * np.float32(PI)))
 _RAYLEIGH_K = f32(np.float32(3.0) / (np.float32(16.0) * np.float32(PI)))
 

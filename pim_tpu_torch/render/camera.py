@@ -48,7 +48,13 @@ def quat_right(q):
 class Camera:
     position: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
     rotation: np.ndarray = field(default_factory=quat_identity)
+    z_near: float = 0.1
+    z_far: float = 500.0
     fov_y: float = 90.0  # degrees
+
+    def reset(self) -> None:
+        self.position = np.zeros(3, np.float32)
+        self.rotation = quat_identity()
 
     def basis(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         return quat_right(self.rotation), quat_up(self.rotation), quat_fwd(self.rotation)

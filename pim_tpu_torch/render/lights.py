@@ -207,11 +207,14 @@ def sample_light(meta: SceneMeta, arrays: SceneArrays, light_table, p: V3,
 
 
 def nee_light_strategy(meta: SceneMeta, arrays: SceneArrays, light_table, lut,
-                       surf: Surface, src_tri, i_dir: V3, u_sel, bu, bv, active=None):
+                       surf: Surface, src_tri, i_dir: V3, u_sel, bu, bv, active=None,
+                       transmittance_fn=None):
     """Light-strategy half of the MIS estimator: sample a light point,
     trace ONE any-hit shadow ray (K2 or K5), weight by the power heuristic
     against the BSDF pdf.  Inactive lanes get t_far = 0 (dead for the
-    kernel).  Refractive surfaces take no NEE.
+    kernel).  Refractive surfaces take no NEE.  transmittance_fn(p, dir,
+    dist) -> V3, given when media are on, scales the radiance by the
+    medium's transmittance along the shadow ray.
 
     Returns (radiance V3, LightSample); radiance is zero where invalid."""
     ls = sample_light(meta, arrays, light_table, surf.p, u_sel, bu, bv, active=active)
@@ -229,4 +232,6 @@ def nee_light_strategy(meta: SceneMeta, arrays: SceneArrays, light_table, lut,
     ok = (ls.ok & ~blocked & (src_tri != ls.tri) & (ls.lp > EPS) & (bp > EPS)
           & ~refractive)
     radiance = ls.emission * brdf_a * (w * ok.to(torch.float32))
+    if transmittance_fn is not None:
+        radiance = radiance * transmittance_fn(surf.p, ls.dir, ls.dist)
     return radiance, ls

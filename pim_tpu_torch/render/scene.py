@@ -474,14 +474,17 @@ def build_scene(
     backend: str = "auto",
     sky=None,
     sort_rays=None,
+    media_enabled: bool = False,
 ) -> Tuple[SceneMeta, SceneArrays, LightState]:
     """Entities + textures -> (meta, device arrays, light state).
 
     backend: 'auto' (choose_backend), 'dense' or 'cluster'.  sky: a
     [6, R, R, 3] radiance cube, or None: then a scene with sky surfaces
     gets a black 1-texel cube, as the reference's.  sort_rays: None
-    follows `_resolve_sort_rays`.  The light grid is baked on `device`, so
-    on the card the build already runs the intersection and fetch kernels."""
+    follows `_resolve_sort_rays`.  media_enabled: the integrator marches
+    the participating medium (render/media.py).  The light grid is baked
+    on `device`, so on the card the build already runs the intersection
+    and fetch kernels."""
     device = torch.device(device)
     flat = flatten(entities)
     tri_count = flat.mat_ids.shape[0]
@@ -523,7 +526,7 @@ def build_scene(
         cells_per_meter=float(cells_per_meter),
         has_sky=has_sky,
         has_refractive=any(m.flags & MatFlag.REFRACTIVE for m in flat.materials),
-        media_enabled=False,
+        media_enabled=bool(media_enabled),
         textured=any(
             (m.albedo_tex >= 0 and tuple(tex_rec[m.albedo_tex][2:]) != (1, 1))
             or (m.rome_tex >= 0 and tuple(tex_rec[m.rome_tex][2:]) != (1, 1))
@@ -635,3 +638,10 @@ def from_jax_scene(meta_fields: dict, arrays_np: dict, lights_np: dict,
         live=dev_t(np.asarray(lights_np["live"]).astype(np.int64), torch.int64),
     )
     return meta, arrays, lights
+
+
+def update_light_state(state: LightState) -> LightState:
+    """The per-frame fold of the live histograms into the light pdfs."""
+    d = dist1d.Dist1D(pdf=state.pdf, cdf=state.cdf, integral=state.integral, sum=state.sum)
+    d2, live2 = dist1d.update(d, state.live)
+    return LightState(pdf=d2.pdf, cdf=d2.cdf, integral=d2.integral, sum=d2.sum, live=live2)

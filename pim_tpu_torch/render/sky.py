@@ -64,6 +64,22 @@ def earth_atmosphere() -> SkyMedium:
     )
 
 
+def atmosphere_from_cvars() -> SkyMedium:
+    """The atmosphere of the sky cvars (kilometres there, metres here)."""
+    from pim_tpu_torch.core import cvars as cv
+
+    rlh = cv.cv_sky_rlh_mfp.get()
+    return SkyMedium(
+        r_crust=f32(cv.cv_sky_rad_cr.get() * 1e3),
+        r_atmos=f32(cv.cv_sky_rad_at.get()),
+        mu_r=tuple(f32(1e-3 / max(v, 1e-3)) for v in rlh[:3]),
+        rho_r=f32(1e-3 / cv.cv_sky_rlh_sh.get()),
+        mu_m=f32(1e-3 / cv.cv_sky_mie_mfp.get()),
+        rho_m=f32(1e-3 / cv.cv_sky_mie_sh.get()),
+        g_m=f32(cv.cv_sky_mie_g.get()),
+    )
+
+
 def steps_to_trips(steps: int) -> int:
     """View-march trip count for a given r_sun_steps (the reference's)."""
     return min(VIEW_STEPS * max(steps, 1) // 4, 1024)

@@ -1,6 +1,7 @@
 """Where the time of one progressive step goes, on a CUDA device.
 
-    python -m pim_tpu_torch.tools.prof_frame [--scene cornell|e1m1] [--train] [--out DIR]
+    python -m pim_tpu_torch.tools.prof_frame [--scene cornell|e1m1] [--train] [--media]
+        [--bounces N] [--out DIR]
 
 Builds the scene on the card and renders steps of its 512^2, 10-bounce
 bench frame at SPP[scene] samples each (2 for Cornell, 1 for e1m1, whose
@@ -10,6 +11,9 @@ steps also run the exposure pass): one warm-up step, WALLS untraced steps
 differentiable path (render/diff.py): 512^2, TRAIN_BOUNCES bounces, 1 spp,
 every parameter group trainable, Adam against a target rendered with the
 albedos moved (x0.8); the sky is re-baked at the scene's own bake steps.
+With `--media` the steps march the default participating medium (one
+sample a step; `--bounces` cuts the depth, since a media step launches
+~125k kernels a segment and the trace grows with them).
 From the trace it prints:
 
   - the device time of every CUDA kernel of the traced step, summed, and
@@ -112,6 +116,9 @@ def main(argv=None) -> None:
     ap.add_argument("--scene", default="cornell", choices=sorted(SPP))
     ap.add_argument("--train", action="store_true",
                     help="profile a training step of the differentiable path")
+    ap.add_argument("--media", action="store_true",
+                    help="march the default medium (render/media.py), 1 spp a step")
+    ap.add_argument("--bounces", type=int, default=BOUNCES)
     ap.add_argument("--out", default=None, help="directory for kernels.txt and summary.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -122,19 +129,23 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi)
-    spp = SPP[args.scene]
+    spp = 1 if args.media else SPP[args.scene]
     scene = SCENES[args.scene].build(dev)
+    if args.media:
+        import dataclasses
+
+        scene = (dataclasses.replace(scene[0], media_enabled=True),) + tuple(scene[1:])
     cam = bench_camera(args.scene, WIDTH, HEIGHT)
     exp_params = ExposureParams.from_cvars() if SCENES[args.scene].exposed else None
 
     def step(i: int):
-        res = render_step(scene, cam, WIDTH, HEIGHT, BOUNCES, spp, i)
+        res = render_step(scene, cam, WIDTH, HEIGHT, args.bounces, spp, i)
         if exp_params is not None:
             exposure_pass(res.color, exp_params, make_exposure_state(dev), EXPOSURE_DT)
         torch.cuda.synchronize(dev)
         return res
 
-    kind = f"{spp}-spp"
+    kind = f"{spp}-spp{' media' if args.media else ''} {args.bounces}-bounce"
     if args.train:
         step = _train_step_fn(scene, cam, dev)
         kind = f"{TRAIN_BOUNCES}-bounce training"
@@ -192,8 +203,9 @@ def main(argv=None) -> None:
         with open(os.path.join(args.out, "kernels.txt"), "w") as f:
             f.write(avgs.table(sort_by=sort_key, row_limit=80))
         summary = dict(
-            card=smi, scene=args.scene, train=args.train, width=WIDTH, height=HEIGHT,
-            bounces=TRAIN_BOUNCES if args.train else BOUNCES, spp=1 if args.train else spp,
+            card=smi, scene=args.scene, train=args.train, media=args.media, width=WIDTH,
+            height=HEIGHT, bounces=TRAIN_BOUNCES if args.train else args.bounces,
+            spp=1 if args.train else spp,
             max_memory_allocated=peak,
             untraced_walls_s=walls, traced_wall_s=traced_s,
             device_ms=device_ms, kernels=n_kernels, busy_share=busy, launches=launches,

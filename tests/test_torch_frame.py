@@ -9,8 +9,8 @@ roulette).  The image means must agree within 2% and rays_traced within
 The app's frame step at SPP_STEP samples folds them as the reference's
 frame step does: its light histogram is bit for bit the 32-bit-wrapped sum
 of the reference's per-sample histograms for the same sample ids, and its
-AOVs are the samples' mean (the pixel tolerance above).  Media raise, and
-say which queue item brings them."""
+AOVs are the samples' mean (the pixel tolerance above).  Media frames are
+held in test_torch_media.py."""
 
 import dataclasses
 import functools
@@ -29,7 +29,7 @@ from pim_tpu.render import integrator as jint
 from pim_tpu.render.scene import build_scene as jax_build_scene
 from pim_tpu_torch import app, native
 from pim_tpu_torch.core import rng
-from pim_tpu_torch.render import camera, integrator
+from pim_tpu_torch.render import camera, integrator, render_system
 from pim_tpu_torch.render.scene import from_jax_scene
 
 torch.set_num_threads(2)
@@ -189,7 +189,7 @@ def test_frame_step_wraps_the_histogram_sum_to_32_bits(scenes, monkeypatch):
                                       live=torch.full(jl.shape, int(near), dtype=torch.int64),
                                       rays_traced=torch.tensor(float(n)))
 
-    monkeypatch.setattr(app, "trace_rays", trace)
+    monkeypatch.setattr(render_system, "trace_rays", trace)
     res = app.render_step(port, _cams(4, 4)[1], 4, 4, 1, SPP_STEP, 0)
     want = np.full(jl.shape, near, np.uint32) + np.full(jl.shape, near, np.uint32)
     np.testing.assert_array_equal(res.live.numpy(), want.astype(np.int64))
@@ -205,10 +205,3 @@ def test_frame_step_means_the_samples(frame_step, aov):
     close = np.all(np.isclose(got, want, rtol=1e-4, atol=1e-5), axis=-1)
     assert close.mean() >= 0.97, close.mean()
 
-
-def test_media_error_names_the_queue_item(scenes):
-    _, (m, a, l) = scenes
-    (_, _, _), (ts, tro, trd) = _rays()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue item 19"):
-        integrator.trace_rays(dataclasses.replace(m, media_enabled=True), a, l, tro, trd, ts,
-                              BOUNCES)

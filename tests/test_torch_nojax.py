@@ -6,7 +6,7 @@ through another module) raises there.  No module of the JAX package may be
 imported at all: the port keeps its own copies of the host modules it needs
 (entities, meshes, materials, the glTF helpers, the cvar registry) and of
 the gate bands.  The port loads the e1m1 glTF there too, so its texture
-pool needs no `ml_dtypes`."""
+pool needs no `ml_dtypes`, and its engine shell runs a media pt_test."""
 
 import ast
 import json
@@ -24,13 +24,14 @@ import torch
 torch.set_num_threads(2)
 import pim_tpu_torch
 from pim_tpu_torch import app, native
-from pim_tpu_torch.core import cvar, cvars, guid, rng
-from pim_tpu_torch.geom import cornell, entities, gltf, material, mesh
-from pim_tpu_torch.math import brdf, color, dist1d, geometry, grid, sampling, vec3
-from pim_tpu_torch.render import (bsdf, camera, cluster, dense_kernels, exposure, fetch,
-                                  gather_kernel, diff, integrator, lights, raysort, scene, sky,
-                                  surface, table_gather)
-from pim_tpu_torch.tools import prof_frame, vml_first_call
+from pim_tpu_torch.core import cmd, console, crate, cvar, cvars, guid, profiler, rng, timesys
+from pim_tpu_torch.geom import cornell, entities, gltf, maps, material, mesh
+from pim_tpu_torch.math import (brdf, color, cubic_fit, dist1d, geometry, grid, noise, sampling,
+                                vec3)
+from pim_tpu_torch.render import (bsdf, camera, cluster, dense_kernels, denoise, exposure, fetch,
+                                  gather_kernel, diff, integrator, lights, media, raysort,
+                                  render_system, scene, screenshot, sky, surface, table_gather)
+from pim_tpu_torch.tools import calibrate_pt_gate, prof_frame, vml_first_call
 sc = app.build_cornell_scene("cpu")
 fr = app.render_frame(sc, "cornell", 8, 8, 2, 1, 1)
 assert fr.buffers.color.shape == (64, 3) and bool(torch.isfinite(fr.buffers.color).all())
@@ -39,6 +40,12 @@ ents, pool = gltf.load_gltf_scene(app.E1M1_GLTF)
 atlas, rec = pool.pack()
 assert atlas.shape == (128, 256, 4) and rec.shape == (71, 4) and ents.count > 0
 assert exposure.ExposureParams.from_cvars().max_cdf > 0
+import os, tempfile
+os.chdir(tempfile.mkdtemp())
+eng = app.Engine(width=8, height=8, device="cpu")
+eng.init()
+assert eng.run("pt_max_bounces 2; pt_media 1; pt_test -frames 2 -nogate") == 0
+assert eng.render.meta.media_enabled and len(os.listdir("screenshots")) == 2
 bad = sorted(m for m in sys.modules
              if m.startswith("jax.") or m.startswith("ml_dtypes.")
              or m == "pim_tpu" or m.startswith("pim_tpu."))
