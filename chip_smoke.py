@@ -105,7 +105,8 @@ exits non-zero:
      in-media NEE) and e1m1 (K5's); a checkpoint on the card (ckpt_save
      after 2 frames, ckpt_load into a fresh render system, 2 more frames:
      bit for bit the 4 frames of an uninterrupted run); and the autofocus
-     probe's one-ray K1 call, bit for bit against its plain version.
+     probe's one-ray K1 call, bit for bit against its plain version.  The
+     shell's screenshots and checkpoint go to build/shell/.
 Timing: every kernel, its plain version and its library call get `ms`, the
 device time per call: a GPU sleep holds the stream while the host queues
 DEVICE_RUNS back-to-back calls behind it between two CUDA events, and the
