@@ -147,7 +147,7 @@ WIDTH = HEIGHT = 512
 BOUNCES = 10
 SPP = 16
 STEPS = 3
-E1M1_STEPS = 16
+E1M1_STEPS = 4        # 1-spp steps of the e1m1 512^2 frame (its band is for information)
 GATE_RES = 128
 N_RAYS = WIDTH * HEIGHT
 TIMING_RUNS = 25      # walls of one call (call_ms)
@@ -159,7 +159,7 @@ PLAIN_LANES = 32768   # lanes on which the brute-force plain K4/K5 are compared
 PLAIN_RUNS = 3        # and timed
 # the differentiable path
 TRAIN_BOUNCES = 3     # make_render_fn's default
-TRAIN_STEPS = 5       # Adam steps of the e1m1 training run
+TRAIN_STEPS = 3       # Adam steps of the e1m1 training run
 INVERSE_STEPS = 20    # Adam steps of the Cornell inverse-rendering run
 TRAIN_SEED = 7
 GRAD_RES = 32         # card vs CPU gradients

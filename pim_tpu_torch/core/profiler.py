@@ -4,8 +4,8 @@ The port's copy of `pim_tpu.core.profiler` (host analog of the reference
 profiler, src/common/profiler.c:24-128): static marks per site, begin/end
 pairs forming a per-frame call tree, and EMA mean/variance statistics keyed
 by (parent-chain, name).  Device work is asynchronous, so
-`profile(name, block_on=device)` synchronises that CUDA device (or stream)
-before the mark ends, to get true wall time; marks can also open
+`profile(name, block_on=device)` synchronises that CUDA device before
+the mark ends, to get true wall time; marks can also open
 `torch.profiler.record_function` ranges for a trace.
 """
 
@@ -36,14 +36,8 @@ class ProfStat:
 
 
 def _synchronize(block_on) -> None:
-    """Wait for the device work behind `block_on`: a torch.device, a
-    device string, a torch.cuda.Stream or a tensor.  CPU work is
-    synchronous already."""
-    if isinstance(block_on, torch.cuda.Stream):
-        block_on.synchronize()
-        return
-    if isinstance(block_on, torch.Tensor):
-        block_on = block_on.device
+    """Wait for the work queued on the device `block_on` (a torch.device
+    or a device string).  CPU work is synchronous already."""
     dev = torch.device(block_on)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

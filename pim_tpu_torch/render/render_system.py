@@ -536,7 +536,7 @@ class RenderSystem:
                 if band is None:
                     con_logf(LogSev.Error, "pt",
                              "pt_gate: no calibrated '%s' band covers %d samples (derive one "
-                             "with pim_tpu_torch/tools/calibrate_pt_gate.py or pass "
+                             "with tools/calibrate_torch_pt_gate.py or pass "
                              "-maxstddev/-meanlo/-meanhi)", scene, self.sample_count)
                     return CmdStat.ERR
                 max_sd, mean_lo, mean_hi = band

@@ -31,7 +31,7 @@ from pim_tpu_torch.math import (brdf, color, cubic_fit, dist1d, geometry, grid, 
 from pim_tpu_torch.render import (bsdf, camera, cluster, dense_kernels, denoise, exposure, fetch,
                                   gather_kernel, diff, integrator, lights, media, raysort,
                                   render_system, scene, screenshot, sky, surface, table_gather)
-from pim_tpu_torch.tools import calibrate_pt_gate, prof_frame, vml_first_call
+from pim_tpu_torch.tools import prof_frame, vml_first_call
 sc = app.build_cornell_scene("cpu")
 fr = app.render_frame(sc, "cornell", 8, 8, 2, 1, 1)
 assert fr.buffers.color.shape == (64, 3) and bool(torch.isfinite(fr.buffers.color).all())
@@ -62,8 +62,26 @@ def test_port_imports_and_renders_without_jax():
     assert "NOJAX_OK" in res.stdout
 
 
+_DYNAMIC_IMPORTS = ("import_module", "__import__")
+
+
+def _dynamic_import_target(call):
+    """The module a call of `importlib.import_module` or `__import__` names:
+    its first argument when that is a string literal, else "<computed>" (a
+    name built at run time could be any package, so it is refused too)."""
+    func = call.func
+    name = func.attr if isinstance(func, ast.Attribute) else getattr(func, "id", None)
+    if name not in _DYNAMIC_IMPORTS or not call.args:
+        return None
+    arg = call.args[0]
+    if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+        return arg.value
+    return "<computed>"
+
+
 def _imported_modules(path):
-    """Every module an `import` statement of the file names (at any depth)."""
+    """Every module an `import` statement or a dynamic import call of the
+    file names (at any depth)."""
     with open(path) as fh:
         tree = ast.parse(fh.read())
     for node in ast.walk(tree):
@@ -74,6 +92,10 @@ def _imported_modules(path):
                 yield from (f"{node.module}.{a.name}" for a in node.names)
             else:
                 yield node.module
+        elif isinstance(node, ast.Call):
+            target = _dynamic_import_target(node)
+            if target is not None:
+                yield target
 
 
 def test_no_jax_or_other_pim_tpu_import_in_sources():
@@ -82,8 +104,22 @@ def test_no_jax_or_other_pim_tpu_import_in_sources():
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     offenders = [(os.path.relpath(path, ROOT), mod)
                  for path in files for mod in _imported_modules(path)
-                 if mod.split(".")[0] in ("jax", "ml_dtypes", "pim_tpu")]
+                 if mod.split(".")[0] in ("jax", "ml_dtypes", "pim_tpu", "<computed>")]
     assert not offenders, offenders
+
+
+def test_the_source_scan_sees_dynamic_imports(tmp_path):
+    """The scan above also reads `importlib.import_module` and `__import__`
+    calls, so a module cannot reach the JAX package by a name in a string."""
+    src = tmp_path / "probe.py"
+    src.write_text("import importlib\n"
+                   "PKG = 'pim_tpu'\n"
+                   "a = importlib.import_module('jax.numpy')\n"
+                   "b = importlib.import_module(f'{PKG}.render.render_system')\n"
+                   "c = __import__('pim_tpu.core.cvars')\n"
+                   "d = importlib.import_module('json')\n")
+    assert list(_imported_modules(str(src))) == [
+        "importlib", "jax.numpy", "<computed>", "pim_tpu.core.cvars", "json"]
 
 
 def test_gate_bands_are_the_reference_bands():

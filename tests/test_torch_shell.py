@@ -9,7 +9,9 @@
   the exposure state and the autofocus focal length at rtol 1e-6.
 - The display path: the tonemap at rtol 1e-6, the dithered u8 screenshot
   within 1 of the reference's on at most 0.1% of its values and equal
-  elsewhere, the denoiser at rtol 1e-5, the PNG writer and reader across
+  elsewhere (with the fitted tonemap of `r_tonemap_fit 1`, whose curve
+  each package fits from its own random population: within 1 on at most
+  3%), the denoiser at rtol 1e-5, the PNG writer and reader across
   packages, the color helpers at rtol 1e-6 (2e-6 where a power or a
   3-term matrix row compounds; 5e-5 through PQ's m2 = 78.84 power, which
   magnifies an ulp of its base 79 times), the curve fit's quality.
@@ -23,6 +25,7 @@
 """
 
 import dataclasses
+import importlib.util
 import json
 import os
 
@@ -46,6 +49,7 @@ from pim_tpu.render import screenshot as jshot
 from pim_tpu.render.scene import build_scene as jax_build_scene
 from pim_tpu_torch import app
 from pim_tpu_torch.core import cvars as cv
+from pim_tpu_torch.core import profiler
 from pim_tpu_torch.core.cmd import CmdStat, CmdSystem, cmd_getopt, get_cmd_system
 from pim_tpu_torch.core.crate import Crate
 from pim_tpu_torch.math import color, cubic_fit
@@ -53,11 +57,23 @@ from pim_tpu_torch.render import camera, denoise, exposure, render_system, scree
 from pim_tpu_torch.render.integrator import make_trace_buffers
 from pim_tpu_torch.render.render_system import RenderSystem
 from pim_tpu_torch.render.scene import from_jax_scene
-from pim_tpu_torch.tools import calibrate_pt_gate
 
 torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _load_calibrator():
+    """tools/calibrate_torch_pt_gate.py, the JAX-side tool that derived the
+    port's bands (it is no module of either package)."""
+    path = os.path.join(ROOT, "tools", "calibrate_torch_pt_gate.py")
+    spec = importlib.util.spec_from_file_location("calibrate_torch_pt_gate", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+calibrate_pt_gate = _load_calibrator()
 W = H = 16
 BOUNCES = 3
 FRAMES = 3
@@ -168,14 +184,31 @@ def _hdr(seed=0, h=24, w=20):
     return (r.random((h, w, 3), dtype=np.float32) ** 3 * 8.0).astype(np.float32)
 
 
-@pytest.mark.parametrize("use_fit", [False])
+@pytest.mark.parametrize("use_fit", [False, True])
 def test_tonemap_matches(use_fit):
+    """The GT tonemap at rtol 1e-6.  With `r_tonemap_fit 1` each package
+    fits its own rational curve from its own random population (the port a
+    seeded torch.Generator, the reference jax.random), so the fitted curves
+    differ: the display values by at most 5e-4 (0.13 of a u8 step; 2.2e-4
+    seen) and the dithered u8 screenshot by at most 1 on at most 3% of its
+    values (1.3-1.6% seen).  Either fit departs from the exact curve by up
+    to 6 u8 steps on three quarters of the values."""
     hdr = _hdr()
     want = np.asarray(jshot.tonemap_for_display(jnp.asarray(hdr), jnp.float32(0.7),
                                                 use_fit=use_fit))
     got = screenshot.tonemap_for_display(torch.from_numpy(hdr), torch.tensor(0.7),
                                          use_fit=use_fit).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    if not use_fit:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+        return
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-4)
+    hdr = _hdr(0, 64, 48)
+    want = jshot.quantize_dithered(jshot.tonemap_for_display(jnp.asarray(hdr), jnp.float32(1.3),
+                                                             use_fit=True))
+    got = screenshot.quantize_dithered(screenshot.tonemap_for_display(
+        torch.from_numpy(hdr), torch.tensor(1.3), use_fit=True))
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 0.03, (diff.max(), (diff > 0).mean())
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -262,6 +295,18 @@ def test_curve_models_match(kind):
     want = np.asarray(jfit._EVALS[kind](jnp.asarray(xs), jnp.asarray(coeffs)))
     got = cubic_fit._EVALS[kind](torch.from_numpy(xs), torch.from_numpy(coeffs)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+def test_profile_marks_wait_on_a_device():
+    """`profile(name, block_on=device)` ends its mark after the device's
+    queued work; a CPU device (by name or torch.device) has none."""
+    prof = profiler.Profiler()
+    for dev in ("cpu", torch.device("cpu")):
+        with prof.mark("Pt_Trace", block_on=dev):
+            torch.ones(4).sum()
+    with prof.mark("Pt_Trace"):
+        pass
+    assert prof.stats["Pt_Trace"].calls == 3
 
 
 def test_curve_fit_quality():

@@ -1,8 +1,8 @@
-"""Calibrate the port's pt_gate bands (pim_tpu_torch/render/pt_gate_bands.json).
+"""Calibrate the PyTorch port's pt_gate bands (pim_tpu_torch/render/pt_gate_bands.json).
 
-A mirror of the JAX package's tools/calibrate_pt_gate.py with the same
-pooling, writing the port's own band file.  It renders a gated scene
-through a `RenderSystem` for each seed at each resolution and snapshots the
+A mirror of tools/calibrate_pt_gate.py with the same pooling, writing the
+port's own band file.  It renders a gated scene through the JAX package's
+`RenderSystem` on the CPU for each seed at each resolution and snapshots the
 luminance stddev and the buffer mean at every sample-count tier.  The band
 of a tier pools every (seed, resolution) run:
 
@@ -10,9 +10,9 @@ of a tier pools every (seed, resolution) run:
   meanlo    = min(mean) * (1 - rel) - 6*sigma(mean)
   meanhi    = max(mean) * (1 + rel) + 6*sigma(mean)
 
-with rel = 2%.  The runs are the JAX package's, on the CPU: the reference
-the port is held to.  It is imported by name when the tool runs, so no
-module of the port imports it.
+with rel = 2%.  The runs are the JAX package's: the reference the port is
+held to.  The tool lives outside pim_tpu_torch/ because it imports pim_tpu,
+which no module of the port may do; the port only reads the file it writes.
 
 Scenes, as the shell's regression commands set them up:
   cornell -- pt_test's config (cornell_box boxes; teleport -4 0 4;
@@ -21,23 +21,33 @@ Scenes, as the shell's regression commands set them up:
              teleport -2.5 1.7 -2.5, lookat 6 1 6; the sky baked from the
              sun and atmosphere cvars)
 
-    python -m pim_tpu_torch.tools.calibrate_pt_gate --scene e1m1 --res 128 \
-        --tiers 8,16 --seeds 3
+    python tools/calibrate_torch_pt_gate.py --scene e1m1 \
+        --res 128 --tiers 8,16 --seeds 3
 """
 
 from __future__ import annotations
 
 import argparse
-import importlib
 import json
 import os
+import sys
 import time
 
 import numpy as np
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")  # the bands are CPU runs, whatever the host has
+
+from pim_tpu.core import cvars as cv  # noqa: E402
+from pim_tpu.geom.cornell import build_cornell_box  # noqa: E402
+from pim_tpu.geom.gltf import load_gltf_scene  # noqa: E402
+from pim_tpu.render.render_system import RenderSystem  # noqa: E402
+
 REL = 0.02
-REFERENCE = "pim_tpu"  # the package whose renders set the bands
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BANDS_PATH = os.path.join(ROOT, "pim_tpu_torch", "render", "pt_gate_bands.json")
 CAMERAS = {
     "cornell": ((-4.0, 0.0, 4.0), (0.0, -1.0, 0.0)),
@@ -51,12 +61,10 @@ def default_seeds(count: int):
 
 def _setup_scene(rs, scene: str) -> None:
     if scene == "cornell":
-        rs.entities, rs.pool = importlib.import_module(
-            f"{REFERENCE}.geom.cornell").build_cornell_box("boxes")
+        rs.entities, rs.pool = build_cornell_box("boxes")
     elif scene == "e1m1":
         path = os.path.join(ROOT, "data", "e1m1", "glTF", "e1m1.gltf")
-        rs.entities, rs.pool = importlib.import_module(
-            f"{REFERENCE}.geom.gltf").load_gltf_scene(path)
+        rs.entities, rs.pool = load_gltf_scene(path)
     else:
         raise SystemExit(f"unknown scene '{scene}'")
     eye, target = CAMERAS[scene]
@@ -68,8 +76,6 @@ def _setup_scene(rs, scene: str) -> None:
 def run_seeds(scene: str, res: int, seeds, tiers):
     """[(seed, {tier: (stddev, mean)})] for every seed at one resolution,
     one progressive run per seed through the reference's RenderSystem."""
-    cv = importlib.import_module(f"{REFERENCE}.core.cvars")
-    rs_mod = importlib.import_module(f"{REFERENCE}.render.render_system")
     cv.cv_pt_trace.set(True)
     cv.cv_exp_manual.set(True)
     cv.cv_exp_evoffset.set(5.0)
@@ -78,7 +84,7 @@ def run_seeds(scene: str, res: int, seeds, tiers):
     # the bands are per sample: pt_spp > 1 draws a batch under the
     # batch-start light pdf, which would need bands of its own
     cv.cv_pt_spp.set(1)
-    rs = rs_mod.RenderSystem(width=res, height=res)
+    rs = RenderSystem(width=res, height=res)
     _setup_scene(rs, scene)
     top = max(tiers)
     results = []
@@ -123,7 +129,7 @@ def calibrate(scene: str, resolutions, tiers, seeds):
     entries = [pool_band(scene, t, runs[t]) for t in tiers]
     record = {
         "device": "cpu",
-        "package": REFERENCE,
+        "package": "pim_tpu",
         "resolutions": list(resolutions),
         "seeds": [hex(s) for s in seeds],
         "rel_margin": REL,
