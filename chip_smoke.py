@@ -106,7 +106,32 @@ exits non-zero:
      after 2 frames, ckpt_load into a fresh render system, 2 more frames:
      bit for bit the 4 frames of an uninterrupted run); and the autofocus
      probe's one-ray K1 call, bit for bit against its plain version.  The
-     shell's screenshots and checkpoint go to build/shell/.
+     shell's screenshots and checkpoint go to build/shell/;
+  7. the bakes (outputs under build/bakes/; each path's launches counted
+     around its bake calls: the lightmap passes, the reflection-probe
+     passes, the probe_bake command, the tool's run): `mapload e1m1` with
+     `lm_gen 1` and `r_refl_gen 1` through the shell at the release density
+     for E1M1_BAKE_FRAMES frames, 10 bounces (the 1024^2 atlas, all
+     1,048,576 texels traced a pass; ms a pass and peak memory printed),
+     the pack bit for bit against data/e1m1/lmpack.npz (position, normal,
+     live mask), every live texel's count 1 + frames, dead texels untouched,
+     probes finite and rgb >= 0; `probe_bake -samples 1024` and
+     `probe_report`; K4 and K5 on the bake's own rays (its hemisphere and
+     bounce-1 rays, its first two NEE shadow-ray calls; the first
+     PLAIN_LANES live lanes of each) bitwise against their plain versions;
+     an e1m1 shard of SHARD_LIVE live texels at 3 bounces, card against
+     CPU; pim_tpu_torch/tools/bake_e1m1_lightmap.py at TOOL_FRAMES frames
+     (its crate resume bit for bit, Mtexel-samples/s printed).  Cornell:
+     the full-width lightmap pass, a 16^2 reflection probe baked and
+     convolved, and a light probe's 1,024 rays (and its fit within 2%),
+     each card against CPU at 3 bounces by the small frames' rule;
+     CORNELL_BAKE_PASSES passes of `lm_gen 1` through the shell, whose mean
+     irradiance over live texels must lie in the CPU-derived band of
+     pim_tpu_torch/render/bake_bands.json; K1 and K2 on that bake's own
+     rays, bitwise (K2 in both forms); a checkpoint after 2 frames of
+     `lm_gen 1` + `r_refl_gen 1` and a probe_bake, resumed in a fresh
+     render system for 2 frames: the frame, the lightmap and the light
+     probe bit for bit those of 4 uninterrupted frames.
 Timing: every kernel, its plain version and its library call get `ms`, the
 device time per call: a GPU sleep holds the stream while the host queues
 DEVICE_RUNS back-to-back calls behind it between two CUDA events, and the
@@ -524,14 +549,18 @@ CORNELL_KERNELS = ("dense_isect", "dense_anyhit", "gather_cols")
 E1M1_KERNELS = ("cluster_isect", "cluster_anyhit", "gather_bilinear")
 TRAIN_KERNELS = ("gather_cols_bwd", "gather_texels", "gather_texels_bwd")
 # the main paths that run each kernel
+CORNELL_BAKES = ("cornell_lightmap", "cornell_refl", "cornell_light_probe")
+E1M1_BAKES = ("e1m1_lightmap", "e1m1_lightmap_compacted", "e1m1_refl", "e1m1_light_probe")
 PATHS = {
-    "dense_isect": ("cornell", "cornell_train", "cornell_shell", "cornell_media_shell"),
-    "dense_anyhit": ("cornell", "cornell_train", "cornell_shell", "cornell_media_shell"),
+    "dense_isect": ("cornell", "cornell_train", "cornell_shell", "cornell_media_shell")
+    + CORNELL_BAKES,
+    "dense_anyhit": ("cornell", "cornell_train", "cornell_shell", "cornell_media_shell")
+    + CORNELL_BAKES,
     "gather_cols": ("cornell", "e1m1", "e1m1_train", "cornell_train", "cornell_shell",
-                    "cornell_media_shell", "e1m1_shell"),
-    "cluster_isect": ("e1m1", "e1m1_train", "e1m1_shell"),
-    "cluster_anyhit": ("e1m1", "e1m1_train", "e1m1_shell"),
-    "gather_bilinear": ("e1m1", "e1m1_shell"),
+                    "cornell_media_shell", "e1m1_shell") + CORNELL_BAKES + E1M1_BAKES,
+    "cluster_isect": ("e1m1", "e1m1_train", "e1m1_shell") + E1M1_BAKES,
+    "cluster_anyhit": ("e1m1", "e1m1_train", "e1m1_shell") + E1M1_BAKES,
+    "gather_bilinear": ("e1m1", "e1m1_shell") + E1M1_BAKES,
     "gather_cols_bwd": ("e1m1_train", "cornell_train"),
     "gather_texels": ("e1m1_train",),
     "gather_texels_bwd": ("e1m1_train",),
@@ -1989,6 +2018,396 @@ def run_shell(dev, e1m1_scene, cornell_cpu, smi: str):
     return launches, probe
 
 
+BAKE_MAP = "e1m1"
+BAKE_RES = 64             # the shell's frame while it bakes (the bakes are what is checked)
+E1M1_BAKE_FRAMES = 3      # lm_gen frames of the e1m1 atlas (1024^2, every texel traced)
+CORNELL_BAKE_PASSES = 64  # lm_gen passes gated by pim_tpu_torch/render/bake_bands.json
+BAKE_CHECK_BOUNCES = 3    # the card-vs-CPU bakes
+SHARD_LIVE = 1024         # live e1m1 texels of the card-vs-CPU shard
+REFL_CHECK_RES = 16       # the card-vs-CPU reflection probe
+PROBE_RAYS = 1024         # probe_bake -samples
+RESUME_FRAMES = 2         # frames before and after the bake checkpoint
+TOOL_FRAMES = 4           # frames of pim_tpu_torch/tools/bake_e1m1_lightmap.py
+PROBE_AT = (0.0, 1.0, 0.0)  # the Cornell card-vs-CPU probes' origin
+
+
+def _counted(fn, into: dict, times: list = None):
+    """fn wrapped: each call starts with every launch count at 0 and adds
+    the counts after it into `into`; with `times`, each call is timed from
+    an idle device to its end (ms appended)."""
+    import torch
+
+    from pim_tpu_torch import native
+
+    def run(*args, **kwargs):
+        if times is not None:
+            torch.cuda.synchronize()
+        native.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if times is not None:
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        for name, c in native.launches.items():
+            into[name] = into.get(name, 0) + c
+        return out
+    return run
+
+
+def _bake_rule(label: str, gpu, cpu, elementwise: bool = True) -> None:
+    """The small frames' rule on a bake's values: >= 97% within rtol 1e-4 /
+    atol 1e-5 (each value, or each ray's rgb with elementwise=False), the
+    means within 2%."""
+    import numpy as np
+
+    gpu = gpu.detach().cpu().numpy() if hasattr(gpu, "detach") else np.asarray(gpu)
+    cpu = cpu.detach().cpu().numpy() if hasattr(cpu, "detach") else np.asarray(cpu)
+    close = np.isclose(gpu, cpu, rtol=1e-4, atol=1e-5)
+    share = close.mean() if elementwise else np.all(close, axis=-1).mean()
+    rel = abs(gpu.mean() - cpu.mean()) / max(abs(cpu.mean()), 1e-30)
+    print(f"{label} card vs cpu: {gpu.size} values, close={share:.4f} mean={gpu.mean():.6f} "
+          f"mean_rel_diff={rel:.6f}")
+    if not np.isfinite(gpu).all() or share < 0.97 or rel > 0.02:
+        raise AssertionError(f"{label}: the card's bake disagrees with the CPU's")
+
+
+def _live_lanes(args, lanes: int):
+    """The first `lanes` live lanes (t_far > 0) of a ray call, as a call."""
+    import torch
+
+    from pim_tpu_torch.math.vec3 import V3
+    from pim_tpu_torch.render import cluster as CL
+
+    ro, rd, t_near, t_far = args
+    tf = CL._per_ray_t_far(t_far, ro.x.shape[0], ro.x.device)
+    idx = torch.nonzero(tf > 0.0).flatten()[:lanes]
+    return (V3(*(c[idx] for c in ro)), V3(*(c[idx] for c in rd)), t_near, tf[idx]), int(
+        (tf > 0.0).sum())
+
+
+def _bake_shell(dev, script: str):
+    """A fresh render system on `dev` at BAKE_RES^2 with `script` run."""
+    from pim_tpu_torch.core.cmd import CmdStat, get_cmd_system
+    from pim_tpu_torch.render import cubemap
+    from pim_tpu_torch.render.render_system import RenderSystem
+
+    cubemap._registry = None  # the probe registry is a module global
+    rs = RenderSystem(width=BAKE_RES, height=BAKE_RES, device=dev)
+    rs.init()
+    q = get_cmd_system()
+    q.reset()
+    if q.immediate(script) != CmdStat.OK:
+        raise AssertionError(f"the shell refused {script!r}")
+    return rs
+
+
+def _set_bake_cvars(lm_gen: bool, refl: bool) -> None:
+    from pim_tpu_torch.core import cvars as cv
+
+    for c, v in ((cv.cv_pt_max_bounces, BOUNCES), (cv.cv_pt_trace, True), (cv.cv_pt_media, False),
+                 (cv.cv_pt_backend, "auto"),
+                 (cv.cv_exp_manual, True), (cv.cv_lm_density, 4.0), (cv.cv_lm_timeslice, 1),
+                 (cv.cv_lm_spp, 1), (cv.cv_lm_gen, lm_gen), (cv.cv_r_refl_gen, refl)):
+        c.set(v)
+
+
+def _probe_cmd(rs, label: str, launches: dict) -> None:
+    """probe_bake -samples PROBE_RAYS at the camera and probe_report, the
+    launches of the bake counted as the path `label`."""
+    import torch
+
+    from pim_tpu_torch.core.cmd import CmdStat, get_cmd_system
+    from pim_tpu_torch.core.console import get_console
+
+    q = get_cmd_system()
+    counts = {}
+    status = _counted(q.immediate, counts)(f"probe_bake -samples {PROBE_RAYS}")
+    if status != CmdStat.OK or q.immediate("probe_report") != CmdStat.OK:
+        raise AssertionError(f"{label}: probe_bake or probe_report failed")
+    launches[label] = counts
+    p = rs.probes["camera"]
+    report = [m for _, tag, m in get_console().lines() if tag == "probe"][-6:]
+    print(f"{label}: probe_bake -samples {PROBE_RAYS}, pass {int(p.sample_count)}; "
+          f"probe_report {report[0]} ... {report[-1]}; launches {counts}")
+    if not bool(torch.isfinite(p.faces).all() & torch.isfinite(p.sh).all()):
+        raise AssertionError(f"{label}: the probe is not finite")
+
+
+def run_e1m1_bakes(dev, e1m1_scene, launches: dict, smi: str):
+    """`mapload e1m1` and E1M1_BAKE_FRAMES frames of `lm_gen 1` and
+    `r_refl_gen 1` through the shell at the release density (the 1024^2
+    atlas, every texel traced), then probe_bake; the pack bit for bit
+    against data/e1m1/lmpack.npz; K4 and K5 on the bake's own rays; an
+    e1m1 shard on the card against the CPU; the compacted bake tool.
+    Returns the shell's render system."""
+    import numpy as np
+    import torch
+
+    from pim_tpu_torch.core.console import get_console
+    from pim_tpu_torch.core.crate import Crate
+    from pim_tpu_torch.render import lightmap as lm
+    from pim_tpu_torch.render.scene import _cluster_arrays
+    from pim_tpu_torch.tools import bake_e1m1_lightmap as tool
+    from pim_tpu_torch.tools import cluster_check as cc
+
+    _set_bake_cvars(lm_gen=True, refl=True)
+    t0 = time.perf_counter()
+    rs = _bake_shell(dev, f"mapload {BAKE_MAP}; teleport -2.5 1.7 -2.5; lookat 6 1 6")
+    pass_ms, refl_ms, lm_counts, refl_counts = [], [], {}, {}
+    rs._lightmap_trace = _counted(rs._lightmap_trace, lm_counts, pass_ms)
+    rs._cubemap_trace = _counted(rs._cubemap_trace, refl_counts, refl_ms)
+    rs.update()  # the scene build, its sky, the pack and the first pass
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(E1M1_BAKE_FRAMES - 1):
+        rs.update()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches["e1m1_lightmap"], launches["e1m1_refl"] = lm_counts, refl_counts
+    pack = rs.lm_pack
+    packed = [m for _, tag, m in get_console().lines() if tag == "lm" and "atlas in" in m]
+    want = Crate.load(os.path.join(ROOT, "data", "e1m1", "lmpack.npz")).get("e1m1_lmpack")
+    counts = pack.sample_counts.cpu().numpy()
+    live = want["sample_counts"] > 0
+    same = (np.array_equal(pack.position.cpu().numpy(), want["position"])
+            and np.array_equal(pack.normal.cpu().numpy(), want["normal"])
+            and np.array_equal(counts > 0, live))
+    probes = pack.probes.cpu().numpy()
+    irr = lm.lightmap_irradiance(pack, pack.normal.T.contiguous())[torch.from_numpy(live).to(dev)]
+    print(f"e1m1 lightmap pack: {packed[-1] if packed else '?'}; {int(live.sum())} live of "
+          f"{pack.size * pack.size}; bit for bit data/e1m1/lmpack.npz (position, normal, live "
+          f"mask) {same}")
+    print(f"e1m1 lm_gen 1 through the shell: {pack.size * pack.size} lanes a pass, {BOUNCES} "
+          f"bounces, {E1M1_BAKE_FRAMES} frames (first frame with the build and pack "
+          f"{first_s:.1f} s); ms a pass {[round(t, 3) for t in pass_ms]}; peak memory "
+          f"{peak / 2**30:.3f} GiB over frames 2-{E1M1_BAKE_FRAMES}; mean irradiance over live "
+          f"texels {float(irr.mean()):.6f}; launches {lm_counts}; r_refl_gen (the 64^2 "
+          f"default probe, baked and convolved) ms a frame {[round(t, 3) for t in refl_ms]}, "
+          f"launches {refl_counts} [{smi}]")
+    ok_counts = (counts[live] == 1 + E1M1_BAKE_FRAMES).all() and (counts[~live] == 0).all()
+    ok_probes = (np.isfinite(probes).all() and (probes[live][..., :3] >= 0).all()
+                 and not probes[~live].any())
+    if not (same and ok_counts and ok_probes):
+        raise AssertionError(f"e1m1 lightmap: pack equal {same}, counts {ok_counts}, probes "
+                             f"{ok_probes}")
+    _probe_cmd(rs, "e1m1_light_probe", launches)
+
+    # K4 and K5 on the bake's own rays: one more pass, its calls recorded
+    with cc.recorded_calls() as calls:
+        lm.bake_step(rs.meta, rs.arrays, rs.lights, pack, E1M1_BAKE_FRAMES, max_bounces=BOUNCES)
+    n_tex = pack.size * pack.size
+    isect = [c for c in calls["isect"] if c[0].x.shape[0] == n_tex]
+    anyhit = [c for c in calls["anyhit"] if c[0].x.shape[0] == n_tex]
+    cont = 2 if rs.meta.has_refractive else 1  # a refractive scene probes glass thickness first
+    cl = _cluster_arrays(rs.arrays)
+    for label, args, hit in (("hemisphere rays", isect[0], False),
+                             ("bounce-1 rays", isect[cont], False),
+                             ("bounce-1 NEE shadow rays", anyhit[0], True),
+                             ("bounce-2 NEE shadow rays", anyhit[1], True)):
+        sub, n_live = _live_lanes(args, PLAIN_LANES)
+        _, ok, err = cc.against_plain(cl, sub, hit, PLAIN_LANES)
+        print(f"{'K5' if hit else 'K4'} on the e1m1 bake's {label}: {n_tex} lanes, {n_live} "
+              f"live; the first {sub[0].x.shape[0]} live bitwise equal to plain {ok} "
+              f"(max abs err {err})")
+        if not ok:
+            raise AssertionError(f"K4/K5 differ from their plain versions on the bake's {label}")
+    del calls, isect, anyhit
+
+    # an e1m1 shard on the card against the CPU: SHARD_LIVE live texels
+    idx = torch.nonzero(pack.sample_counts > 0).flatten()[:SHARD_LIVE]
+    shard = pack._replace(position=pack.position[:, idx].contiguous(),
+                          normal=pack.normal[:, idx].contiguous(),
+                          probes=torch.zeros_like(pack.probes[idx]),
+                          sample_counts=torch.ones_like(pack.sample_counts[idx]))
+    scene = (rs.meta, rs.arrays, rs.lights)
+    t1 = time.perf_counter()
+    card = lm.bake_step(*scene, shard, 0, max_bounces=BAKE_CHECK_BOUNCES)
+    cpu_shard = shard._replace(**{f: getattr(shard, f).cpu() for f in
+                                  ("position", "normal", "probes", "sample_counts", "axii")})
+    cpu = lm.bake_step(*_scene_to(scene, "cpu"), cpu_shard, 0, max_bounces=BAKE_CHECK_BOUNCES)
+    _bake_rule(f"e1m1 lightmap shard ({SHARD_LIVE} live texels, {BAKE_CHECK_BOUNCES} bounces, "
+               f"{time.perf_counter() - t1:.1f} s)", card.probes, cpu.probes)
+
+    # the compacted bake tool on the same scene and a fresh copy of the pack
+    fresh = pack._replace(probes=torch.zeros_like(pack.probes),
+                          sample_counts=(pack.sample_counts > 0).to(torch.float32))
+    counts_tool = {}
+    out = _counted(tool.bake, counts_tool)(
+        e1m1_scene, fresh, TOOL_FRAMES, os.path.join(ROOT, "build", "bakes", "e1m1_lightmap"),
+        log=lambda m: print(f"bake_e1m1_lightmap: {m}"))
+    launches["e1m1_lightmap_compacted"] = counts_tool
+    print(f"bake_e1m1_lightmap at {TOOL_FRAMES} frames: {out['mtexel_samples_per_s']:.4f} "
+          f"Mtexel-samples/s, {out['run_ms_per_frame']:.3f} ms a frame ({out['n_live']} live "
+          f"texels in chunks of {out['chunk']}); resume bit-identical "
+          f"{out['resume_bit_identical']}; launches {counts_tool} [{smi}]")
+    return rs
+
+
+def run_cornell_bakes(dev, cornell_cpu, launches: dict, smi: str) -> None:
+    """Cornell: the lightmap, a reflection probe and a light probe on the
+    card against the CPU; CORNELL_BAKE_PASSES passes of `lm_gen 1` through
+    the shell inside bake_bands.json; K1 and K2 on the bake's own rays; a
+    checkpoint of lm_gen + r_refl_gen + probe_bake resumed bit for bit."""
+    import torch
+
+    from pim_tpu_torch.core import cvars as cv
+    from pim_tpu_torch.core.cmd import CmdStat, get_cmd_system
+    from pim_tpu_torch.geom.cornell import build_cornell_box
+    from pim_tpu_torch.geom.entities import flatten
+    from pim_tpu_torch.render import cubemap, probes
+    from pim_tpu_torch.render import lightmap as lm
+    from pim_tpu_torch.render.integrator import trace_rays
+    from pim_tpu_torch.tools import dense_check as dc
+
+    card_scene = _scene_to(cornell_cpu, dev)
+    scenes = (("card", card_scene), ("cpu", cornell_cpu))
+
+    # the card against the CPU: the full-width lightmap pass, a 16^2
+    # reflection probe baked and convolved, a light probe's rays and fit
+    t0 = time.perf_counter()
+    flat = flatten(build_cornell_box("boxes")[0])
+    out = {}
+    for name, scene in scenes:
+        pack = lm.pack_lightmaps(flat.positions, flat.normals, 4.0,
+                                 device=scene[1].tri_table.device)
+        out[name] = lm.bake_step(*scene, pack, 0, max_bounces=BAKE_CHECK_BOUNCES)
+    live = out["cpu"].sample_counts > 0
+    _bake_rule(f"cornell lightmap ({out['cpu'].size}^2 atlas, {int(live.sum())} live texels, "
+               f"{BAKE_CHECK_BOUNCES} bounces)", out["card"].probes.cpu()[live],
+               out["cpu"].probes[live])
+    for name, scene in scenes:
+        dev_s = scene[1].tri_table.device
+        cm = cubemap.bake_step(*scene, cubemap.cubemap_new(REFL_CHECK_RES, dev_s), PROBE_AT, 0,
+                               1.0, BAKE_CHECK_BOUNCES)
+        cm = cubemap.convolve(cm, 32, 1.0, 0)
+        out[name] = torch.cat([cm.color.flatten()] + [m.flatten() for m in cm.mips]).cpu()
+    _bake_rule(f"cornell reflection probe {REFL_CHECK_RES}^2 (color and {len(cm.mips)} mips)",
+               out["card"], out["cpu"])
+    for name, scene in scenes:
+        dev_s = scene[1].tri_table.device
+        p = probes.probe_new(PROBE_AT, dev_s)
+        state, ro, rd = probes.probe_rays(p, PROBE_RAYS)
+        radiance = trace_rays(*scene, ro, rd, state, BAKE_CHECK_BOUNCES).color
+        p = probes.probe_bake_step(*scene, p, PROBE_RAYS, BAKE_CHECK_BOUNCES)
+        out[name] = (radiance.cpu(), torch.cat([p.faces.flatten(), p.sh.flatten()]).cpu())
+    _bake_rule(f"cornell light probe, {PROBE_RAYS} rays' radiance", out["card"][0],
+               out["cpu"][0], elementwise=False)
+    fit_err = float((out["card"][1] - out["cpu"][1]).abs().max())
+    fit_max = float(out["cpu"][1].abs().max())
+    print(f"cornell light probe fit (cube faces and SH) card vs cpu: max abs diff {fit_err:.6g} "
+          f"of max {fit_max:.6g} ({time.perf_counter() - t0:.1f} s for the three checks)")
+    if fit_err > 0.02 * fit_max:
+        raise AssertionError("the card's light probe fit disagrees with the CPU's")
+
+    # CORNELL_BAKE_PASSES passes of lm_gen 1 through the shell, in the band
+    _set_bake_cvars(lm_gen=True, refl=False)
+    rs = _bake_shell(dev, "cornell_box; teleport -4 0 4; lookat 0 -1 0")
+    pass_ms, lm_counts = [], {}
+    rs._lightmap_trace = _counted(rs._lightmap_trace, lm_counts, pass_ms)
+    t0 = time.perf_counter()
+    for _ in range(CORNELL_BAKE_PASSES):
+        rs.update()
+    torch.cuda.synchronize()
+    launches["cornell_lightmap"] = lm_counts
+    pack = rs.lm_pack
+    live = pack.sample_counts > 0
+    mean = float(lm.lightmap_irradiance(pack, pack.normal.T.contiguous())[live].double().mean())
+    with open(os.path.join(ROOT, "pim_tpu_torch", "render", "bake_bands.json")) as f:
+        band = json.load(f)["cornell_lightmap"]
+    lo, hi = band["mean"] - band["half"], band["mean"] + band["half"]
+    ok_counts = bool((pack.sample_counts[live] == 1 + CORNELL_BAKE_PASSES).all())
+    print(f"cornell lm_gen 1 through the shell: {pack.size}^2 atlas ({pack.size ** 2} lanes a "
+          f"pass, {int(live.sum())} live), {BOUNCES} bounces, {CORNELL_BAKE_PASSES} passes in "
+          f"{time.perf_counter() - t0:.1f} s; ms a pass median "
+          f"{statistics.median(pass_ms[1:]):.3f} (min {min(pass_ms[1:]):.3f}, max "
+          f"{max(pass_ms[1:]):.3f}, passes after the first); mean irradiance over live texels "
+          f"{mean:.6f}, band [{lo:.6f}, {hi:.6f}] (bake_bands.json, {band['device']}-derived); "
+          f"launches {lm_counts} [{smi}]")
+    if not (lo <= mean <= hi and ok_counts):
+        raise AssertionError(f"the Cornell lightmap mean {mean} leaves [{lo}, {hi}] "
+                             f"(counts {ok_counts})")
+
+    # K1 and K2 on the bake's own rays: one more pass, its calls recorded
+    with dc.recorded_calls() as calls:
+        lm.bake_step(rs.meta, rs.arrays, rs.lights, pack, CORNELL_BAKE_PASSES,
+                     max_bounces=BOUNCES)
+    n_tex = pack.size * pack.size
+    isect = [c for c in calls["isect"] if c[1].x.shape[0] == n_tex]
+    anyhit = [c for c in calls["anyhit"] if c[1].x.shape[0] == n_tex]
+    _check_k1("the Cornell bake's hemisphere rays", *isect[0])
+    _check_k1("the Cornell bake's bounce-1 rays", *isect[1])
+    _check_k2("the Cornell bake's bounce-1 NEE shadow rays", *anyhit[0])
+    _check_k2("the Cornell bake's bounce-2 NEE shadow rays", *anyhit[1])
+    del calls, isect, anyhit
+
+    # a checkpoint of the bakes: RESUME_FRAMES frames of lm_gen 1 and
+    # r_refl_gen 1 and a probe_bake, ckpt_save, RESUME_FRAMES more, against
+    # a fresh render system resumed from the crate
+    _set_bake_cvars(lm_gen=True, refl=True)
+    t0 = time.perf_counter()
+    q = get_cmd_system()
+    rs = _bake_shell(dev, "cornell_box; teleport -4 0 4; lookat 0 -1 0")
+    refl_counts, refl_ms = {}, []
+    rs._cubemap_trace = _counted(rs._cubemap_trace, refl_counts, refl_ms)
+    for _ in range(RESUME_FRAMES):
+        rs.update()
+    launches["cornell_refl"] = refl_counts
+    _probe_cmd(rs, "cornell_light_probe", launches)
+    if q.immediate("ckpt_save bake_smoke") != CmdStat.OK:
+        raise AssertionError("ckpt_save failed")
+    for _ in range(RESUME_FRAMES):
+        rs.update()
+    rs2 = _bake_shell(dev, "ckpt_load bake_smoke")
+    for _ in range(RESUME_FRAMES):
+        rs2.update()
+    torch.cuda.synchronize()
+    same = {"frame": torch.equal(rs2.buffers.color, rs.buffers.color),
+            "lightmap": all(torch.equal(getattr(rs2.lm_pack, f), getattr(rs.lm_pack, f))
+                            for f in ("probes", "sample_counts")),
+            "light probe": all(torch.equal(getattr(rs2.probes["camera"], f),
+                                           getattr(rs.probes["camera"], f))
+                               for f in ("faces", "sh", "sample_count")),
+            "lm_frame": rs2._lm_frame == rs._lm_frame == 2 * RESUME_FRAMES}
+    cm = cubemap.get_registry().find("default")
+    print(f"bake checkpoint on the card: Cornell, {RESUME_FRAMES} frames of lm_gen 1 + r_refl_gen "
+          f"1 + probe_bake, ckpt_save, ckpt_load into a fresh render system, {RESUME_FRAMES} "
+          f"frames vs {2 * RESUME_FRAMES} frames: bit-identical {same} (the {cm.size}^2 "
+          f"reflection probe, {cm.mip_count} mips, is not in a crate, as in the reference; "
+          f"r_refl_gen over the first run's {2 * RESUME_FRAMES} frames: ms "
+          f"{[round(t, 3) for t in refl_ms]}, launches {refl_counts}; "
+          f"{time.perf_counter() - t0:.1f} s) [{smi}]")
+    if not all(same.values()):
+        raise AssertionError(f"the resumed bakes differ from the uninterrupted run: {same}")
+    cv.cv_lm_gen.set(False)
+    cv.cv_r_refl_gen.set(False)
+
+
+def run_bakes(dev, e1m1_scene, cornell_cpu, smi: str) -> dict:
+    """Phase 7, the bakes; returns the launches of their paths."""
+    import shutil
+
+    from pim_tpu_torch.core import cvars as cv
+
+    out_dir = os.path.join(ROOT, "build", "bakes")
+    shutil.rmtree(out_dir, ignore_errors=True)  # this phase's own outputs only
+    os.makedirs(out_dir)
+    cwd = os.getcwd()
+    os.chdir(out_dir)
+    launches = {}
+    try:
+        cv.cv_basedir.set(os.path.join(ROOT, "data"))
+        t0 = time.perf_counter()
+        run_e1m1_bakes(dev, e1m1_scene, launches, smi)
+        print(f"e1m1 bakes: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        run_cornell_bakes(dev, cornell_cpu, launches, smi)
+        print(f"cornell bakes: {time.perf_counter() - t0:.1f} s")
+    finally:
+        os.chdir(cwd)
+    return launches  # main fails the run if a kernel of a path (PATHS) never launched
+
+
 def main() -> int:
     import torch
 
@@ -2028,6 +2447,9 @@ def main() -> int:
     t0 = time.perf_counter()
     shell_launches, probe = run_shell(dev, e1m1_scene, cornell_cpu, smi)
     print(f"shell phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bake_launches = run_bakes(dev, e1m1_scene, cornell_cpu, smi)
+    print(f"bakes phase: {time.perf_counter() - t0:.1f} s")
     # K3 runs on both paths: its row keeps the Cornell times and adds the
     # e1m1 tri table's; its error is the larger of the two checks
     e1m1_k3 = e1m1_kernels.pop("gather_cols")
@@ -2039,7 +2461,7 @@ def main() -> int:
     kernels["dense_isect"]["max_abs_err"] = max(kernels["dense_isect"]["max_abs_err"],
                                                 probe["max_abs_err"])
     by_path = {"cornell": cornell_launches, "e1m1": e1m1_launches, **train_launches,
-               **shell_launches}
+               **shell_launches, **bake_launches}
     launches = {name: {p: by_path[p][name] for p in ps} for name, ps in PATHS.items()}
     for name, counts in launches.items():
         for p, count in counts.items():

@@ -1,7 +1,7 @@
 """Monte-Carlo sampling library over flat [N] float32 tensors.
 
-Counterpart of `pim_tpu.math.sampling` (the functions the Cornell frame
-uses).  2D random variables are (u, v) tuples of [N] tensors; directions
+Counterpart of `pim_tpu.math.sampling` (the functions the frames and the
+bakes use).  2D random variables are (u, v) tuples of [N] tensors; directions
 are V3.  Constant expressions are formed in float32 (`f32`) so they round
 as the reference's float32 constants do.
 """
@@ -143,6 +143,11 @@ def spherical_to_cartesian(cos_theta, phi) -> V3:
 def sample_unit_sphere(u, v) -> V3:
     """Uniform sphere."""
     return spherical_to_cartesian(v * 2.0 - 1.0, TAU * u)
+
+
+def sample_unit_hemisphere(u, v) -> V3:
+    """Uniform hemisphere, N = +Z."""
+    return spherical_to_cartesian(v, TAU * u)
 
 
 def sample_cosine_hemisphere(u, v) -> V3:

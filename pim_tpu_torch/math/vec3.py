@@ -98,6 +98,10 @@ def dotsat(a: V3, b: V3):
     return torch.clamp(dot(a, b), 0.0, 1.0)
 
 
+def length(v: V3):
+    return torch.sqrt(torch.clamp_min(dot(v, v), EPS_SQ))
+
+
 def normalize(v: V3) -> V3:
     return v * torch.rsqrt(torch.clamp_min(dot(v, v), EPS_SQ))
 

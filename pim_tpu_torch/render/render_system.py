@@ -4,7 +4,8 @@ Counterpart of `pim_tpu.render.render_system`.  It owns the progressive
 trace buffers, the scene, the camera and depth of field, the exposure state
 and the adaptive light state, and registers the shell's commands
 (cornell_box, teleport, lookat, pt_test, pt_gate, pt_stddev, screenshot,
-mapsave, mapload, mapgen, ckpt_save, ckpt_load, loadtest).
+mapsave, mapload, mapgen, ckpt_save, ckpt_load, loadtest, probe_bake,
+probe_report).
 
 One frame (`frame_step`) is: the autofocus probe (one closest-hit ray down
 the view), `pt_spp` one-sample traces with sample ids sample_idx + i,
@@ -15,9 +16,16 @@ shell syncs once a frame, reading the new focal length back as the
 reference does.  Everything runs on `RenderSystem.device`, the card unless
 the caller asks for the CPU.
 
-The lightmap and reflection-probe bakes (`lm_gen`, `r_refl_gen`,
-`probe_bake`, `probe_report`) are ROADMAP queue item 23 and are not ported:
-`update` raises while either cvar is on, and the probe commands fail.
+Before the frame, `update` runs the bakes in the reference's order: the
+sky (when a sun or atmosphere cvar changed), the progressive SG lightmap
+while `lm_gen` is on (`_lightmap_trace`: pack once, then one timesliced
+`lightmap.bake_step` a `lm_spp` pass) and the reflection probes while
+`r_refl_gen` is on (`_cubemap_trace`: every registered cubemap baked and
+convolved, a 64^2 "default" probe when none is registered).  The
+`probe_bake` and `probe_report` commands bake and log an ambient-cube and
+L1 SH light probe.  Checkpoints carry the lightmap pack, the light probes
+and the lightmap's frame counter; the reflection probes are not in a
+checkpoint, as in the reference.
 """
 
 from __future__ import annotations
@@ -53,7 +61,6 @@ from pim_tpu_torch.render.scene import (LightState, SceneMeta, build_scene, scen
 from pim_tpu_torch.render.screenshot import quantize_dithered, tonemap_for_display, write_png
 
 BANDS_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "pt_gate_bands.json")
-ITEM_23 = "ROADMAP queue item 23"
 # the pt_backend cvar's names -> the port's intersectors
 _BACKENDS = {"auto": "auto", "pallas": "dense", "dense": "dense", "cluster": "cluster"}
 _LIGHT_FIELDS = ("pdf", "cdf", "integral", "sum", "live")
@@ -191,6 +198,10 @@ class RenderSystem:
     exp_state: Optional[ExposureState] = None
     sample_count: int = 0
     scene_modtime: int = -1
+    lm_pack: Optional[object] = None                   # lightmap.LmPack while lm_gen bakes
+    probes: dict = field(default_factory=dict)          # name -> probes.LightProbe
+    _lm_frame: int = 0
+    _refl_version: int = -1
     _step: Optional[FrameConfig] = None
     _cam_snapshot: tuple = ()
     _sky_versions: dict = field(default_factory=dict)
@@ -297,10 +308,8 @@ class RenderSystem:
             self.reset_accumulation()
 
         self._bake_sky()
-        if cv.cv_lm_gen.get() or cv.cv_r_refl_gen.get():
-            raise NotImplementedError(
-                f"lm_gen / r_refl_gen: the lightmap and reflection-probe bakes are {ITEM_23}, "
-                "not ported yet")
+        self._lightmap_trace()
+        self._cubemap_trace()
 
         if self._step is None:
             self._step = FrameConfig(
@@ -353,11 +362,75 @@ class RenderSystem:
         if reset:
             self.reset_accumulation()
 
+    def _lightmap_trace(self) -> None:
+        """The progressive SG lightmap bake while lm_gen is on: pack the
+        scene once, then each frame one timesliced bake_step a lm_spp pass,
+        pass k of frame f with the bake frame f * lm_spp + k (the bake keys
+        its RNG by (texel, frame), so each pass draws new rays)."""
+        if not cv.cv_lm_gen.get():
+            return
+        from pim_tpu_torch.geom.entities import flatten
+        from pim_tpu_torch.render import lightmap as lm
+
+        if self.lm_pack is None:
+            flat = flatten(self.entities)
+            t0 = time.perf_counter()
+            self.lm_pack = lm.pack_lightmaps(flat.positions, flat.normals,
+                                             texels_per_meter=float(cv.cv_lm_density.get()),
+                                             device=self.device)
+            self._lm_frame = 0
+            if self.lm_pack is None:
+                return
+            con_logf(LogSev.Info, "lm", "packed a %d^2 atlas in %.3f s", self.lm_pack.size,
+                     time.perf_counter() - t0)
+        with profile("Lightmap_Trace"):
+            slices = max(int(cv.cv_lm_timeslice.get()), 1)
+            t_total = self.lm_pack.position.shape[1]
+            shard = -(-t_total // slices)
+            off = (self._lm_frame % slices) * shard
+            count = min(shard, t_total - off)
+            if count > 0:
+                spp = max(int(cv.cv_lm_spp.get()), 1)
+                for k in range(spp):
+                    self.lm_pack = lm.bake_step(
+                        self.meta, self.arrays, self.lights, self.lm_pack,
+                        self._lm_frame * spp + k, max_bounces=int(cv.cv_pt_max_bounces.get()),
+                        texel_offset=off, texel_count=count)
+            self._lm_frame += 1
+
+    def _cubemap_trace(self) -> None:
+        """The progressive reflection-probe bake while r_refl_gen is on:
+        every registered probe is baked and convolved from its bounds
+        center (the camera position is the fallback origin of an unbounded
+        probe, frozen at its first bake).  Every probe's sample count
+        restarts when r_refl_gen changes."""
+        d, v = cv.cv_r_refl_gen.check_dirty(self._refl_version)
+        self._refl_version = v
+        from pim_tpu_torch.render.cubemap import get_registry
+
+        reg = get_registry()
+        if d:
+            reg.reset_samples()
+        if not cv.cv_r_refl_gen.get():
+            return
+        if not reg.names():
+            reg.add("default", 64, device=self.device)
+        with profile("Cubemap_Trace"):
+            for name in reg.names():
+                reg.bake(name, self.meta, self.arrays, self.lights,
+                         fallback_origin=np.asarray(self.camera.position, np.float32),
+                         max_bounces=int(cv.cv_pt_max_bounces.get()))
+
     # --- checkpoint / resume --------------------------------------------------
     # The checkpoint carries the entities, textures, camera, depth of field,
-    # the trace buffers, sample count, adaptive light state and exposure, so
-    # a progressive render resumes bit for bit.  The format is the JAX
-    # package's: a crate either package wrote resumes in the other.
+    # the trace buffers, sample count, adaptive light state and exposure, the
+    # lightmap pack (with its per-texel sample counts and the bake frame) and
+    # the light probes, so a progressive render and bake resume bit for bit.
+    # The format is the JAX package's: a crate either package wrote resumes
+    # in the other.  The lightmap entry also carries `axii` and `version`
+    # (as lightmap.lmpack_to_crate_entry writes them); the JAX package's
+    # checkpoint writes neither, and an entry without axii loads with
+    # GI_AXII (ROADMAP F11).
 
     def checkpoint_save(self, path: str) -> None:
         crate = Crate()
@@ -380,7 +453,7 @@ class RenderSystem:
             "autofocus_speed": float(self.dof.autofocus_speed),
         })
         crate.set("progress", {"width": self.width, "height": self.height,
-                               "sample_count": self.sample_count, "lm_frame": 0})
+                               "sample_count": self.sample_count, "lm_frame": self._lm_frame})
         if self.buffers is not None:
             crate.set("buffers", {k: _np(getattr(self.buffers, k))
                                   for k in ("color", "albedo", "normal")})
@@ -390,15 +463,20 @@ class RenderSystem:
                     else _np(getattr(self.lights, f))) for f in _LIGHT_FIELDS})
         crate.set("exposure", {"avg_lum": float(self.exp_state.avg_lum),
                                "exposure": float(self.exp_state.exposure)})
+        if self.lm_pack is not None:
+            from pim_tpu_torch.render.lightmap import lmpack_to_crate_entry
+
+            crate.set("lmpack", lmpack_to_crate_entry(self.lm_pack))
+        if self.probes:
+            from pim_tpu_torch.render.probes import probe_to_crate_entry
+
+            crate.set("light_probes", {name: probe_to_crate_entry(p)
+                                       for name, p in self.probes.items()})
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         crate.save(path)
 
     def checkpoint_load(self, path: str) -> None:
         crate = Crate.load(path)
-        for entry in ("lmpack", "light_probes"):
-            if crate.get(entry) is not None:
-                raise NotImplementedError(
-                    f"checkpoint entry {entry!r}: lightmaps and light probes are {ITEM_23}")
         self.entities = Entities.from_crate_entry(crate.get("entities"))
         tex = crate.get("textures")
         self.pool = TexturePool.from_crate_entry(tex) if tex is not None else TexturePool()
@@ -432,10 +510,22 @@ class RenderSystem:
             self.buffers = TraceBuffers(*(dev_t(buf[k], torch.float32)
                                           for k in ("color", "albedo", "normal")))
         self.sample_count = int(prog["sample_count"])
+        self._lm_frame = int(prog["lm_frame"])
         e = crate.get("exposure")
         self.exp_state = ExposureState(
             avg_lum=torch.tensor(np.float32(e["avg_lum"]), device=self.device),
             exposure=torch.tensor(np.float32(e["exposure"]), device=self.device))
+        lp = crate.get("lmpack")
+        if lp is not None:
+            from pim_tpu_torch.render.lightmap import lmpack_from_crate_entry
+
+            self.lm_pack = lmpack_from_crate_entry(lp, self.device)
+        pr = crate.get("light_probes")
+        if pr is not None:
+            from pim_tpu_torch.render.probes import probe_from_crate_entry
+
+            self.probes = {name: probe_from_crate_entry(e, self.device)
+                           for name, e in pr.items()}
         # the restored camera must not restart the accumulation
         self._cam_snapshot = self._camera_snapshot()
 
@@ -665,13 +755,55 @@ class RenderSystem:
                 con_logf(LogSev.Info, "map", "loadtest: %d maps ok", len(names))
             return status
 
-        def cmd_item_23(argv: List[str]) -> CmdStat:
-            con_logf(LogSev.Error, "probe", "%s: light probes are %s, not ported yet",
-                     argv[0], ITEM_23)
-            return CmdStat.ERR
+        def cmd_probe_bake(argv: List[str]) -> CmdStat:
+            """One progressive pass of an ambient-cube and L1 SH light probe
+            at the camera (or at -at x y z); repeat to refine.  A probe moved
+            to a new origin starts over."""
+            from pim_tpu_torch.render.probes import probe_bake_step, probe_new
 
-        sys.reg("probe_bake", cmd_item_23, f"bake a light probe ({ITEM_23}, not ported)")
-        sys.reg("probe_report", cmd_item_23, f"log a light probe ({ITEM_23}, not ported)")
+            self._ensure_scene()
+            if self.meta is None or self.meta.tri_count == 0:
+                con_logf(LogSev.Error, "probe", "no scene loaded")
+                return CmdStat.ERR
+            name = argv[1] if len(argv) > 1 and not argv[1].startswith("-") else "camera"
+            samples = int(cmd_getopt(argv, "samples") or 1024)
+            if cmd_getopt(argv, "at") is not None:
+                i = argv.index("-at") if "-at" in argv else argv.index("--at")
+                origin = np.asarray([float(argv[i + 1]), float(argv[i + 2]),
+                                     float(argv[i + 3])], np.float32)
+            else:
+                origin = np.asarray(self.camera.position, np.float32)
+            probe = self.probes.get(name)
+            if probe is None or not np.allclose(_np(probe.origin), origin):
+                probe = probe_new(origin, self.device)
+            probe = probe_bake_step(self.meta, self.arrays, self.lights, probe, samples=samples,
+                                    max_bounces=int(cv.cv_pt_max_bounces.get()))
+            self.probes[name] = probe
+            con_logf(LogSev.Info, "probe", "probe '%s' pass %d (%d rays) at (%.2f %.2f %.2f)",
+                     name, int(probe.sample_count), samples, *origin.tolist())
+            return CmdStat.OK
+
+        def cmd_probe_report(argv: List[str]) -> CmdStat:
+            """Log a probe's ambient-cube and SH irradiance along the six
+            axes."""
+            from pim_tpu_torch.render.probes import probe_irradiance, probe_sh_irradiance
+
+            name = argv[1] if len(argv) > 1 else "camera"
+            probe = self.probes.get(name)
+            if probe is None:
+                con_logf(LogSev.Error, "probe", "no probe '%s'", name)
+                return CmdStat.ERR
+            axes = np.asarray([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1],
+                               [0, 0, -1]], np.float32)
+            cube = _np(probe_irradiance(probe, axes))
+            sh = _np(probe_sh_irradiance(probe, axes))
+            for i, tag in enumerate(["+x", "-x", "+y", "-y", "+z", "-z"]):
+                con_logf(LogSev.Info, "probe", "%s %s cube(%.4f %.4f %.4f) sh(%.4f %.4f %.4f)",
+                         name, tag, *cube[i].tolist(), *sh[i].tolist())
+            return CmdStat.OK
+
+        sys.reg("probe_bake", cmd_probe_bake, "bake an ambient-cube/SH light probe")
+        sys.reg("probe_report", cmd_probe_report, "log a light probe's irradiance")
         sys.reg("cornell_box", cmd_cornell, "load the cornell box test scene")
         sys.reg("mapgen", cmd_mapgen, "generate + export + load a procedural map")
         sys.reg("loadtest", cmd_loadtest, "load/unload every map in basedir")

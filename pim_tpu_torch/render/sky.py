@@ -19,7 +19,9 @@ The cubemap [6, S, S, 3] is fetched through K6 with C = 3 from [12, 6*S*S]
 corner planes (`sky_corner_planes`, the reference's slice-shifts, clamped
 at each face edge), or, on the differentiable path, by its four corners
 through ONE K7 call on the [3, 6*S*S] cube planes and the JAX package's
-lerp form.
+lerp form.  The reflection probes read their own cubes with
+`sample_sky_cubemap`, the reference's AoS fetch as plain torch ops (the
+reference runs it as XLA ops too, outside Pallas).
 """
 
 from __future__ import annotations
@@ -299,6 +301,46 @@ def sample_sky_cubemap_planes(cube: torch.Tensor, rd: V3) -> V3:
         bot = t01 + (t11 - t01) * tx
         out.append(top + (bot - top) * ty)
     return V3(*out)
+
+
+def sample_sky_cubemap(cube: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Bilinear-clamp cubemap fetch: cube [6, S, S, 3], dirs [..., 3] ->
+    [..., 3], the reference's AoS formula op for op."""
+    size = cube.shape[1]
+    absd = torch.abs(dirs)
+    vmax = torch.amax(absd, dim=-1)
+    ma = 0.5 / torch.clamp_min(vmax, EPS)
+
+    is_x = vmax == absd[..., 0]
+    is_y = (~is_x) & (vmax == absd[..., 1])
+    face = torch.where(
+        is_x,
+        torch.where(dirs[..., 0] < 0, 1, 0),
+        torch.where(is_y, torch.where(dirs[..., 1] < 0, 3, 2),
+                    torch.where(dirs[..., 2] < 0, 5, 4)),
+    )
+    rights = torch.from_numpy(_RIGHTS).to(dirs.device)[face]
+    ups = torch.from_numpy(_UPS).to(dirs.device)[face]
+    u = torch.sum(rights * dirs, -1) * ma + 0.5
+    v = torch.sum(ups * dirs, -1) * ma + 0.5
+
+    fx = torch.clamp(u, 0.0, 1.0) * float(size - 1)
+    fy = torch.clamp(v, 0.0, 1.0) * float(size - 1)
+    x0 = torch.floor(fx).to(torch.int64)
+    y0 = torch.floor(fy).to(torch.int64)
+    x1 = torch.clamp_max(x0 + 1, size - 1)
+    y1 = torch.clamp_max(y0 + 1, size - 1)
+    tx = (fx - x0.to(torch.float32))[..., None]
+    ty = (fy - y0.to(torch.float32))[..., None]
+    flat = cube.reshape(-1, 3)
+    base = face * (size * size)
+    taa = flat[base + y0 * size + x0]
+    tba = flat[base + y0 * size + x1]
+    tab = flat[base + y1 * size + x0]
+    tbb = flat[base + y1 * size + x1]
+    top = taa + (tba - taa) * tx
+    bot = tab + (tbb - tab) * tx
+    return top + (bot - top) * ty
 
 
 def sky_radiance(meta, arrays, rd: V3, active=None) -> V3:

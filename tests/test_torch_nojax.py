@@ -6,7 +6,8 @@ through another module) raises there.  No module of the JAX package may be
 imported at all: the port keeps its own copies of the host modules it needs
 (entities, meshes, materials, the glTF helpers, the cvar registry) and of
 the gate bands.  The port loads the e1m1 glTF there too, so its texture
-pool needs no `ml_dtypes`, and its engine shell runs a media pt_test."""
+pool needs no `ml_dtypes`, and its engine shell runs a media pt_test and the
+bakes (lm_gen, r_refl_gen, probe_bake, probe_report, a checkpoint)."""
 
 import ast
 import json
@@ -27,11 +28,12 @@ from pim_tpu_torch import app, native
 from pim_tpu_torch.core import cmd, console, crate, cvar, cvars, guid, profiler, rng, timesys
 from pim_tpu_torch.geom import cornell, entities, gltf, maps, material, mesh
 from pim_tpu_torch.math import (brdf, color, cubic_fit, dist1d, geometry, grid, noise, sampling,
-                                vec3)
-from pim_tpu_torch.render import (bsdf, camera, cluster, dense_kernels, denoise, exposure, fetch,
-                                  gather_kernel, diff, integrator, lights, media, raysort,
-                                  render_system, scene, screenshot, sky, surface, table_gather)
-from pim_tpu_torch.tools import prof_frame, vml_first_call
+                                sh, sphgauss, vec3)
+from pim_tpu_torch.render import (bsdf, camera, cluster, cubemap, dense_kernels, denoise,
+                                  exposure, fetch, gather_kernel, diff, integrator, lightmap,
+                                  lights, media, probes, raysort, render_system, scene,
+                                  screenshot, sky, surface, table_gather)
+from pim_tpu_torch.tools import bake_e1m1_lightmap, prof_frame, vml_first_call
 sc = app.build_cornell_scene("cpu")
 fr = app.render_frame(sc, "cornell", 8, 8, 2, 1, 1)
 assert fr.buffers.color.shape == (64, 3) and bool(torch.isfinite(fr.buffers.color).all())
@@ -46,6 +48,13 @@ eng = app.Engine(width=8, height=8, device="cpu")
 eng.init()
 assert eng.run("pt_max_bounces 2; pt_media 1; pt_test -frames 2 -nogate") == 0
 assert eng.render.meta.media_enabled and len(os.listdir("screenshots")) == 2
+cubemap.get_registry().add("default", 4, device="cpu")
+eng = app.Engine(width=8, height=8, device="cpu")
+eng.init()
+assert eng.run("cornell_box; pt_max_bounces 2; pt_media 0; lm_density 0.5; lm_gen 1; "
+               "r_refl_gen 1; pt_trace 1; wait 1; probe_bake -samples 64; probe_report; "
+               "ckpt_save nojax; quit") == 0
+assert int((eng.render.lm_pack.sample_counts > 1).sum()) > 0 and "camera" in eng.render.probes
 bad = sorted(m for m in sys.modules
              if m.startswith("jax.") or m.startswith("ml_dtypes.")
              or m == "pim_tpu" or m.startswith("pim_tpu."))

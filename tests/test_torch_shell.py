@@ -22,6 +22,15 @@
   cvar-driven rebuilds (pt_media among them), pt_gate pass and fail on the
   port's own bands, pt_spp batching, the batch exit code and the CLI run
   that writes two PNGs.
+- The bakes through the shell on Cornell (lm_gen 1 at 1 texel/m,
+  r_refl_gen 1 with an 8^2 probe, probe_bake with 256 rays, 3 bounces,
+  2 frames) against pim_tpu's shell: the lightmap's sample counts bit for
+  bit and its probes, the reflection probe's color and mips by the frame
+  rule above (97% of values, means within 2%), the light probe within 2%
+  of its largest value (a few of its 256 rays may diverge); a bake
+  checkpoint resumed bit for bit; a pim_tpu crate with a lightmap (no
+  `axii`) and a light probe resumed by the port, which pim_tpu cannot
+  load (ROADMAP F11).
 """
 
 import dataclasses
@@ -331,7 +340,8 @@ def test_curve_fit_quality():
 
 _SAVED = (cv.cv_pt_trace, cv.cv_pt_max_bounces, cv.cv_r_width, cv.cv_r_height, cv.cv_r_scale,
           cv.cv_pt_backend, cv.cv_exp_manual, cv.cv_pt_media, cv.cv_pt_spp, cv.cv_pt_seed,
-          cv.cv_pt_denoise, cv.cv_exp_evoffset, cv.cv_basedir, cv.cv_lm_gen)
+          cv.cv_pt_denoise, cv.cv_exp_evoffset, cv.cv_basedir, cv.cv_lm_gen, cv.cv_r_refl_gen,
+          cv.cv_lm_density)
 
 
 @pytest.fixture()
@@ -612,13 +622,162 @@ def test_pt_spp_batching_matches_sequential(rs):
     np.testing.assert_allclose(fresh.buffers.color.numpy(), seq, rtol=2e-5, atol=2e-6)
 
 
-def test_item_23_is_refused_not_skipped(rs):
-    _frames(rs, 1)
-    cv.cv_lm_gen.set(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue item 23"):
+# ---------------------------------------------------------------------------
+# the bakes: lm_gen, r_refl_gen, probe_bake / probe_report
+# ---------------------------------------------------------------------------
+
+LM_DENSITY = 1.0  # a 64^2 atlas of 1,858 live texels
+PROBE_RES = 8     # the reflection probe registered before the first frame
+PROBE_RAYS = 256
+PROBE_CMD = f"probe_bake -samples {PROBE_RAYS} -at 0 -1 0.5"
+_JSAVED = ("cv_pt_max_bounces", "cv_pt_trace", "cv_exp_manual", "cv_lm_gen", "cv_r_refl_gen",
+           "cv_lm_density")
+
+
+@pytest.fixture()
+def bakes(rs):
+    """The bake cvars on in both packages (lm_gen, r_refl_gen, a 1 texel/m
+    lightmap), each package's probe registry emptied (a module global) and
+    given an 8^2 "default" probe; all restored afterwards."""
+    from pim_tpu.render import cubemap as jcubemap
+    from pim_tpu_torch.render import cubemap
+
+    saved = [(getattr(jcv, n), getattr(jcv, n).get()) for n in _JSAVED]
+    cubemap._registry = jcubemap._registry = None
+    for c in (cv, jcv):
+        c.cv_lm_gen.set(True)
+        c.cv_r_refl_gen.set(True)
+        c.cv_lm_density.set(LM_DENSITY)
+    cubemap.get_registry().add("default", PROBE_RES, device="cpu")
+    jcubemap.get_registry().add("default", PROBE_RES)
+    yield cubemap.get_registry(), jcubemap.get_registry()
+    cubemap._registry = jcubemap._registry = None
+    for c, v in saved:
+        c.set(v)
+
+
+def _rule(got, want, mean_rel=0.02):
+    """test_torch_frame.py's rule: 97% of values within rtol 1e-4 / atol
+    1e-5, the means within 2%."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    close = np.isclose(got, want, rtol=1e-4, atol=1e-5).mean()
+    assert close >= 0.97, close
+    assert abs(got.mean() - want.mean()) <= mean_rel * abs(want.mean())
+
+
+def _probe_close(got, want):
+    """A light probe against the reference's: 256 rays, of which a few may
+    diverge after an ulp-level flip, so within 2% of the largest value."""
+    assert int(got.sample_count) == int(want.sample_count)
+    for f in ("faces", "sh"):
+        g, w = getattr(got, f).numpy(), np.asarray(getattr(want, f))
+        assert np.abs(g - w).max() <= 0.02 * np.abs(w).max(), f
+
+
+def _jax_bake_rs(tmp_path):
+    from pim_tpu.core.cmd import get_cmd_system as jcmds
+
+    jsys = _jax_rs(tmp_path)
+    jsys.init()
+    return jsys, jcmds()
+
+
+def test_bakes_match_the_reference_shell(rs, bakes, tmp_path):
+    """lm_gen 1 and r_refl_gen 1 over 2 frames, then probe_bake and
+    probe_report, in the port's shell and in pim_tpu's on Cornell."""
+    reg, jreg = bakes
+    jsys, jcmds = _jax_bake_rs(tmp_path)
+    for _ in range(2):
+        jsys.update()
         rs.update()
-    cv.cv_lm_gen.set(False)
-    assert get_cmd_system().immediate("probe_bake") == CmdStat.ERR
+    assert jcmds.immediate(PROBE_CMD) == CmdStat.OK
+    assert get_cmd_system().immediate(PROBE_CMD) == CmdStat.OK
+    assert get_cmd_system().immediate("probe_report") == CmdStat.OK
+    from pim_tpu_torch.core.console import get_console
+
+    lines = [m for _, tag, m in get_console().lines() if tag == "probe"]
+    assert sum(m.startswith("camera ") and "cube(" in m for m in lines[-6:]) == 6
+    assert get_cmd_system().immediate("probe_report nowhere") == CmdStat.ERR
+
+    pack, jpack = rs.lm_pack, jsys.lm_pack
+    assert rs._lm_frame == jsys._lm_frame == 2 and pack.size == jpack.size == 64
+    np.testing.assert_array_equal(pack.sample_counts.numpy(), np.asarray(jpack.sample_counts))
+    live = pack.sample_counts.numpy() > 0
+    assert int(live.sum()) == 1858 and (pack.sample_counts.numpy()[live] == 3).all()
+    _rule(pack.probes.numpy()[live], np.asarray(jpack.probes)[live])
+
+    cm, jcm = reg.find("default"), jreg.find("default")
+    assert reg._samples["default"] == jreg._samples["default"] == 2
+    _rule(cm.color.numpy(), jcm.color)
+    for got, want in zip(cm.mips, jcm.mips):
+        _rule(got.numpy(), want)
+
+    _probe_close(rs.probes["camera"], jsys.probes["camera"])
+    np.testing.assert_array_equal(rs.probes["camera"].origin.numpy(), [0.0, -1.0, 0.5])
+
+
+def test_bake_checkpoint_resumes_bit_for_bit(rs, bakes):
+    """ckpt_save after 2 frames with the bakes on and a light probe, then 2
+    more frames and a probe pass, against a fresh render system resumed
+    from the crate: the frame, the lightmap, its bake frame and the light
+    probe bit for bit (the reflection probes are not in a crate, as in the
+    reference)."""
+    _frames(rs, 2)
+    assert get_cmd_system().immediate(PROBE_CMD) == CmdStat.OK
+    rs.checkpoint_save("maps/b.ckpt.crate")
+    _frames(rs, 2)
+    assert get_cmd_system().immediate(PROBE_CMD) == CmdStat.OK
+
+    fresh = RenderSystem(width=4, height=4, device="cpu")
+    fresh.init()
+    fresh.checkpoint_load("maps/b.ckpt.crate")
+    assert fresh._lm_frame == 2 and int(fresh.probes["camera"].sample_count) == 1
+    _frames(fresh, 2)
+    assert get_cmd_system().immediate(PROBE_CMD) == CmdStat.OK
+    assert fresh._lm_frame == rs._lm_frame == 4
+    assert torch.equal(fresh.buffers.color, rs.buffers.color)
+    for f in ("probes", "sample_counts", "position", "normal", "axii"):
+        assert torch.equal(getattr(fresh.lm_pack, f), getattr(rs.lm_pack, f)), f
+    for f in rs.probes["camera"]._fields:
+        assert torch.equal(getattr(fresh.probes["camera"], f), getattr(rs.probes["camera"], f))
+
+
+def test_reference_bake_crate_resumes_in_the_port(rs, bakes, tmp_path):
+    """A crate that pim_tpu's checkpoint_save wrote with a lightmap and a
+    light probe (its lmpack entry has no axii) resumes in the port with the
+    reference's state bit for bit, and both continue alike.  pim_tpu itself
+    cannot load such a crate, from either package (ROADMAP F11)."""
+    jsys, jcmds = _jax_bake_rs(tmp_path)
+    for _ in range(2):
+        jsys.update()
+    assert jcmds.immediate(PROBE_CMD) == CmdStat.OK
+    jsys.checkpoint_save(str(tmp_path / "j.ckpt.crate"))
+    assert "axii" not in Crate.load(str(tmp_path / "j.ckpt.crate")).get("lmpack")
+
+    rs.checkpoint_load(str(tmp_path / "j.ckpt.crate"))
+    assert rs._lm_frame == 2
+    for f in ("position", "normal", "probes", "sample_counts"):
+        np.testing.assert_array_equal(getattr(rs.lm_pack, f).numpy(),
+                                      np.asarray(getattr(jsys.lm_pack, f)), err_msg=f)
+    np.testing.assert_array_equal(rs.lm_pack.axii.numpy(), np.asarray(jsys.lm_pack.axii))
+    for f in ("origin", "faces", "sh", "sample_count"):
+        np.testing.assert_array_equal(getattr(rs.probes["camera"], f).numpy(),
+                                      np.asarray(getattr(jsys.probes["camera"], f)))
+    for _ in range(2):
+        jsys.update()
+    _frames(rs, 2)
+    np.testing.assert_array_equal(rs.lm_pack.sample_counts.numpy(),
+                                  np.asarray(jsys.lm_pack.sample_counts))
+    live = rs.lm_pack.sample_counts.numpy() > 0
+    _rule(rs.lm_pack.probes.numpy()[live], np.asarray(jsys.lm_pack.probes)[live])
+    _frame_close(rs.buffers.color.numpy(), np.asarray(jsys.buffers.color))
+
+    rs.checkpoint_save(str(tmp_path / "t.ckpt.crate"))
+    assert "axii" in Crate.load(str(tmp_path / "t.ckpt.crate")).get("lmpack")
+    for path in ("j.ckpt.crate", "t.ckpt.crate"):
+        with pytest.raises(TypeError, match="axii"):
+            jrs.RenderSystem().checkpoint_load(str(tmp_path / path))
 
 
 def test_pt_debug_raises_on_a_poisoned_frame(rs):
