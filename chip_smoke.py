@@ -116,9 +116,12 @@ exits non-zero:
      the pack bit for bit against data/e1m1/lmpack.npz (position, normal,
      live mask), every live texel's count 1 + frames, dead texels untouched,
      probes finite and rgb >= 0; `probe_bake -samples 1024` and
-     `probe_report`; K4 and K5 on the bake's own rays (its hemisphere and
-     bounce-1 rays, its first two NEE shadow-ray calls; the first
-     PLAIN_LANES live lanes of each) bitwise against their plain versions;
+     `probe_report`; K4 and K5 on the bake's own calls (its hemisphere and
+     bounce-1 rays, its first two NEE shadow-ray calls): the wrapper on
+     all 1,048,576 lanes of each, its outputs at PLAIN_LANES live lanes
+     spread evenly over the call bitwise against the plain version on
+     those lanes, and every
+     dead lane a miss (K4 t = -1 and tri = -1, K5 0);
      an e1m1 shard of SHARD_LIVE live texels at 3 bounces, card against
      CPU; pim_tpu_torch/tools/bake_e1m1_lightmap.py at TOOL_FRAMES frames
      (its crate resume bit for bit, Mtexel-samples/s printed).  Cornell:
@@ -2071,18 +2074,35 @@ def _bake_rule(label: str, gpu, cpu, elementwise: bool = True) -> None:
         raise AssertionError(f"{label}: the card's bake disagrees with the CPU's")
 
 
-def _live_lanes(args, lanes: int):
-    """The first `lanes` live lanes (t_far > 0) of a ray call, as a call."""
+def _bake_call_against_plain(cl, args, anyhit: bool, lanes: int):
+    """K4 (K5 with `anyhit`) through its wrapper on the whole of a bake's
+    ray call (ro, rd, t_near, t_far): (the live lanes (t_far > 0); the
+    lanes compared: at most `lanes` live ones, evenly spaced over the call
+    so that they cover the whole atlas; whether the wrapper's outputs there
+    equal the plain version's on those lanes bit for bit; their largest
+    difference there; whether every dead lane reports a miss: t = -1 and
+    tri = -1 from K4, 0 from K5)."""
     import torch
 
     from pim_tpu_torch.math.vec3 import V3
     from pim_tpu_torch.render import cluster as CL
+    from pim_tpu_torch.tools import cluster_check as cc
 
     ro, rd, t_near, t_far = args
     tf = CL._per_ray_t_far(t_far, ro.x.shape[0], ro.x.device)
-    idx = torch.nonzero(tf > 0.0).flatten()[:lanes]
-    return (V3(*(c[idx] for c in ro)), V3(*(c[idx] for c in rd)), t_near, tf[idx]), int(
-        (tf > 0.0).sum())
+    wrap, plain = ((CL.cluster_anyhit, CL.cluster_anyhit_plain) if anyhit
+                   else (CL.cluster_isect, CL.cluster_isect_plain))
+    got = cc.outs(wrap(cl, ro, rd, t_near, t_far))
+    live = tf > 0.0
+    idx = torch.nonzero(live).flatten()
+    idx = idx[:: max(1, -(-idx.numel() // lanes))]
+    want = cc.outs(plain(cl, V3(*(c[idx] for c in ro)), V3(*(c[idx] for c in rd)), t_near,
+                         tf[idx]))
+    head = tuple(a[idx] for a in got)
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(head, want))
+    miss = (0,) if anyhit else (-1.0, -1)
+    dead_miss = all(bool((a[~live] == m).all()) for a, m in zip(got, miss))
+    return int(live.sum()), idx.numel(), cc.same_bits(head, want), err, dead_miss
 
 
 def _bake_shell(dev, script: str):
@@ -2205,12 +2225,13 @@ def run_e1m1_bakes(dev, e1m1_scene, launches: dict, smi: str):
                              ("bounce-1 rays", isect[cont], False),
                              ("bounce-1 NEE shadow rays", anyhit[0], True),
                              ("bounce-2 NEE shadow rays", anyhit[1], True)):
-        sub, n_live = _live_lanes(args, PLAIN_LANES)
-        _, ok, err = cc.against_plain(cl, sub, hit, PLAIN_LANES)
-        print(f"{'K5' if hit else 'K4'} on the e1m1 bake's {label}: {n_tex} lanes, {n_live} "
-              f"live; the first {sub[0].x.shape[0]} live bitwise equal to plain {ok} "
-              f"(max abs err {err})")
-        if not ok:
+        n_live, n_cmp, ok, err, dead_miss = _bake_call_against_plain(cl, args, hit,
+                                                                     PLAIN_LANES)
+        print(f"{'K5' if hit else 'K4'} on the e1m1 bake's {label}: the wrapper on all "
+              f"{n_tex} lanes, {n_live} live; at {n_cmp} live lanes spread over the call "
+              f"bitwise equal to plain {ok} (max abs err {err}); all {n_tex - n_live} dead "
+              f"lanes a miss {dead_miss}")
+        if not (ok and dead_miss):
             raise AssertionError(f"K4/K5 differ from their plain versions on the bake's {label}")
     del calls, isect, anyhit
 

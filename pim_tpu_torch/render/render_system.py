@@ -548,9 +548,15 @@ class RenderSystem:
         return float(luminance_stddev(self.buffers.color))
 
     def screenshot(self, name: Optional[str] = None) -> str:
-        """A tonemapped PNG under screenshots/."""
+        """A tonemapped PNG under screenshots/.  An unnamed one is named by the
+        second; a second unnamed one in the same second (pt_test's denoised
+        and raw pair) gets a suffix instead of overwriting the first, so the
+        files a script writes do not depend on the clock."""
         if name is None:
-            name = time.strftime("%Y_%m_%d_%H_%M_%S")
+            stamp = name = time.strftime("%Y_%m_%d_%H_%M_%S")
+            k = 1
+            while os.path.exists(os.path.join("screenshots", f"{name}.png")):
+                name, k = f"{stamp}_{k}", k + 1
         path = os.path.join("screenshots", f"{name}.png")
         srgb = tonemap_for_display(self.image_hdr(), self.exp_state.exposure)
         write_png(path, quantize_dithered(srgb), flip_vertical=True)

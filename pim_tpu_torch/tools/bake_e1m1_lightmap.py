@@ -196,7 +196,6 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=64)
     ap.add_argument("--density", type=float, default=4.0)
-    ap.add_argument("--bounces", type=int, default=BOUNCES)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--out-dir", default=OUT_DIR)
     args = ap.parse_args(argv)
@@ -207,7 +206,7 @@ def main(argv=None) -> None:
     live = int((pack.sample_counts > 0).sum())
     print(f"pack: atlas {pack.size}^2, {pack.size * pack.size} texels ({live} live) at "
           f"{args.density} texels/m in {pack_s:.1f} s")
-    bake(scene, pack, args.frames, args.out_dir, args.bounces)
+    bake(scene, pack, args.frames, args.out_dir)
 
 
 if __name__ == "__main__":

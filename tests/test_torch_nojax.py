@@ -47,7 +47,7 @@ os.chdir(tempfile.mkdtemp())
 eng = app.Engine(width=8, height=8, device="cpu")
 eng.init()
 assert eng.run("pt_max_bounces 2; pt_media 1; pt_test -frames 2 -nogate") == 0
-assert eng.render.meta.media_enabled and len(os.listdir("screenshots")) == 2
+assert eng.render.meta.media_enabled and len(os.listdir("screenshots")) == 3
 cubemap.get_registry().add("default", 4, device="cpu")
 eng = app.Engine(width=8, height=8, device="cpu")
 eng.init()

@@ -809,22 +809,49 @@ def test_engine_exit_code_follows_failed_commands(tmp_path, monkeypatch):
             c.set(v)
 
 
-def test_cli_pt_test_writes_two_pngs(tmp_path, monkeypatch):
+def _cli_pt_test_pngs(tmp_path, monkeypatch, frames: int) -> list:
     monkeypatch.chdir(tmp_path)
     saved = [(c, c.get()) for c in _SAVED]
     try:
         with pytest.raises(SystemExit) as ex:
             app.main(["--device", "cpu", "--width", "16", "--height", "16", "--exec",
-                      "pt_test -frames 8 -nogate"])
+                      f"pt_test -frames {frames} -nogate"])
         assert ex.value.code == 0
     finally:
         for c, v in saved:
             c.set(v)
-    pngs = sorted(os.listdir(tmp_path / "screenshots"))
-    assert len(pngs) == 2 and any(p.startswith("pt_stddev_") for p in pngs)
+    return sorted(os.listdir(tmp_path / "screenshots"))
+
+
+def test_cli_pt_test_writes_two_pngs(tmp_path, monkeypatch):
+    """pt_test's two screenshots, the denoised and the raw one, beside
+    pt_stddev's image."""
+    pngs = _cli_pt_test_pngs(tmp_path, monkeypatch, 8)
+    assert len(pngs) == 3 and sum(p.startswith("pt_stddev_") for p in pngs) == 1
     for p in pngs:
         img = screenshot.read_png(str(tmp_path / "screenshots" / p))
         assert img.shape == (16, 16, 3) and img.max() > 0
+
+
+@pytest.mark.parametrize("same_second", [True, False])
+def test_pt_test_screenshots_do_not_depend_on_the_clock(tmp_path, monkeypatch, same_second):
+    """The denoised and raw screenshots are both kept whether or not a
+    second passes between them (unnamed screenshots are named by the
+    second; a second one in the same second gets a suffix)."""
+    ticks = iter(range(1000))
+    strftime = render_system.time.strftime
+
+    def clock(fmt, *args):
+        if fmt != "%Y_%m_%d_%H_%M_%S":  # the console's stamps
+            return strftime(fmt, *args)
+        return "2026_01_01_00_00_" + ("00" if same_second else f"{next(ticks):02d}")
+
+    monkeypatch.setattr(render_system.time, "strftime", clock)
+    pngs = _cli_pt_test_pngs(tmp_path, monkeypatch, 2)
+    stamps = [p for p in pngs if not p.startswith("pt_stddev_")]
+    want = (["2026_01_01_00_00_00.png", "2026_01_01_00_00_00_1.png"] if same_second
+            else ["2026_01_01_00_00_00.png", "2026_01_01_00_00_01.png"])
+    assert stamps == want and len(pngs) == 3
 
 
 def test_cli_refuses_cuda_without_a_card():
