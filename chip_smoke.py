@@ -134,7 +134,28 @@ exits non-zero:
      rays, bitwise (K2 in both forms); a checkpoint after 2 frames of
      `lm_gen 1` + `r_refl_gen 1` and a probe_bake, resumed in a fresh
      render system for 2 frames: the frame, the lightmap and the light
-     probe bit for bit those of 4 uninterrupted frames.
+     probe bit for bit those of 4 uninterrupted frames;
+  8. the scale-out layer (pim_tpu_torch/parallel/; outputs under
+     build/parallel/): the main process traces sample PAR_SAMPLE of the
+     e1m1 512^2, 10-bounce frame unsharded, takes one one-rank SGD step of
+     the e1m1 512^2, 3-bounce training (all six groups, against a target
+     rendered with perturbed parameters) and bakes PAR_BAKE_FRAMES passes
+     of the e1m1 lightmap from data/e1m1/lmpack.npz (1,048,576 texels);
+     then a spawned two-rank gloo world, both ranks on cuda:0 (NCCL
+     refuses two ranks on one card), each building e1m1 on the card (its
+     tables and light state by sha256 equal to the main process's): the
+     sharded render of the same sample, gathered, bit for bit the
+     unsharded trace on every lane (color, albedo, normal) and `live`
+     equal; PAR_TRAIN_STEPS sharded SGD steps (finite losses, every group
+     moved, both ranks the same parameters, the first update within
+     PAR_UPDATE_RTOL of the one-rank update, K3-bwd, K7 and K7-bwd
+     launched); the texel-sharded bake (524,288 texels a rank), gathered,
+     bit for bit the whole bake; then a one-rank NCCL world:
+     dryrun_multichip(1) and the sharded Cornell 512^2 frame (SPP samples,
+     10 bounces) inside `cornell512`; and `cornell_box spheres` through the
+     shell at 128^2 (the cluster backend with glass: finite, nonzero, K4/K5
+     launched).  Each path's wall a step per rank beside the one-rank wall,
+     the launches per rank and the peak memory per rank are printed.
 Timing: every kernel, its plain version and its library call get `ms`, the
 device time per call: a GPU sleep holds the stream while the host queues
 DEVICE_RUNS back-to-back calls behind it between two CUDA events, and the
@@ -568,6 +589,17 @@ PATHS = {
     "gather_texels": ("e1m1_train",),
     "gather_texels_bwd": ("e1m1_train",),
 }
+# phase 8's paths and the kernels each must launch (added to PATHS)
+PAR_KERNELS = {
+    "e1m1_sharded_render": ("gather_cols",) + E1M1_KERNELS,
+    "e1m1_sharded_train": ("gather_cols", "cluster_isect", "cluster_anyhit") + TRAIN_KERNELS,
+    "e1m1_sharded_bake": ("gather_cols",) + E1M1_KERNELS,
+    "cornell_nccl_dryrun": ("dense_isect", "dense_anyhit", "gather_cols", "gather_cols_bwd"),
+    "cornell_nccl_render": CORNELL_KERNELS,
+    "cornell_spheres_shell": ("gather_cols", "cluster_isect", "cluster_anyhit"),
+}
+PATHS = {name: paths + tuple(p for p, names in PAR_KERNELS.items() if name in names)
+         for name, paths in PATHS.items()}
 SOURCES = {
     "dense_isect": ("pim_tpu_torch/csrc/dense_isect.cu", "pim_tpu/render/pallas_kernels.py:149"),
     "dense_anyhit": ("pim_tpu_torch/csrc/dense_isect.cu", "pim_tpu/render/pallas_kernels.py:183"),
@@ -2429,6 +2461,402 @@ def run_bakes(dev, e1m1_scene, cornell_cpu, smi: str) -> dict:
     return launches  # main fails the run if a kernel of a path (PATHS) never launched
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the scale-out layer (pim_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+PAR_RANKS = 2             # the gloo world's ranks, both on cuda:0
+PAR_SAMPLE = 0            # the sharded render's sample id
+PAR_TRAIN_STEPS = 2       # SGD steps of the sharded train step
+PAR_LR = 0.05             # make_sharded_train_step's default
+PAR_BAKE_FRAMES = (0, 1)  # passes of the texel-sharded e1m1 lightmap bake
+PAR_UPDATE_RTOL = 1e-4    # a sharded SGD update against the one-rank one (atomics)
+PAR_RENDER_RUNS = 3       # timed calls of the sharded and the unsharded render
+SPHERES_RES = 128         # the cornell_box spheres shell frame
+
+
+def _scene_digest(scene) -> dict:
+    """sha256 of every tensor of a scene's arrays and lights, by field."""
+    import dataclasses
+    import hashlib
+
+    _, arrays, lights = scene
+    return {f"{type(obj).__name__}.{f.name}": hashlib.sha256(
+        getattr(obj, f.name).detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+        for obj in (arrays, lights) for f in dataclasses.fields(obj)}
+
+
+def _par_timed(fn, barrier: bool = True):
+    """(fn(), its launches, its wall in s): from an idle device, every rank
+    starting together, the launch counts set to 0 just before."""
+    import torch
+    import torch.distributed as tdist
+
+    from pim_tpu_torch import native
+
+    torch.cuda.synchronize()
+    if barrier and tdist.is_initialized():
+        tdist.barrier()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, dict(native.launches), time.perf_counter() - t0
+
+
+def _sum_counts(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def _par_gloo_rank(out_dir: str) -> None:
+    """One rank of phase 8's gloo world: e1m1 built on cuda:0, then the
+    sharded render, train step and bake; its outputs to out_dir."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from pim_tpu_torch.app import SKY_STEPS, bench_camera, build_e1m1_scene
+    from pim_tpu_torch.core.crate import Crate
+    from pim_tpu_torch.parallel import dist as pdist
+    from pim_tpu_torch.parallel.shard import (make_mesh, make_sharded_render_step,
+                                              make_sharded_train_step)
+    from pim_tpu_torch.render import diff
+    from pim_tpu_torch.render import lightmap as lm
+    from pim_tpu_torch.tools.scaling_worker import gather_shards, shard_range
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    info = pdist.init_distributed(device=dev)
+    rank = info.process_id
+    mesh = make_mesh(PAR_RANKS, dev)
+    t0 = time.perf_counter()
+    scene = build_e1m1_scene(dev)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "backend": mesh.backend, "build_s": time.perf_counter() - t0,
+           "digest": _scene_digest(scene)}
+    meta, arrays, lights = scene
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    cam = bench_camera("e1m1", WIDTH, HEIGHT)
+    step = make_sharded_render_step(meta, mesh, WIDTH, HEIGHT, BOUNCES)
+    step(arrays, lights, cam, PAR_SAMPLE + 1)  # warm-up, another sample
+    out["launches"] = {}
+    (color, albedo, normal, live), out["launches"]["e1m1_sharded_render"], wall = _par_timed(
+        lambda: step(arrays, lights, cam, PAR_SAMPLE))
+    out["render_s"] = [wall] + [_par_timed(lambda: step(arrays, lights, cam, PAR_SAMPLE))[2]
+                                for _ in range(PAR_RENDER_RUNS - 1)]
+    out["render"] = [pdist.allgather_rows(x.cpu().numpy()) for x in (color, albedo, normal)]
+    out["render_live"] = live.cpu().numpy()
+
+    inp = torch.load(os.path.join(out_dir, "train_in.pt"), weights_only=False)
+    params = diff.DiffParams(*(x.to(dev) for x in inp["params"]))
+    target = inp["target"].to(dev)
+    tstep = make_sharded_train_step(meta, mesh, WIDTH, HEIGHT, TRAIN_BOUNCES, PAR_LR,
+                                    sky_steps=SKY_STEPS)
+    counts, losses, walls, updates, lt = {}, [], [], [], lights
+    for _ in range(PAR_TRAIN_STEPS):
+        (loss, params, lt), c, wall = _par_timed(
+            lambda p=params, l=lt: tstep(p, arrays, l, inp["cam"], target, TRAIN_SEED))
+        counts = _sum_counts(counts, c)
+        losses.append(float(loss))
+        walls.append(wall)
+        updates.append([x.cpu().numpy() for x in params])
+    out["launches"]["e1m1_sharded_train"] = counts
+    out["train"] = {"losses": losses, "walls": walls, "params": updates}
+
+    pack = lm.lmpack_from_crate_entry(
+        Crate.load(os.path.join(ROOT, "data", "e1m1", "lmpack.npz")).get("e1m1_lmpack"), dev)
+    off, cnt, per = shard_range(pack.position.shape[1], rank, PAR_RANKS)
+    counts, walls = {}, []
+    for f in PAR_BAKE_FRAMES:
+        pack, c, wall = _par_timed(lambda p=pack, f=f: lm.bake_step(
+            meta, arrays, lights, p, f, max_bounces=BOUNCES, texel_offset=off, texel_count=cnt))
+        counts = _sum_counts(counts, c)
+        walls.append(wall)
+    pack = gather_shards(pack, off, cnt, per)
+    probes, texel_counts = pack.probes.cpu().numpy(), pack.sample_counts.cpu().numpy()
+    out["launches"]["e1m1_sharded_bake"] = counts
+    out["bake"] = {"walls": walls, "texels": cnt,
+                   "sha256": hashlib.sha256(probes.tobytes() + texel_counts.tobytes()).hexdigest()}
+    if rank == 0:
+        np.save(os.path.join(out_dir, "bake_probes.npy"), probes)
+        np.save(os.path.join(out_dir, "bake_counts.npy"), texel_counts)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    torch.save(out, os.path.join(out_dir, f"gloo_rank{rank}.pt"))
+
+
+def _par_nccl_rank(out_dir: str, coordinator: str) -> None:
+    """The one-rank NCCL world on cuda:0: dryrun_multichip(1) and the sharded
+    Cornell 512^2 frame, their all-reduces on NCCL."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as tdist
+
+    from pim_tpu_torch.app import bench_camera, build_cornell_scene
+    from pim_tpu_torch.parallel.dryrun import dryrun_multichip
+    from pim_tpu_torch.parallel.shard import make_mesh, make_sharded_render_step
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    tdist.init_process_group("nccl", init_method=f"tcp://{coordinator}", world_size=1, rank=0)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, dry_counts, dry_s = _par_timed(lambda: dryrun_multichip(1, dev), barrier=False)
+    meta, arrays, lights = build_cornell_scene(dev)
+    mesh = make_mesh(1, dev)
+    cam = bench_camera("cornell", WIDTH, HEIGHT)
+    step = make_sharded_render_step(meta, mesh, WIDTH, HEIGHT, BOUNCES)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def frame():
+        acc = torch.zeros((WIDTH * HEIGHT, 3), dtype=torch.float32, device=dev)
+        for s in range(SPP):
+            acc = acc + step(arrays, lights, cam, s)[0]
+        return acc * (1.0 / SPP)
+
+    img, counts, wall = _par_timed(frame, barrier=False)
+    out = {"backend": tdist.get_backend(), "mesh_backend": mesh.backend,
+           "dryrun": buf.getvalue(), "dryrun_launches": dry_counts, "dryrun_s": dry_s,
+           "render_launches": counts, "render_s": wall,
+           "finite": bool(torch.isfinite(img).all()), "mean": float(img.mean()),
+           "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    tdist.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, "nccl_rank0.pt"))
+
+
+def _par_reference(dev, e1m1_scene, out_dir: str) -> dict:
+    """The main process's one-rank side of phase 8 on its own e1m1 scene:
+    the unsharded trace of the sample, the train step's inputs (saved for
+    the ranks) and one one-rank SGD step, the whole bake."""
+    import torch
+
+    from pim_tpu_torch.core import rng
+    from pim_tpu_torch.core.crate import Crate
+    from pim_tpu_torch.parallel.shard import make_mesh, make_sharded_train_step
+    from pim_tpu_torch.render import diff
+    from pim_tpu_torch.render import lightmap as lm
+    from pim_tpu_torch.render.camera import generate_primary_rays
+    from pim_tpu_torch.render.integrator import trace_rays
+    from pim_tpu_torch.app import SKY_STEPS, bench_camera
+
+    meta, arrays, lights = e1m1_scene
+    ref = {"digest": _scene_digest(e1m1_scene)}
+    cam = bench_camera("e1m1", WIDTH, HEIGHT)
+
+    def trace():
+        state = rng.make_state(torch.arange(N_RAYS, device=dev), PAR_SAMPLE)
+        state, ro, rd = generate_primary_rays(cam, WIDTH, HEIGHT, state)
+        return trace_rays(meta, arrays, lights, ro, rd, state, BOUNCES)
+
+    res, _, wall = _par_timed(trace)
+    ref["render_s"] = [wall] + [_par_timed(trace)[2] for _ in range(PAR_RENDER_RUNS - 1)]
+    ref["render"] = [x.cpu().numpy() for x in (res.color, res.albedo, res.normal)]
+    ref["render_live"] = (res.live & rng.MASK32).cpu().numpy()
+
+    tcam, params = _train_setup("e1m1", e1m1_scene, WIDTH)
+    with torch.no_grad():
+        target, _ = diff.make_render_fn(meta, WIDTH, HEIGHT, TRAIN_BOUNCES, SKY_STEPS)(
+            _perturbed(params), arrays, lights, tcam, TRAIN_SEED)
+    torch.save({"params": [x.cpu() for x in params], "target": target.cpu(), "cam": tcam},
+               os.path.join(out_dir, "train_in.pt"))
+    tstep = make_sharded_train_step(meta, make_mesh(1, dev), WIDTH, HEIGHT, TRAIN_BOUNCES, PAR_LR,
+                                    sky_steps=SKY_STEPS)
+    ref["params0"] = [x.cpu().numpy() for x in params]
+    ref["train_losses"], ref["train_s"], lt = [], [], lights
+    for i in range(PAR_TRAIN_STEPS):
+        (loss, params, lt), _, wall = _par_timed(
+            lambda p=params, l=lt: tstep(p, arrays, l, tcam, target, TRAIN_SEED))
+        ref["train_losses"].append(float(loss))
+        ref["train_s"].append(wall)
+        if i == 0:
+            ref["params1"] = [x.cpu().numpy() for x in params]
+
+    pack = lm.lmpack_from_crate_entry(
+        Crate.load(os.path.join(ROOT, "data", "e1m1", "lmpack.npz")).get("e1m1_lmpack"), dev)
+    ref["bake_walls"] = []
+    for f in PAR_BAKE_FRAMES:
+        pack, _, wall = _par_timed(lambda p=pack, f=f: lm.bake_step(
+            meta, arrays, lights, p, f, max_bounces=BOUNCES))
+        ref["bake_walls"].append(wall)
+    ref["bake"] = (pack.probes.cpu().numpy(), pack.sample_counts.cpu().numpy())
+    return ref
+
+
+def _check_counts(label: str, counts: dict, path: str) -> None:
+    for name in PAR_KERNELS[path]:
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched on {label} ({path})")
+
+
+def check_gloo_world(ref: dict, ranks: list, out_dir: str, smi: str) -> dict:
+    """Phase 8's two-rank results against the main process's one-rank ones;
+    returns the launches of the sharded paths (summed over the ranks)."""
+    import hashlib
+
+    import numpy as np
+
+    from pim_tpu_torch.app import SKY_STEPS
+    from pim_tpu_torch.render.diff import DiffParams
+
+    for r in ranks:
+        bad = [k for k, v in r["digest"].items() if ref["digest"][k] != v]
+        if bad or r["backend"] != "gloo":
+            raise AssertionError(f"rank {r['rank']} ({r['backend']}): its e1m1 build differs "
+                                 f"from the main process's in {bad}")
+    names = ("color", "albedo", "normal")
+    same = {}
+    for r in ranks:
+        for name, got, want in zip(names, r["render"], ref["render"]):
+            diff_lanes = int(np.any(got.view(np.int32) != want.view(np.int32), axis=-1).sum())
+            same[(r["rank"], name)] = diff_lanes
+        same[(r["rank"], "live")] = int((r["render_live"] != ref["render_live"]).sum())
+    print(f"parallel e1m1 {WIDTH}^2 render, {BOUNCES} bounces, sample {PAR_SAMPLE}, "
+          f"{PAR_RANKS} gloo ranks on cuda:0 ({N_RAYS // PAR_RANKS} rays a rank): lanes (or "
+          f"live cells) differing from the unsharded trace {same}; walls of a step per rank "
+          f"{[[round(w * 1e3, 3) for w in r['render_s']] for r in ranks]} ms, unsharded "
+          f"{[round(w * 1e3, 3) for w in ref['render_s']]} ms; launches per rank "
+          f"{[r['launches']['e1m1_sharded_render'] for r in ranks]} [{smi}]")
+    if any(same.values()):
+        raise AssertionError(f"the sharded e1m1 render differs from the unsharded trace: {same}")
+
+    p0 = ref["params0"]
+    first = ranks[0]["train"]["params"][0]
+    worst = {}
+    for r in ranks:
+        t = r["train"]
+        if not all(np.isfinite(t["losses"])):
+            raise AssertionError(f"rank {r['rank']}: sharded train losses {t['losses']}")
+        for name, a, b, last, c in zip(DiffParams._fields, p0, t["params"][0], t["params"][-1],
+                                       first):
+            if not np.array_equal(b, c):
+                raise AssertionError(f"the ranks' {name} differ after the first step")
+            if np.array_equal(a, last):
+                raise AssertionError(f"the sharded train step did not move {name}")
+        for name, a, b, want in zip(DiffParams._fields, p0, t["params"][0], ref["params1"]):
+            du, dw = (b - a).astype(np.float64), (want - a).astype(np.float64)
+            tol = PAR_UPDATE_RTOL * (np.abs(dw) + np.abs(dw).max())
+            worst[name] = float(np.max(np.abs(du - dw) / np.maximum(np.abs(dw).max(), 1e-30)))
+            if not (np.abs(du - dw) <= tol).all():
+                raise AssertionError(f"the sharded {name} update differs from the one-rank "
+                                     f"update beyond rtol {PAR_UPDATE_RTOL}: {worst[name]}")
+    print(f"parallel e1m1 train step {WIDTH}^2, {TRAIN_BOUNCES} bounces, sky_steps {SKY_STEPS}, "
+          f"all six groups, SGD lr {PAR_LR}: losses per rank "
+          f"{[r['train']['losses'] for r in ranks]} (one rank {ref['train_losses']}); first "
+          f"update against the one-rank step, max |diff| / max |update| by group {worst}; "
+          f"walls of a step per rank "
+          f"{[[round(w * 1e3, 1) for w in r['train']['walls']] for r in ranks]} ms, one rank "
+          f"{[round(w * 1e3, 1) for w in ref['train_s']]} ms; launches per rank "
+          f"{[r['launches']['e1m1_sharded_train'] for r in ranks]} [{smi}]")
+
+    probes, counts = ref["bake"]
+    want_sha = hashlib.sha256(probes.tobytes() + counts.tobytes()).hexdigest()
+    got_p = np.load(os.path.join(out_dir, "bake_probes.npy"))
+    got_c = np.load(os.path.join(out_dir, "bake_counts.npy"))
+    same_bake = (np.array_equal(got_p.view(np.int32), probes.view(np.int32))
+                 and np.array_equal(got_c, counts))
+    print(f"parallel e1m1 lm_gen bake, {counts.shape[0]} texels "
+          f"({[r['bake']['texels'] for r in ranks]} a rank), {len(PAR_BAKE_FRAMES)} passes, "
+          f"{BOUNCES} bounces: bit for bit the whole bake {same_bake}, every rank's gather the "
+          f"same "
+          f"{all(r['bake']['sha256'] == want_sha for r in ranks)}; ms a pass per rank "
+          f"{[[round(w * 1e3, 3) for w in r['bake']['walls']] for r in ranks]}, whole "
+          f"{[round(w * 1e3, 3) for w in ref['bake_walls']]}; launches per rank "
+          f"{[r['launches']['e1m1_sharded_bake'] for r in ranks]} [{smi}]")
+    if not same_bake or any(r["bake"]["sha256"] != want_sha for r in ranks):
+        raise AssertionError("the texel-sharded e1m1 bake differs from the whole bake")
+    print(f"parallel gloo ranks: e1m1 build {[round(r['build_s'], 3) for r in ranks]} s; peak "
+          f"memory {[round(r['peak_bytes'] / 2**30, 3) for r in ranks]} GiB")
+
+    launches = {}
+    for path in ("e1m1_sharded_render", "e1m1_sharded_train", "e1m1_sharded_bake"):
+        for r in ranks:
+            _check_counts(f"rank {r['rank']}", r["launches"][path], path)
+        launches[path] = _sum_counts(*(r["launches"][path] for r in ranks))
+    return launches
+
+
+def check_nccl_world(r: dict, smi: str) -> dict:
+    lo, hi = _band("pim_tpu_torch/render/gate_bands.json", "cornell512")
+    line = r["dryrun"].strip().splitlines()[-1] if r["dryrun"].strip() else ""
+    print(f"parallel one-rank NCCL world on cuda:0 (backend {r['backend']}, mesh "
+          f"{r['mesh_backend']}): {line} ({r['dryrun_s']:.2f} s, launches "
+          f"{r['dryrun_launches']}); Cornell {WIDTH}^2 {SPP} spp, {BOUNCES} bounces: mean "
+          f"{r['mean']:.6f} band [{lo:.6f}, {hi:.6f}], finite {r['finite']}, wall "
+          f"{r['render_s'] * 1e3:.1f} ms, launches {r['render_launches']}; peak memory "
+          f"{r['peak_bytes'] / 2**30:.3f} GiB [{smi}]")
+    if r["backend"] != "nccl" or r["mesh_backend"] != "nccl":
+        raise AssertionError("the one-rank world did not reduce over NCCL")
+    if not (line.startswith("dryrun_multichip(1): loss=") and line.endswith(" ok")):
+        raise AssertionError(f"dryrun_multichip(1) printed {r['dryrun']!r}")
+    if not r["finite"] or not lo <= r["mean"] <= hi:
+        raise AssertionError("the NCCL world's Cornell frame is outside cornell512")
+    _check_counts("the NCCL rank", r["dryrun_launches"], "cornell_nccl_dryrun")
+    _check_counts("the NCCL rank", r["render_launches"], "cornell_nccl_render")
+    return {"cornell_nccl_dryrun": r["dryrun_launches"],
+            "cornell_nccl_render": r["render_launches"]}
+
+
+def run_spheres_shell(smi: str) -> dict:
+    """`cornell_box spheres` through the shell on the card: one 128^2 frame
+    (the cluster backend with glass); finite, nonzero, K4/K5 launched."""
+    import torch
+
+    os.makedirs("screenshots", exist_ok=True)
+    eng, launches = _run_engine(
+        f"cornell spheres shell {SPHERES_RES}^2", SPHERES_RES,
+        "cornell_box spheres; teleport -4 0 4; lookat 0 -1 0; pt_trace 1; wait 1; pt_trace 0; "
+        "quit", smi)
+    img = eng.render.buffers.color
+    mean = float(img.mean())
+    print(f"cornell spheres shell: {eng.render.meta.tri_count} tris, backend "
+          f"{eng.render.meta.backend}, refractive {eng.render.meta.has_refractive}, "
+          f"{eng.render.sample_count} samples, mean {mean:.6f}")
+    if not bool(torch.isfinite(img).all()) or not mean > 0.0:
+        raise AssertionError("the spheres frame is not finite and nonzero")
+    if eng.render.meta.backend != "cluster":
+        raise AssertionError("the spheres scene did not take the cluster backend")
+    _check_counts("the shell", launches, "cornell_spheres_shell")
+    return {"cornell_spheres_shell": launches}
+
+
+def run_parallel(dev, e1m1_scene, smi: str) -> dict:
+    """Phase 8, the scale-out layer; returns the launches of its paths."""
+    import shutil
+
+    import torch
+
+    from pim_tpu_torch.parallel.dryrun import free_port, spawn_world
+
+    out_dir = os.path.join(ROOT, "build", "parallel")
+    shutil.rmtree(out_dir, ignore_errors=True)  # this phase's own outputs only
+    os.makedirs(out_dir)
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the ranks
+    t0 = time.perf_counter()
+    ref = _par_reference(dev, e1m1_scene, out_dir)
+    print(f"parallel: the one-rank side in the main process {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    spawn_world(PAR_RANKS, _par_gloo_rank, (out_dir,))
+    print(f"parallel: the {PAR_RANKS}-rank gloo world {time.perf_counter() - t0:.1f} s")
+    ranks = [torch.load(os.path.join(out_dir, f"gloo_rank{r}.pt"), weights_only=False)
+             for r in range(PAR_RANKS)]
+    launches = check_gloo_world(ref, ranks, out_dir, smi)
+    t0 = time.perf_counter()
+    spawn_world(1, _par_nccl_rank, (out_dir, f"127.0.0.1:{free_port()}"))
+    print(f"parallel: the one-rank NCCL world {time.perf_counter() - t0:.1f} s")
+    launches.update(check_nccl_world(
+        torch.load(os.path.join(out_dir, "nccl_rank0.pt"), weights_only=False), smi))
+    cwd = os.getcwd()
+    os.chdir(out_dir)
+    try:
+        launches.update(run_spheres_shell(smi))
+    finally:
+        os.chdir(cwd)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2471,6 +2899,9 @@ def main() -> int:
     t0 = time.perf_counter()
     bake_launches = run_bakes(dev, e1m1_scene, cornell_cpu, smi)
     print(f"bakes phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    par_launches = run_parallel(dev, e1m1_scene, smi)
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s")
     # K3 runs on both paths: its row keeps the Cornell times and adds the
     # e1m1 tri table's; its error is the larger of the two checks
     e1m1_k3 = e1m1_kernels.pop("gather_cols")
@@ -2482,7 +2913,7 @@ def main() -> int:
     kernels["dense_isect"]["max_abs_err"] = max(kernels["dense_isect"]["max_abs_err"],
                                                 probe["max_abs_err"])
     by_path = {"cornell": cornell_launches, "e1m1": e1m1_launches, **train_launches,
-               **shell_launches, **bake_launches}
+               **shell_launches, **bake_launches, **par_launches}
     launches = {name: {p: by_path[p][name] for p in ps} for name, ps in PATHS.items()}
     for name, counts in launches.items():
         for p, count in counts.items():

@@ -1,7 +1,8 @@
-"""Cornell-box test scene, as `pim_tpu.geom.cornell` ('boxes' variant).
+"""Cornell-box test scene, as `pim_tpu.geom.cornell`.
 
 Six thin-slab walls (10x10x0.1 boxes on the +-5 planes), an emissive
-1x1x0.1 ceiling light and two boxes.  Flat material colors go through the
+1x1x0.1 ceiling light and either a 3x5 grid of spheres ('spheres') or two
+boxes (any other variant).  Flat material colors go through the
 reference's sRGB8 fit round trip so sampled values match.  The quaternion
 helpers are the host-side numpy code of `pim_tpu.render.camera`.
 """
@@ -12,7 +13,7 @@ import numpy as np
 
 from pim_tpu_torch.geom.entities import Entities
 from pim_tpu_torch.geom.material import MatFlag, Material
-from pim_tpu_torch.geom.mesh import gen_box_mesh
+from pim_tpu_torch.geom.mesh import gen_box_mesh, gen_sphere_mesh
 from pim_tpu_torch.geom.material import TexturePool
 
 K_DECI = 0.1
@@ -108,10 +109,9 @@ def _gen_material(pool: TexturePool, albedo, rome, flags: int = 0, ior: float = 
 
 
 def build_cornell_box(prim_type: str = "boxes"):
-    """Returns (Entities, TexturePool).  Only 'boxes', the bench frame's
-    variant, is ported."""
-    if prim_type != "boxes":
-        raise NotImplementedError(f"cornell '{prim_type}': only 'boxes' is ported")
+    """Returns (Entities, TexturePool).  'spheres' builds 15 spheres in three
+    rows (metallic, plain, refractive with ior 1.5), roughness swept over
+    the columns; any other variant builds the two boxes."""
     ents = Entities()
     pool = TexturePool()
 
@@ -157,30 +157,55 @@ def build_cornell_box(prim_type: str = "boxes"):
     create_box("Cornell_Near", _FWD["ZP"] * wall_extents, face("ZP"), wall_scale, white, plastic)
     create_box("Cornell_Far", _FWD["ZM"] * wall_extents, face("ZM"), wall_scale, blue, plastic)
 
-    box_scale = 2.0
-    margin = box_scale * 0.5
-    lo = -wall_extents + margin
-    hi = wall_extents - margin
-    up = np.array([0.0, 1.0, 0.0])
-    x = lo + (hi - lo) * 0.2
-    z = lo + (hi - lo) * 0.2
-    d = np.array([0.2, 0.0, 1.0])
-    create_box(
-        "Cornell_MetalBox",
-        np.array([x, -wall_extents + box_scale, z], np.float32),
-        quat_lookat(d / np.linalg.norm(d), up),
-        np.array([box_scale, box_scale * 2.0, box_scale], np.float32),
-        white, metal,
-    )
-    x = lo + (hi - lo) * 0.8
-    z = lo + (hi - lo) * 0.8
-    d = np.array([-0.2, 0.0, 1.0])
-    create_box(
-        "Cornell_PlasticBox",
-        np.array([x, -wall_extents + box_scale * 0.5, z], np.float32),
-        quat_lookat(d / np.linalg.norm(d), up),
-        np.full(3, box_scale, np.float32),
-        white, plastic,
-    )
+    if prim_type == "spheres":
+        sphere = gen_sphere_mesh()
+        sphere_scale = 0.75
+        margin = sphere_scale * 1.5
+        lo = -wall_extents + margin
+        hi = wall_extents - margin
+        rows, cols = 3, 5
+        row_flags = [0, 0, int(MatFlag.REFRACTIVE)]
+        row_metallic = [1.0, 0.0, 0.0]
+        row_ior = [1.0, 1.0, 1.5]
+        for ir in range(rows):
+            z = lo + (hi - lo) * ((ir + 0.5) / rows)
+            y = lo
+            for ic in range(cols):
+                t_col = (ic + 0.5) / cols
+                x = lo + (hi - lo) * t_col
+                i = ents.add(f"Cornell_Sphere_{ir}_{ic}")
+                ents.meshes[i] = sphere
+                ents.materials[i] = _gen_material(
+                    pool, white, (t_col, 1.0, row_metallic[ir], 0.0),
+                    row_flags[ir], row_ior[ir],
+                )
+                ents.translations[i] = np.array([x, y, z], np.float32)
+                ents.scales[i] = np.full(3, sphere_scale, np.float32)
+    else:
+        box_scale = 2.0
+        margin = box_scale * 0.5
+        lo = -wall_extents + margin
+        hi = wall_extents - margin
+        up = np.array([0.0, 1.0, 0.0])
+        x = lo + (hi - lo) * 0.2
+        z = lo + (hi - lo) * 0.2
+        d = np.array([0.2, 0.0, 1.0])
+        create_box(
+            "Cornell_MetalBox",
+            np.array([x, -wall_extents + box_scale, z], np.float32),
+            quat_lookat(d / np.linalg.norm(d), up),
+            np.array([box_scale, box_scale * 2.0, box_scale], np.float32),
+            white, metal,
+        )
+        x = lo + (hi - lo) * 0.8
+        z = lo + (hi - lo) * 0.8
+        d = np.array([-0.2, 0.0, 1.0])
+        create_box(
+            "Cornell_PlasticBox",
+            np.array([x, -wall_extents + box_scale * 0.5, z], np.float32),
+            quat_lookat(d / np.linalg.norm(d), up),
+            np.full(3, box_scale, np.float32),
+            white, plastic,
+        )
 
     return ents, pool

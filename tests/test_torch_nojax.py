@@ -6,8 +6,10 @@ through another module) raises there.  No module of the JAX package may be
 imported at all: the port keeps its own copies of the host modules it needs
 (entities, meshes, materials, the glTF helpers, the cvar registry) and of
 the gate bands.  The port loads the e1m1 glTF there too, so its texture
-pool needs no `ml_dtypes`, and its engine shell runs a media pt_test and the
-bakes (lm_gen, r_refl_gen, probe_bake, probe_report, a checkpoint)."""
+pool needs no `ml_dtypes`, its engine shell runs a media pt_test and the
+bakes (lm_gen, r_refl_gen, probe_bake, probe_report, a checkpoint), and
+the scale-out layer (parallel/, tools/scaling_worker.py) runs a one-rank
+`dryrun_multichip`."""
 
 import ast
 import json
@@ -33,11 +35,13 @@ from pim_tpu_torch.render import (bsdf, camera, cluster, cubemap, dense_kernels,
                                   exposure, fetch, gather_kernel, diff, integrator, lightmap,
                                   lights, media, probes, raysort, render_system, scene,
                                   screenshot, sky, surface, table_gather)
-from pim_tpu_torch.tools import bake_e1m1_lightmap, prof_frame, vml_first_call
+from pim_tpu_torch.parallel import dist, dryrun, shard
+from pim_tpu_torch.tools import bake_e1m1_lightmap, prof_frame, scaling_worker, vml_first_call
 sc = app.build_cornell_scene("cpu")
 fr = app.render_frame(sc, "cornell", 8, 8, 2, 1, 1)
 assert fr.buffers.color.shape == (64, 3) and bool(torch.isfinite(fr.buffers.color).all())
 assert fr.rays > 0
+dryrun.dryrun_multichip(1, "cpu")
 ents, pool = gltf.load_gltf_scene(app.E1M1_GLTF)
 atlas, rec = pool.pack()
 assert atlas.shape == (128, 256, 4) and rec.shape == (71, 4) and ents.count > 0

@@ -68,6 +68,24 @@ def test_host_geometry_bitwise():
         np.testing.assert_array_equal(a, b)
 
 
+def test_spheres_geometry_bitwise():
+    """'spheres': 15 spheres (gen_sphere_mesh, 24 steps) in three rows --
+    metallic, plain, refractive at ior 1.5 -- over the six walls and the
+    light: the soup, the materials and the texture pool bit for bit."""
+    jents, jpool = jax_cornell("spheres")
+    ents, pool = build_cornell_box("spheres")
+    jf, f = flatten(jents), flatten(ents)
+    assert f.mat_ids.shape == (15 * 2208 + 7 * 12,)  # the spheres and the 7 wall and light boxes
+    for name in ("positions", "normals", "uvs", "mat_ids"):
+        np.testing.assert_array_equal(getattr(f, name), getattr(jf, name))
+    assert [dataclasses.asdict(m) for m in f.materials] == \
+        [dataclasses.asdict(m) for m in jf.materials]
+    assert sum(m.ior == np.float32(1.5) for m in f.materials) == 5
+    for a, b in zip(pool.pack(), jpool.pack()):
+        np.testing.assert_array_equal(a, b)
+    assert choose_backend(f.mat_ids.shape[0]) == "cluster"
+
+
 @pytest.mark.parametrize("port_field,jax_field", [
     ("positions", "positions"), ("tris12", "tris9"), ("tri_table", "tri_table"),
     ("emissive_table", "emissive_table"), ("tri_to_emit", "tri_to_emit"),

@@ -477,6 +477,31 @@ def test_checkpoint_from_the_reference_resumes_in_the_port(rs, tmp_path):
             c.set(v)
 
 
+def test_cornell_box_spheres_frame_matches_the_reference_shell(rs, tmp_path):
+    """`cornell_box spheres` loads the 15-sphere scene in both shells (the
+    port's cluster backend with glass, pim_tpu's CPU `bvh`); their first
+    frames agree at the frame tolerance.  The two light grids differ in a
+    few cells (pim_tpu's BVH and the port's Baldwin-Weber tests disagree on
+    some grazing shadow rays), which moves a pixel or two."""
+    saved = [(c, c.get()) for c in (jcv.cv_pt_max_bounces, jcv.cv_pt_trace, jcv.cv_exp_manual)]
+    try:
+        jsys = _jax_rs(tmp_path)
+        jsys.entities, jsys.pool = jax_cornell("spheres")
+        jsys.update()
+        assert get_cmd_system().immediate("cornell_box spheres") == CmdStat.OK
+        rs.camera.position = np.asarray([-4.0, 0.0, 4.0], np.float32)
+        rs.camera.look_at([0.0, -1.0, 0.0])
+        _frames(rs, 1)
+        assert rs.meta.backend == "cluster" and rs.meta.has_refractive
+        assert rs.meta.tri_count == jsys.meta.tri_count == 33204
+        got = rs.buffers.color.numpy()
+        assert np.isfinite(got).all() and got.mean() > 0
+        _frame_close(got, np.asarray(jsys.buffers.color))
+    finally:
+        for c, v in saved:
+            c.set(v)
+
+
 def test_mapsave_round_trips_textures(rs):
     q = get_cmd_system()
     assert q.immediate("mapsave t1") == CmdStat.OK
@@ -605,6 +630,33 @@ def test_port_bands_are_cpu_derived_and_pool_their_runs():
     tiers = {(e["scene"], e["min_samples"]) for e in data["entries"]}
     assert {("e1m1", 8), ("e1m1", 16), ("cornell", 8), ("cornell", 16),
             ("cornell", 64)} <= tiers
+
+
+# the tiers calibrated before the longer ones were added, as they were derived
+_FIRST_TIERS = {("e1m1", 8): 19.657834761754348, ("e1m1", 16): 19.401311360530727,
+                ("cornell", 8): 0.8650504699093624, ("cornell", 16): 0.6254041555293073,
+                ("cornell", 64): 0.27135850148745433}
+
+
+def test_port_bands_have_the_reference_tiers():
+    """Cornell 256 (128^2 and 256^2) and e1m1 64 (128^2), each pooled from
+    its own 3-seed runs of that many frames (`added_tiers`); the tiers there
+    before are unchanged."""
+    with open(render_system.BANDS_PATH) as f:
+        data = json.load(f)
+    entries = {(e["scene"], e["min_samples"]): e for e in data["entries"]}
+    with open(os.path.join(ROOT, "pim_tpu", "render", "pt_gate_bands.json")) as f:
+        ref_tiers = {(e["scene"], e["min_samples"]) for e in json.load(f)["entries"]}
+    assert ref_tiers <= set(entries)
+    for key, maxstddev in _FIRST_TIERS.items():
+        assert entries[key]["maxstddev"] == maxstddev, key
+    for scene, tier, res in (("cornell", 256, [128, 256]), ("e1m1", 64, [128])):
+        added = data["calibrations"][scene]["added_tiers"][str(tier)]
+        assert added["frames_per_seed"] == tier and added["resolutions"] == res
+        runs = added["runs"]
+        assert sorted({r["res"] for r in runs}) == res and len(runs) == 3 * len(res)
+        assert entries[(scene, tier)] == calibrate_pt_gate.pool_band(scene, tier, runs)
+        assert str(tier) not in data["calibrations"][scene]["runs"]
 
 
 def test_pt_spp_batching_matches_sequential(rs):

@@ -23,6 +23,22 @@ Scenes, as the shell's regression commands set them up:
 
     python tools/calibrate_torch_pt_gate.py --scene e1m1 \
         --res 128 --tiers 8,16 --seeds 3
+
+The seeds of a resolution run one after the other in one RenderSystem, and
+the light pdf keeps learning across them, so a seed's run starts from what
+the seeds before it learned over their whole runs: every tier of a
+calibration depends on its longest tier.  A longer tier is therefore
+calibrated in a run of its own and added beside the tiers already in the
+file, which stay as they were (`--add-from`):
+
+    python tools/calibrate_torch_pt_gate.py --scene cornell --res 128,256 \
+        --tiers 8,16,64,256 --out /tmp/cornell.json
+    python tools/calibrate_torch_pt_gate.py --scene cornell --add-from /tmp/cornell.json
+
+It adds the tiers that the file lacks, records their runs and the run
+length under `added_tiers`, and prints, for the tiers already there, which
+runs came out bit for bit the same (the first seed of each resolution does;
+the later seeds do only when the runs were as long as before).
 """
 
 from __future__ import annotations
@@ -151,6 +167,38 @@ def merge(path: str, scene: str, entries, record) -> dict:
     return data
 
 
+def add_tiers(path: str, scene: str, fresh_path: str) -> dict:
+    """Add to the band file at `path` the tiers of `scene` that a calibration
+    written to `fresh_path` has and the file lacks; the file's own tiers and
+    runs are left as they are.  Prints whether each run of a tier in both
+    came out bit for bit the same."""
+    with open(path) as f:
+        data = json.load(f)
+    with open(fresh_path) as f:
+        fresh = json.load(f)
+    rec = data["calibrations"][scene]
+    new_rec = fresh["calibrations"][scene]
+    have = {e["min_samples"] for e in data["entries"] if e["scene"] == scene}
+    frames = max(int(t) for t in new_rec["runs"])
+    for tier, runs in sorted(new_rec["runs"].items(), key=lambda kv: int(kv[0])):
+        if int(tier) in have:
+            old = {(r["res"], r["seed"]): r for r in rec["runs"].get(tier, [])}
+            for r in runs:
+                o = old.get((r["res"], r["seed"]))
+                same = o is not None and (o["stddev"], o["mean"]) == (r["stddev"], r["mean"])
+                print(f"{scene} n={tier} res={r['res']} seed={r['seed']:#x}: "
+                      f"{'bit for bit' if same else 'differs'}")
+            continue
+        data["entries"].append(pool_band(scene, int(tier), runs))
+        rec.setdefault("added_tiers", {})[tier] = {
+            "frames_per_seed": frames, "resolutions": new_rec["resolutions"],
+            "seeds": new_rec["seeds"], "runs": runs}
+        print(f"added {scene} n={tier} from runs of {frames} frames a seed")
+    with open(path, "w") as f:
+        json.dump(data, f, indent=1)
+    return data
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default="cornell", choices=sorted(CAMERAS))
@@ -158,7 +206,13 @@ def main(argv=None) -> None:
     ap.add_argument("--res", default="128")
     ap.add_argument("--tiers", default="8,16")
     ap.add_argument("--out", default=BANDS_PATH)
+    ap.add_argument("--add-from", default=None,
+                    help="add the tiers of this calibration's output that --out lacks "
+                         "(renders nothing)")
     args = ap.parse_args(argv)
+    if args.add_from:
+        add_tiers(args.out, args.scene, args.add_from)
+        return
     entries, record = calibrate(args.scene, [int(r) for r in args.res.split(",")],
                                 [int(t) for t in args.tiers.split(",")],
                                 default_seeds(args.seeds))
