@@ -155,7 +155,20 @@ exits non-zero:
      10 bounces) inside `cornell512`; and `cornell_box spheres` through the
      shell at 128^2 (the cluster backend with glass: finite, nonzero, K4/K5
      launched).  Each path's wall a step per rank beside the one-rank wall,
-     the launches per rank and the peak memory per rank are printed.
+     the launches per rank and the peak memory per rank are printed;
+  9. the measurement modules, each path's launches counted: `python -m
+     pim_tpu_torch.bench` as a subprocess (its JSON line printed; gate ok,
+     no e1m1 error, e1m1 on the cluster backend, no host sync torch reports
+     inside its timed steps, K1-K3 launched in the Cornell steps and K3-K6
+     in the e1m1 steps); tools/perf_table.py on one traced Cornell and one
+     e1m1 512^2, 10-bounce sample (the subsystem rows sum to the profiler's
+     device time within 1%, the "other" share printed, every port kernel
+     in intersect, table-gather or surface-fetch); tools/ab_sort.py on e1m1
+     at SORT_RES^2 (sorted and unsorted images and ray counts bit for bit
+     equal); tools/bench_cluster.py at CLUSTER_RAYS rays (the table and the
+     measured crossover printed; K4's t equal to K1's and K5's flag to
+     K2's on every ray of all six soups).  Each part prints its seconds
+     beside the card's name and power limit.
 Timing: every kernel, its plain version and its library call get `ms`, the
 device time per call: a GPU sleep holds the stream while the host queues
 DEVICE_RUNS back-to-back calls behind it between two CUDA events, and the
@@ -598,7 +611,17 @@ PAR_KERNELS = {
     "cornell_nccl_render": CORNELL_KERNELS,
     "cornell_spheres_shell": ("gather_cols", "cluster_isect", "cluster_anyhit"),
 }
-PATHS = {name: paths + tuple(p for p, names in PAR_KERNELS.items() if name in names)
+# phase 9's paths (the measurement modules) and the kernels each must launch
+MEASURE_KERNELS = {
+    "bench_cornell": CORNELL_KERNELS,
+    "bench_e1m1": ("gather_cols",) + E1M1_KERNELS,
+    "perf_table_cornell": CORNELL_KERNELS,
+    "perf_table_e1m1": ("gather_cols",) + E1M1_KERNELS,
+    "ab_sort": ("gather_cols",) + E1M1_KERNELS,
+    "bench_cluster": ("dense_isect", "dense_anyhit", "cluster_isect", "cluster_anyhit"),
+}
+PATH_KERNELS = {**PAR_KERNELS, **MEASURE_KERNELS}
+PATHS = {name: paths + tuple(p for p, names in PATH_KERNELS.items() if name in names)
          for name, paths in PATHS.items()}
 SOURCES = {
     "dense_isect": ("pim_tpu_torch/csrc/dense_isect.cu", "pim_tpu/render/pallas_kernels.py:149"),
@@ -658,7 +681,7 @@ def _frame_line(label, fr) -> str:
     exp = "" if fr.exposure is None else f" exposure={fr.exposure:.6g}"
     return (f"{label}: mean={fr.mean:.6f} stddev={fr.stddev:.6f}{exp} rays={fr.rays:.0f} "
             f"ms/step={fr.ms_per_step:.3f} Mrays/s={fr.mrays_per_s:.4f} "
-            f"step_s={[round(s, 4) for s in fr.step_seconds]}")
+            f"warmup_s={fr.warmup_seconds:.4f} timed_s={fr.seconds:.4f}")
 
 
 def _check_frame(fr, n_pixels: int, kernels) -> None:
@@ -2686,7 +2709,7 @@ def _par_reference(dev, e1m1_scene, out_dir: str) -> dict:
 
 
 def _check_counts(label: str, counts: dict, path: str) -> None:
-    for name in PAR_KERNELS[path]:
+    for name in PATH_KERNELS[path]:
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} was not launched on {label} ({path})")
 
@@ -2857,6 +2880,132 @@ def run_parallel(dev, e1m1_scene, smi: str) -> dict:
     return launches
 
 
+BENCH_TIMEOUT_S = 420     # the port's bench as a subprocess
+SORT_RES = 128            # ab_sort's frame
+CLUSTER_RAYS = 262144     # bench_cluster --n
+NAMED_SUBSYSTEMS = ("intersect", "table-gather", "surface-fetch")  # where K1-K7 must land
+
+
+def run_bench(smi: str) -> dict:
+    """`python -m pim_tpu_torch.bench` as a subprocess: gate ok, no e1m1
+    error, e1m1 on the cluster backend, no host sync inside the timed
+    steps, K1-K3 launched in the Cornell steps and K3-K6 in the e1m1
+    steps.  Returns its launches."""
+    import torch
+
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the subprocess
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "pim_tpu_torch.bench"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    for ln in res.stderr.splitlines():
+        if ln.startswith("#"):
+            print(f"bench {ln}")
+    out = res.stdout.strip().splitlines()
+    print(out[-1] if out else "bench printed nothing")
+    print(f"measurement bench: exit {res.returncode}, {secs:.1f} s [{smi}]")
+    if res.returncode != 0 or not out:
+        raise AssertionError(f"pim_tpu_torch.bench exited {res.returncode}: {res.stderr[-3000:]}")
+    extra = json.loads(out[-1])["extra"]
+    if extra["gate"] != "ok" or "e1m1_error" in extra or extra["e1m1_backend"] != "cluster":
+        raise AssertionError(f"pim_tpu_torch.bench: gate {extra['gate']}, e1m1 error "
+                             f"{extra.get('e1m1_error')}, backend {extra.get('e1m1_backend')}")
+    syncs = extra["syncs_in_timed_steps"]
+    if any(v["count"] for v in syncs.values()):
+        raise AssertionError(f"pim_tpu_torch.bench: host syncs inside the timed steps {syncs}")
+    launches = {"bench_cornell": extra["launches"]["cornell"],
+                "bench_e1m1": extra["launches"]["e1m1"]}
+    for path, counts in launches.items():
+        _check_counts("the bench", counts, path)
+    return launches
+
+
+def run_perf_table(dev, e1m1_scene, smi: str) -> dict:
+    """tools/perf_table.py on the Cornell and e1m1 steps: the rows sum to
+    the profiler's device time within 1%, every port kernel lands in a
+    named subsystem.  Returns the traced steps' launches."""
+    from pim_tpu_torch.app import build_cornell_scene
+    from pim_tpu_torch.tools import perf_table
+
+    launches = {}
+    for name, scene in (("cornell", build_cornell_scene(dev)), ("e1m1", e1m1_scene)):
+        t0 = time.perf_counter()
+        r = perf_table.run_path(name, scene, dev, 1)
+        perf_table.print_result(r, smi)
+        print(f"measurement perf_table {name}: other share {r['device']['other_share']:.4f}, "
+              f"{time.perf_counter() - t0:.1f} s [{smi}]")
+        perf_table.check(r)
+        stray = {k: v for k, v in r["port_kernels"].items() if set(v) - set(NAMED_SUBSYSTEMS)}
+        if stray:
+            raise AssertionError(f"perf_table {name}: port kernels outside "
+                                 f"{NAMED_SUBSYSTEMS}: {stray}")
+        launches[f"perf_table_{name}"] = r["launches"]
+        _check_counts("perf_table", r["launches"], f"perf_table_{name}")
+    return launches
+
+
+def run_ab_sort(dev, e1m1_scene, smi: str) -> dict:
+    """tools/ab_sort.py on e1m1 at SORT_RES^2: images and ray counts bit
+    for bit equal sorted and unsorted.  Returns its launches."""
+    from pim_tpu_torch import native
+    from pim_tpu_torch.tools import ab_sort
+
+    t0 = time.perf_counter()
+    native.reset_launches()
+    r = ab_sort.run(e1m1_scene, dev, SORT_RES)
+    launches = dict(native.launches)
+    print(ab_sort.report(r, smi))
+    print(f"measurement ab_sort: {time.perf_counter() - t0:.1f} s, launches {launches} [{smi}]")
+    if not (r["images_equal"] and r["rays_equal"]):
+        raise AssertionError("ab_sort: the sorted and unsorted e1m1 frames differ")
+    _check_counts("ab_sort", launches, "ab_sort")
+    return {"ab_sort": launches}
+
+
+def run_bench_cluster(dev, smi: str) -> dict:
+    """tools/bench_cluster.py at CLUSTER_RAYS rays: the table and the
+    measured crossover; K4's t must equal K1's and K5's flag K2's on every
+    ray of every soup.  Returns its launches."""
+    import math
+
+    from pim_tpu_torch import native
+    from pim_tpu_torch.render.scene import DENSE_CROSSOVER_TRIS
+    from pim_tpu_torch.tools import bench_cluster
+
+    t0 = time.perf_counter()
+    native.reset_launches()
+    rows = bench_cluster.run(dev, CLUSTER_RAYS)
+    launches = dict(native.launches)
+    print(bench_cluster.table(rows))
+    print(f"bench_cluster crossover (K4 beats K1 on both ray sets from): "
+          f"{bench_cluster.crossover(rows)} tris; any hit (K5 beats K2): "
+          f"{bench_cluster.crossover(rows, 'k2', 'k5')} tris; DENSE_CROSSOVER_TRIS "
+          f"{DENSE_CROSSOVER_TRIS}; every timing back to back "
+          f"{all(r[k + '_back_to_back'] for r in rows for k in ('k1', 'k2', 'k4', 'k5'))}")
+    print(json.dumps({"bench_cluster": rows}))
+    print(f"measurement bench_cluster: {time.perf_counter() - t0:.1f} s [{smi}]")
+    bad = [r for r in rows for k in ("k1", "k2", "k4", "k5")
+           if not (math.isfinite(r[k + "_mrays"]) and r[k + "_mrays"] > 0.0)]
+    if bad:
+        raise AssertionError(f"bench_cluster: rows without a rate: {bad}")
+    bad = bench_cluster.disagreements(rows)
+    if bad:
+        raise AssertionError(f"bench_cluster: K4's t is not K1's or K5's flag not K2's on "
+                             f"every ray: {bad}")
+    _check_counts("bench_cluster", launches, "bench_cluster")
+    return {"bench_cluster": launches}
+
+
+def run_measurement(dev, e1m1_scene, smi: str) -> dict:
+    """Phase 9, the measurement modules; returns the launches of their
+    paths."""
+    launches = run_bench(smi)
+    launches.update(run_perf_table(dev, e1m1_scene, smi))
+    launches.update(run_ab_sort(dev, e1m1_scene, smi))
+    launches.update(run_bench_cluster(dev, smi))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2902,6 +3051,9 @@ def main() -> int:
     t0 = time.perf_counter()
     par_launches = run_parallel(dev, e1m1_scene, smi)
     print(f"parallel phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    measure_launches = run_measurement(dev, e1m1_scene, smi)
+    print(f"measurement phase: {time.perf_counter() - t0:.1f} s")
     # K3 runs on both paths: its row keeps the Cornell times and adds the
     # e1m1 tri table's; its error is the larger of the two checks
     e1m1_k3 = e1m1_kernels.pop("gather_cols")
@@ -2913,7 +3065,7 @@ def main() -> int:
     kernels["dense_isect"]["max_abs_err"] = max(kernels["dense_isect"]["max_abs_err"],
                                                 probe["max_abs_err"])
     by_path = {"cornell": cornell_launches, "e1m1": e1m1_launches, **train_launches,
-               **shell_launches, **bake_launches, **par_launches}
+               **shell_launches, **bake_launches, **par_launches, **measure_launches}
     launches = {name: {p: by_path[p][name] for p in ps} for name, ps in PATHS.items()}
     for name, counts in launches.items():
         for p, count in counts.items():

@@ -34,7 +34,9 @@ is an error.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+import subprocess
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
@@ -130,23 +132,59 @@ class FrameResult:
     mean: float
     stddev: float
     rays: float                # rays traced over all steps
-    step_seconds: List[float]  # host wall time of each step, synchronised
-    ms_per_step: float         # mean over steps after the first (warm-up)
+    warmup_seconds: float      # host wall time of the warm-up step, synchronised
+    seconds: float             # host wall time of the timed steps, queued, one sync
+    ms_per_step: float         # mean over the timed steps (all but the first)
     mrays_per_s: float         # rays / time over the same steps
     launches: Dict[str, int]   # kernel launches counted during the frame
     exposure: Optional[float]  # the last step's auto-exposure (e1m1), else None
 
 
-def _sync(device) -> None:
+def sync(device) -> None:
+    """Wait for a CUDA device's queued work (nothing for the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def card(device):
+    """(name, power limit) of a CUDA device's card as nvidia-smi reports
+    them; ("cpu", None) for the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu", None
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    out = subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    name, _, limit = out.rpartition(",")
+    return name.strip(), limit.strip()
+
+
+def timed_steps(step, device, iters: int, warmup: int, watch=None):
+    """The port's one timed loop of frame steps (the bench's and the bench
+    frames'): step(0 .. warmup-1), a sync, then step(warmup .. warmup +
+    iters-1) queued with no sync between them, and one sync at the end: a
+    sync a step would put host round trips into what is timed.  step(i)
+    returns device tensors and waits on nothing.  `watch`, a context
+    manager, wraps the queued steps only.  Returns (the timed steps'
+    outputs, their seconds, the kernel launches during them)."""
+    for i in range(warmup):
+        step(i)
+    sync(device)
+    with (contextlib.nullcontext() if watch is None else watch):
+        before = dict(native.launches)
+        t0 = time.perf_counter()
+        outs = [step(warmup + i) for i in range(iters)]
+    sync(device)
+    seconds = time.perf_counter() - t0
+    return outs, seconds, {k: native.launches[k] - before[k] for k in native.launches}
 
 
 def render_frame(scene, scene_name: str, width: int, height: int, bounces: int, spp: int,
                  steps: int) -> FrameResult:
     """Render `steps` progressive steps of `spp` samples of `scene`, built as
-    SCENES[scene_name], through that scene's bench camera; one host sync per
-    step.  The first step counts as warm-up in the timing when steps > 1."""
+    SCENES[scene_name], through that scene's bench camera.  The first step
+    is the warm-up when steps > 1; the others are timed by `timed_steps`."""
     meta, arrays, lights = scene
     dev = arrays.tri_table.device
     cam = bench_camera(scene_name, width, height)
@@ -154,28 +192,30 @@ def render_frame(scene, scene_name: str, width: int, height: int, bounces: int, 
     before = dict(native.launches)
     bufs = make_trace_buffers(width, height, dev)
     ray_counts = []
-    step_seconds = []
     exp = None
-    for step in range(steps):
-        t0 = time.perf_counter()
-        res = render_step(scene, cam, width, height, bounces, spp, step)
+
+    def step(i: int):
+        nonlocal bufs, exp
+        res = render_step(scene, cam, width, height, bounces, spp, i)
         if exp_params is not None:
             exp = exposure_pass(res.color, exp_params, make_exposure_state(dev), EXPOSURE_DT)
-        bufs = accumulate(bufs, res, 1.0 / (step + 1))
+        bufs = accumulate(bufs, res, 1.0 / (i + 1))
         ray_counts.append(res.rays_traced)
-        _sync(dev)
-        step_seconds.append(time.perf_counter() - t0)
-    rays = [float(r) for r in ray_counts]
-    timed = slice(1, None) if steps > 1 else slice(0, None)
-    t_timed = sum(step_seconds[timed])
+        return res.rays_traced
+
+    warmup = 1 if steps > 1 else 0
+    t0 = time.perf_counter()
+    timed_rays, seconds, _ = timed_steps(step, dev, steps - warmup, warmup)
+    warmup_seconds = time.perf_counter() - t0 - seconds
     return FrameResult(
         buffers=bufs,
         mean=float(torch.mean(bufs.color)),
         stddev=float(luminance_stddev(bufs.color)),
-        rays=sum(rays),
-        step_seconds=step_seconds,
-        ms_per_step=t_timed / len(step_seconds[timed]) * 1e3,
-        mrays_per_s=sum(rays[timed]) / t_timed / 1e6,
+        rays=sum(float(r) for r in ray_counts),
+        warmup_seconds=warmup_seconds,
+        seconds=seconds,
+        ms_per_step=seconds / len(timed_rays) * 1e3,
+        mrays_per_s=sum(float(r) for r in timed_rays) / seconds / 1e6,
         launches={k: native.launches[k] - before[k] for k in native.launches},
         exposure=None if exp is None else float(exp.exposure),
     )
@@ -228,7 +268,7 @@ class Engine:
         with profile("render"):
             self.render.update()
         if self.sync_frames:
-            _sync(self.render.device)
+            sync(self.render.device)
             self.frame_ms.append((time.perf_counter() - t0) * 1e3)
         self.frame += 1
 
@@ -252,13 +292,13 @@ class Engine:
             con_logf(LogSev.Verbose, "prof", "\n%s", prof.report())
 
 
-def _check_device(device: torch.device) -> None:
+def check_device(device: torch.device) -> None:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
 
 
 def shell_main(args) -> int:
-    _check_device(torch.device(args.device))
+    check_device(torch.device(args.device))
     engine = Engine(width=args.width, height=args.height, max_frames=args.frames,
                     device=args.device)
     engine.init()
@@ -288,13 +328,13 @@ def main(argv=None) -> None:
         raise SystemExit(shell_main(args))
 
     device = torch.device(args.device)
-    _check_device(device)
+    check_device(device)
     args.width = 512 if args.width is None else args.width
     args.height = 512 if args.height is None else args.height
     spec = SCENES[args.scene]
     spp = spec.spp if args.spp is None else args.spp
     scene = spec.build(device)
-    _sync(device)
+    sync(device)
     fr = render_frame(scene, args.scene, args.width, args.height, args.bounces, spp,
                       args.steps)
     print(f"image mean: {fr.mean:.6f}")

@@ -62,6 +62,13 @@ def _pcg4d_comps(x, y, z, w):
     return x, y, z, w
 
 
+def pcg4d(v: torch.Tensor) -> torch.Tensor:
+    """[..., 4] 32-bit words (any integer dtype) -> [..., 4] int64 words:
+    pcg4d of each row, the reference's AoS form."""
+    v = v.to(torch.int64) & MASK32
+    return torch.stack(_pcg4d_comps(v[..., 0], v[..., 1], v[..., 2], v[..., 3]), dim=-1)
+
+
 def pcg1(v: torch.Tensor) -> torch.Tensor:
     """Scalar PCG hash of 32-bit words held in int64."""
     v = v.to(torch.int64) & MASK32

@@ -1,8 +1,9 @@
 """Batched 1-D piecewise-constant distributions (one row per grid cell).
 
-Counterpart of `pim_tpu.math.dist1d.bake` (Dist1D_Bake semantics: zero-
-integral rows get a uniform cdf and keep a zero pdf) and `update` (the
-per-frame fold of the light-learning histogram).
+Counterpart of `pim_tpu.math.dist1d`: `bake` (Dist1D_Bake semantics: zero-
+integral rows get a uniform cdf and keep a zero pdf), `update` (the
+per-frame fold of the light-learning histogram) and the per-(cell, u)
+lookups `sample_discrete`, `pdf_discrete` and `sample_continuous`.
 
     pdf  [G, N]   float32
     cdf  [G, N+1] float32
@@ -16,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from pim_tpu_torch.core.rng import MASK32
-from pim_tpu_torch.math.vec3 import f32
+from pim_tpu_torch.math.vec3 import EPS, f32
 
 _ALPHA = f32(0.9)
 
@@ -57,6 +58,30 @@ def bake(pdf: torch.Tensor, prev_sum=None) -> Dist1D:
     if prev_sum is None:
         prev_sum = torch.zeros((g,), dtype=torch.int64, device=pdf.device)
     return Dist1D(pdf=pdf, cdf=cdf, integral=integral, sum=prev_sum)
+
+
+def sample_discrete(dist: Dist1D, cell: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The bucket index of each (cell, u) pair: the number of cdf entries
+    <= u, less one, clamped to [0, N) (FindInterval).  int64 [...]."""
+    n = dist.pdf.shape[1]
+    idx = torch.sum(dist.cdf[cell] <= u[..., None], dim=-1) - 1
+    return torch.clamp(idx, 0, n - 1)
+
+
+def pdf_discrete(dist: Dist1D, cell: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The probability of bucket idx in cell: pdf[cell, idx] / N."""
+    return dist.pdf[cell, idx] / float(dist.pdf.shape[1])
+
+
+def sample_continuous(dist: Dist1D, cell: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """A continuous inverse-cdf sample in [0, 1) of each (cell, u) pair."""
+    n = dist.pdf.shape[1]
+    idx = sample_discrete(dist, cell, u)
+    u0 = dist.cdf[cell, idx]
+    u1 = dist.cdf[cell, idx + 1]
+    w = u1 - u0
+    du = torch.where(w > 0.0, (u - u0) / torch.clamp_min(w, EPS), u - u0)
+    return (idx.to(torch.float32) + du) / float(n)
 
 
 def update(dist: Dist1D, live: torch.Tensor):

@@ -1,7 +1,7 @@
 """Monte-Carlo sampling library over flat [N] float32 tensors.
 
 Counterpart of `pim_tpu.math.sampling` (the functions the frames and the
-bakes use).  2D random variables are (u, v) tuples of [N] tensors; directions
+bakes use, and `hg_phase`).  2D random variables are (u, v) tuples of [N] tensors; directions
 are V3.  Constant expressions are formed in float32 (`f32`) so they round
 as the reference's float32 constants do.
 """
@@ -211,3 +211,14 @@ def mie_phase(cos_theta, g: float):
 def rayleigh_phase(cos_theta):
     """Rayleigh phase function."""
     return _RAYLEIGH_K * (1.0 + cos_theta * cos_theta)
+
+
+_4PI = f32(np.float32(4.0) * np.float32(PI))
+
+
+def hg_phase(cos_theta, g):
+    """Henyey-Greenstein phase function; g a tensor or a float32 constant."""
+    g2 = g * g
+    denom = 1.0 + g2 + 2.0 * g * cos_theta
+    denom = denom * torch.sqrt(torch.clamp_min(denom, EPS_SQ))
+    return (1.0 - g2) / torch.clamp_min(_4PI * denom, EPS)

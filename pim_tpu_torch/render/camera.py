@@ -140,8 +140,12 @@ def generate_primary_rays(cam: CameraArrays, width: int, height: int,
     right = V3(*cam.right)
     up = V3(*cam.up)
     fwd = V3(*cam.fwd)
-    e = torch.as_tensor(cam.eye, dtype=torch.float32, device=dev)
-    eye = V3(*(e[k].expand(i.shape).contiguous() for k in range(3)))
+    if isinstance(cam.eye, torch.Tensor):
+        e = cam.eye.to(device=dev, dtype=torch.float32)
+        eye = V3(*(e[k].expand(i.shape).contiguous() for k in range(3)))
+    else:  # host numbers: filled on the device, so no copy (a host sync) a call
+        eye = V3(*(torch.full(i.shape, float(c), dtype=torch.float32, device=dev)
+                   for c in np.asarray(cam.eye, np.float32)))
 
     rd = normalize(V3(fwd.x + right.x * sx + up.x * sy,
                       fwd.y + right.y * sx + up.y * sy,

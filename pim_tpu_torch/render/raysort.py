@@ -48,9 +48,19 @@ def _dir_bin(rd: V3) -> torch.Tensor:
 def sort_rays_key(grid: GridSpec, ro: V3, rd: V3, t_far) -> torch.Tensor:
     """[N] int64 coherence keys: (alive, cell, dir-bin) packed, dead last."""
     key = grid_index_soa(grid, ro) * DIR_BINS + _dir_bin(rd)
-    dead = torch.as_tensor(t_far, device=ro.x.device) <= 0.0
     nx, ny, nz = grid.size
-    return torch.where(dead, nx * ny * nz * DIR_BINS, key)
+    dead_key = nx * ny * nz * DIR_BINS
+    if not isinstance(t_far, torch.Tensor):  # one number for all rays (no host copy)
+        return torch.full_like(key, dead_key) if t_far <= 0.0 else key
+    return torch.where(t_far <= 0.0, dead_key, key)
+
+
+def sort_perm(keys: torch.Tensor):
+    """(perm, inv): keys[perm] is sorted (stably) and x[perm][inv] is x."""
+    perm = torch.sort(keys, stable=True).indices
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype, device=perm.device)
+    return perm, inv
 
 
 def sorted_rays(grid: GridSpec, ro: V3, rd: V3, t_far):

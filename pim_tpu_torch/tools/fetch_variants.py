@@ -44,10 +44,11 @@ import time
 
 import torch
 
+from pim_tpu_torch.tools import devtime
+
 N = 262_144
 DEVICE_RUNS = 25
 BATCHES = 3
-QUEUE_CYCLES = 40_000_000
 SEED = 606
 
 
@@ -62,22 +63,15 @@ def _fetch_check():
 
 def queued_ms(fn, batches: int = BATCHES) -> list:
     """Device ms a call, `batches` times, sorted: DEVICE_RUNS calls queued
-    behind a GPU sleep between two CUDA events."""
+    behind a GPU sleep between two CUDA events (`devtime.queued_ms`)."""
     fn()
     torch.cuda.synchronize()
     out = []
     for _ in range(batches):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(QUEUE_CYCLES)
-        start.record()
-        for _ in range(DEVICE_RUNS):
-            fn()
-        end.record()
-        if start.query():
+        ms, ahead = devtime.queued_ms(fn, DEVICE_RUNS)
+        if not ahead:
             raise RuntimeError("the device reached the calls before the host had queued them")
-        torch.cuda.synchronize()
-        out.append(start.elapsed_time(end) / DEVICE_RUNS)
+        out.append(ms)
     return sorted(out)
 
 

@@ -30,10 +30,11 @@ import subprocess
 
 import torch
 
+from pim_tpu_torch.tools import devtime
+
 N = 262_144
 DEVICE_RUNS = 25
 BATCHES = 4
-QUEUE_CYCLES = 40_000_000
 PROFILER_TRIES = 5
 # (name, kernel, [F or C, T], K): the main path's tables
 CASES = (
@@ -46,20 +47,14 @@ CASES = (
 
 
 def queued_ms(fn) -> float:
-    """Device ms a call: DEVICE_RUNS calls queued behind a GPU sleep."""
+    """Device ms a call: DEVICE_RUNS calls queued behind a GPU sleep
+    (`devtime.queued_ms`)."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(QUEUE_CYCLES)
-    start.record()
-    for _ in range(DEVICE_RUNS):
-        fn()
-    end.record()
-    if start.query():
+    ms, ahead = devtime.queued_ms(fn, DEVICE_RUNS)
+    if not ahead:
         raise RuntimeError("the device reached the calls before the host had queued them")
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / DEVICE_RUNS
+    return ms
 
 
 def profiler_ms(fn) -> float:

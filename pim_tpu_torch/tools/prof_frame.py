@@ -36,7 +36,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import time
 
 import torch
@@ -83,6 +82,13 @@ def _is_kernel(evt) -> bool:
     return evt.device_type == torch.autograd.DeviceType.CUDA
 
 
+def device_time(avgs):
+    """(device events, their summed device ms, their count) of a
+    profiler's key_averages."""
+    kernels = [e for e in avgs if _is_kernel(e)]
+    return kernels, sum(_device_ms(e) for e in kernels), sum(e.count for e in kernels)
+
+
 def _train_step_fn(scene, cam, dev):
     """step(i) of the differentiable path: one Adam step of every group."""
     from pim_tpu_torch.app import SKY_STEPS, SUN_DIR, SUN_LUM
@@ -103,14 +109,45 @@ def _train_step_fn(scene, cam, dev):
     return step
 
 
-def main(argv=None) -> None:
-    from pim_tpu_torch import native
+def frame_step(scene_name: str, scene, dev, spp: int, bounces: int, width: int = WIDTH,
+               height: int = HEIGHT):
+    """step(i) of the bench frame: `spp` samples of step i (the exposure
+    pass too where the scene runs it), then a sync of a CUDA device."""
     from pim_tpu_torch.app import EXPOSURE_DT, SCENES, bench_camera, render_step
     from pim_tpu_torch.render.exposure import (
         ExposureParams,
         exposure_pass,
         make_exposure_state,
     )
+
+    cam = bench_camera(scene_name, width, height)
+    exp_params = ExposureParams.from_cvars() if SCENES[scene_name].exposed else None
+
+    def step(i: int):
+        res = render_step(scene, cam, width, height, bounces, spp, i)
+        if exp_params is not None:
+            exposure_pass(res.color, exp_params, make_exposure_state(dev), EXPOSURE_DT)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return res
+
+    return step
+
+
+def untraced_walls(step, first: int = 1):
+    """Host walls (s) of WALLS untraced steps first, first + 1, ... (each
+    ends in a device sync) and their median in ms."""
+    walls = []
+    for i in range(WALLS):
+        t0 = time.perf_counter()
+        step(first + i)
+        walls.append(time.perf_counter() - t0)
+    return walls, statistics.median(walls) * 1e3
+
+
+def main(argv=None) -> None:
+    from pim_tpu_torch import native
+    from pim_tpu_torch.app import SCENES, bench_camera, card
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default="cornell", choices=sorted(SPP))
@@ -125,9 +162,7 @@ def main(argv=None) -> None:
         raise SystemExit("prof_frame: no CUDA device is available")
 
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    smi = ", ".join(card(dev))
     print(smi)
     spp = 1 if args.media else SPP[args.scene]
     scene = SCENES[args.scene].build(dev)
@@ -135,28 +170,14 @@ def main(argv=None) -> None:
         import dataclasses
 
         scene = (dataclasses.replace(scene[0], media_enabled=True),) + tuple(scene[1:])
-    cam = bench_camera(args.scene, WIDTH, HEIGHT)
-    exp_params = ExposureParams.from_cvars() if SCENES[args.scene].exposed else None
-
-    def step(i: int):
-        res = render_step(scene, cam, WIDTH, HEIGHT, args.bounces, spp, i)
-        if exp_params is not None:
-            exposure_pass(res.color, exp_params, make_exposure_state(dev), EXPOSURE_DT)
-        torch.cuda.synchronize(dev)
-        return res
-
+    step = frame_step(args.scene, scene, dev, spp, args.bounces)
     kind = f"{spp}-spp{' media' if args.media else ''} {args.bounces}-bounce"
     if args.train:
-        step = _train_step_fn(scene, cam, dev)
+        step = _train_step_fn(scene, bench_camera(args.scene, WIDTH, HEIGHT), dev)
         kind = f"{TRAIN_BOUNCES}-bounce training"
     torch.cuda.reset_peak_memory_stats(dev)
     step(0)  # warm-up: the kernel library and torch's own kernels load here
-    walls = []
-    for i in range(WALLS):
-        t0 = time.perf_counter()
-        step(1 + i)
-        walls.append(time.perf_counter() - t0)
-    wall_ms = statistics.median(walls) * 1e3
+    walls, wall_ms = untraced_walls(step)
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"untraced {kind} {args.scene} step walls s: {walls} (median {wall_ms:.3f} ms); "
           f"max_memory_allocated {peak / 2**30:.3f} GiB")
@@ -170,9 +191,7 @@ def main(argv=None) -> None:
     launches = dict(native.launches)
     avgs = prof.key_averages()
 
-    kernels = [e for e in avgs if _is_kernel(e)]
-    device_ms = sum(_device_ms(e) for e in kernels)
-    n_kernels = sum(e.count for e in kernels)
+    kernels, device_ms, n_kernels = device_time(avgs)
     if device_ms <= 0.0:
         raise RuntimeError("the trace holds no device time; time with CUDA events instead")
     groups = {}

@@ -7,9 +7,11 @@ imported at all: the port keeps its own copies of the host modules it needs
 (entities, meshes, materials, the glTF helpers, the cvar registry) and of
 the gate bands.  The port loads the e1m1 glTF there too, so its texture
 pool needs no `ml_dtypes`, its engine shell runs a media pt_test and the
-bakes (lm_gen, r_refl_gen, probe_bake, probe_report, a checkpoint), and
-the scale-out layer (parallel/, tools/scaling_worker.py) runs a one-rank
-`dryrun_multichip`."""
+bakes (lm_gen, r_refl_gen, probe_bake, probe_report, a checkpoint), the
+scale-out layer (parallel/, tools/scaling_worker.py) runs a one-rank
+`dryrun_multichip`, and the measurement modules (bench.py, tools/perf_table,
+ab_sort, bench_cluster, scaling_bench, overlap_ab, corr_check,
+grad_eps_sweep, and devtime, their shared device timer) import."""
 
 import ast
 import json
@@ -26,7 +28,7 @@ sys.modules["ml_dtypes"] = None
 import torch
 torch.set_num_threads(2)
 import pim_tpu_torch
-from pim_tpu_torch import app, native
+from pim_tpu_torch import app, bench, native
 from pim_tpu_torch.core import cmd, console, crate, cvar, cvars, guid, profiler, rng, timesys
 from pim_tpu_torch.geom import cornell, entities, gltf, maps, material, mesh
 from pim_tpu_torch.math import (brdf, color, cubic_fit, dist1d, geometry, grid, noise, sampling,
@@ -36,7 +38,9 @@ from pim_tpu_torch.render import (bsdf, camera, cluster, cubemap, dense_kernels,
                                   lights, media, probes, raysort, render_system, scene,
                                   screenshot, sky, surface, table_gather)
 from pim_tpu_torch.parallel import dist, dryrun, shard
-from pim_tpu_torch.tools import bake_e1m1_lightmap, prof_frame, scaling_worker, vml_first_call
+from pim_tpu_torch.tools import (ab_sort, bake_e1m1_lightmap, bench_cluster, corr_check,
+                                 devtime, grad_eps_sweep, overlap_ab, perf_table, prof_frame,
+                                 scaling_bench, scaling_worker, vml_first_call)
 sc = app.build_cornell_scene("cpu")
 fr = app.render_frame(sc, "cornell", 8, 8, 2, 1, 1)
 assert fr.buffers.color.shape == (64, 3) and bool(torch.isfinite(fr.buffers.color).all())
