@@ -167,8 +167,28 @@ exits non-zero:
      at SORT_RES^2 (sorted and unsorted images and ray counts bit for bit
      equal); tools/bench_cluster.py at CLUSTER_RAYS rays (the table and the
      measured crossover printed; K4's t equal to K1's and K5's flag to
-     K2's on every ray of all six soups).  Each part prints its seconds
-     beside the card's name and power limit.
+     K2's on every ray of all six soups, the bvh walk's hit and flag on all
+     but 1e-4 of them).  Each part prints its seconds beside the card's
+     name and power limit;
+ 10. the Moller-Trumbore backends (csrc/mt_isect.cu; not TPU kernels: the
+     JAX package runs them in XLA), each path's launches counted: both BVH
+     builders on the Cornell, spheres and e1m1 soups (seconds, nodes, each
+     tree's validate_bvh depth against the walk's 48-entry stack); Cornell
+     built with `brute` on the card and its 512^2 frame (SPP spp, STEPS
+     steps) gated by `cornell512`, brute_isect / brute_anyhit on its
+     262,144 camera rays and one seeded bounce (~10% dead lanes), bitwise
+     against the plain versions and timed beside their bounds (the tests
+     each live ray needs: every triangle, or those up to its first
+     blocker); e1m1 built with `bvh` and its 128^2 16-step render gated by
+     `e1m1_128`, a 512^2 1-spp step through bvh beside the same step
+     through cluster (printed, no gate), bvh_isect / bvh_anyhit on the
+     main path's camera, bounce-1 and NEE rays and a seeded bounce against
+     the plain lockstep walk on every lane (its counts of nodes, entries
+     and leaf tests are the bound; K4/K5 timed on the same rays),
+     brute_isect / brute_anyhit on MT_BRUTE_LANES e1m1 rays; both families
+     on a tie soup (coincident triangles in different chunks and leaves);
+     a 32^2, 3-bounce frame of each scene against the CPU; one shell frame
+     each after `pt_backend brute` (Cornell) and `pt_backend bvh` (e1m1).
 Timing: every kernel, its plain version and its library call get `ms`, the
 device time per call: a GPU sleep holds the stream while the host queues
 DEVICE_RUNS back-to-back calls behind it between two CUDA events, and the
@@ -181,7 +201,8 @@ K3 and K7 (kernel and library call) are timed DEVICE_BATCHES times, and
 also L2-cold (`cold_ms`: each call after a 96 MB read, the reads' own time
 taken off); K4/K5 L2-cold on the main path's rays.  The brute-force
 K4/K5 plain versions wait on the device themselves, so their `plain_ms`
-holds their host time too.
+holds their host time too, and so do the plain MT versions (the lockstep
+walk waits on the device every trip).
 Before the last line come a JSON object of per-kernel results (`launches`
 summed over the main paths that run the kernel, each path's count in
 `launches_by_path`; `ms`, `call_ms`, `plain_ms`, `plain_call_ms`,
@@ -601,6 +622,10 @@ PATHS = {
     "gather_cols_bwd": ("e1m1_train", "cornell_train"),
     "gather_texels": ("e1m1_train",),
     "gather_texels_bwd": ("e1m1_train",),
+    "brute_isect": (),
+    "brute_anyhit": (),
+    "bvh_isect": (),
+    "bvh_anyhit": (),
 }
 # phase 8's paths and the kernels each must launch (added to PATHS)
 PAR_KERNELS = {
@@ -618,9 +643,17 @@ MEASURE_KERNELS = {
     "perf_table_cornell": CORNELL_KERNELS,
     "perf_table_e1m1": ("gather_cols",) + E1M1_KERNELS,
     "ab_sort": ("gather_cols",) + E1M1_KERNELS,
-    "bench_cluster": ("dense_isect", "dense_anyhit", "cluster_isect", "cluster_anyhit"),
+    "bench_cluster": ("dense_isect", "dense_anyhit", "cluster_isect", "cluster_anyhit",
+                      "bvh_isect", "bvh_anyhit"),
 }
-PATH_KERNELS = {**PAR_KERNELS, **MEASURE_KERNELS}
+# phase 10's paths (the Moller-Trumbore backends) and the kernels each must launch
+MT_PATH_KERNELS = {
+    "cornell_brute": ("brute_isect", "brute_anyhit", "gather_cols"),
+    "e1m1_bvh": ("bvh_isect", "bvh_anyhit", "gather_cols", "gather_bilinear"),
+    "cornell_brute_shell": ("brute_isect", "brute_anyhit", "gather_cols"),
+    "e1m1_bvh_shell": ("bvh_isect", "bvh_anyhit", "gather_cols", "gather_bilinear"),
+}
+PATH_KERNELS = {**PAR_KERNELS, **MEASURE_KERNELS, **MT_PATH_KERNELS}
 PATHS = {name: paths + tuple(p for p, names in PATH_KERNELS.items() if name in names)
          for name, paths in PATHS.items()}
 SOURCES = {
@@ -637,6 +670,11 @@ SOURCES = {
     # the transpose of K7's gather (JAX differentiates the clipped take)
     "gather_texels_bwd": ("pim_tpu_torch/csrc/gather_cols.cu",
                           "pim_tpu/render/table_gather.py:377"),
+    # not TPU kernels: the JAX package runs these in XLA (a scan, a while_loop)
+    "brute_isect": ("pim_tpu_torch/csrc/mt_isect.cu", "pim_tpu/render/intersect.py:75"),
+    "brute_anyhit": ("pim_tpu_torch/csrc/mt_isect.cu", "pim_tpu/render/intersect.py:75"),
+    "bvh_isect": ("pim_tpu_torch/csrc/mt_isect.cu", "pim_tpu/render/intersect.py:189"),
+    "bvh_anyhit": ("pim_tpu_torch/csrc/mt_isect.cu", "pim_tpu/render/intersect.py:189"),
 }
 
 
@@ -913,22 +951,18 @@ def run_cornell(dev):
     return kernels, launches, cpu_scene
 
 
-def _e1m1_rays(dev, scene):
-    """262,144 rays of one seeded bounce off the e1m1 primary hits, ~10%
-    dead lanes and one fully dead 2048-ray run: (ro, rd, t_far for closest
-    hits, t_far for shadow-like any hits)."""
+def _bounce_rays(dev, scene, scene_name: str = "e1m1"):
+    """262,144 rays of one seeded bounce off the primary hits of the scene's
+    bench camera, ~10% dead lanes and one fully dead 2048-ray run: (ro, rd,
+    t_far for closest hits, t_far for shadow-like any hits)."""
     import numpy as np
     import torch
 
-    from pim_tpu_torch.app import bench_camera
-    from pim_tpu_torch.core import rng
     from pim_tpu_torch.math.vec3 import RCP_EPS, V3, normalize, where3
-    from pim_tpu_torch.render.camera import generate_primary_rays
     from pim_tpu_torch.render.scene import intersect_raw
 
     meta, arrays, _ = scene
-    state = rng.make_state(torch.arange(N_RAYS, device=dev), 0)
-    _, ro, rd = generate_primary_rays(bench_camera("e1m1", WIDTH, HEIGHT), WIDTH, HEIGHT, state)
+    ro, rd = _camera_rays(dev, scene_name)
     t, tri = intersect_raw(meta, arrays, ro, rd, 0.0, RCP_EPS)
     origin = where3(tri >= 0, ro + rd * (t * 0.999), ro)
     rs = np.random.default_rng(4321)
@@ -1004,7 +1038,7 @@ def check_e1m1_kernels(dev, scene):
 
     meta, arrays, lights = scene
     cl = CL.ClusterArrays(tris=arrays.cl_tris, clb=arrays.cl_clb, scb=arrays.cl_scb)
-    ro, rd, t_far, t_short = _e1m1_rays(dev, scene)
+    ro, rd, t_far, t_short = _bounce_rays(dev, scene)
     waves = main_path_wavefronts(scene)
     print(f"e1m1 hierarchy: tris {tuple(cl.tris.shape)} clb {tuple(cl.clb.shape)} "
           f"scb {tuple(cl.scb.shape)}, {int((cl.tris[12] >= 0).sum())} real slots; random rays "
@@ -2965,7 +2999,9 @@ def run_ab_sort(dev, e1m1_scene, smi: str) -> dict:
 def run_bench_cluster(dev, smi: str) -> dict:
     """tools/bench_cluster.py at CLUSTER_RAYS rays: the table and the
     measured crossover; K4's t must equal K1's and K5's flag K2's on every
-    ray of every soup.  Returns its launches."""
+    ray of every soup, and the bvh walk K1's triangle and K2's flag on every
+    ray on which no compare lies near its limit (`bvh_off` 0).  Returns its
+    launches."""
     import math
 
     from pim_tpu_torch import native
@@ -2981,17 +3017,17 @@ def run_bench_cluster(dev, smi: str) -> dict:
           f"{bench_cluster.crossover(rows)} tris; any hit (K5 beats K2): "
           f"{bench_cluster.crossover(rows, 'k2', 'k5')} tris; DENSE_CROSSOVER_TRIS "
           f"{DENSE_CROSSOVER_TRIS}; every timing back to back "
-          f"{all(r[k + '_back_to_back'] for r in rows for k in ('k1', 'k2', 'k4', 'k5'))}")
+          f"{all(r[k + '_back_to_back'] for r in rows for k in bench_cluster.KERNELS)}")
     print(json.dumps({"bench_cluster": rows}))
     print(f"measurement bench_cluster: {time.perf_counter() - t0:.1f} s [{smi}]")
-    bad = [r for r in rows for k in ("k1", "k2", "k4", "k5")
+    bad = [r for r in rows for k in bench_cluster.KERNELS
            if not (math.isfinite(r[k + "_mrays"]) and r[k + "_mrays"] > 0.0)]
     if bad:
         raise AssertionError(f"bench_cluster: rows without a rate: {bad}")
     bad = bench_cluster.disagreements(rows)
     if bad:
         raise AssertionError(f"bench_cluster: K4's t is not K1's or K5's flag not K2's on "
-                             f"every ray: {bad}")
+                             f"every ray, or the walk leaves them off a limit: {bad}")
     _check_counts("bench_cluster", launches, "bench_cluster")
     return {"bench_cluster": launches}
 
@@ -3004,6 +3040,380 @@ def run_measurement(dev, e1m1_scene, smi: str) -> dict:
     launches.update(run_ab_sort(dev, e1m1_scene, smi))
     launches.update(run_bench_cluster(dev, smi))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the Moller-Trumbore backends (brute, bvh)
+# ---------------------------------------------------------------------------
+
+MT_KERNELS = ("brute_isect", "brute_anyhit", "bvh_isect", "bvh_anyhit")
+MT_BRUTE_LANES = 32768   # e1m1 rays through the brute-force kernels (2.7e9 tests)
+MT_TIE_DISTINCT = 40     # the MT tie soup: distinct triangles,
+MT_TIE_COPIES = 20       # each this often, shuffled (800: two chunks of the scan)
+MT_TIE_LANES = 32768
+MT_E1M1_STEPS = 3        # 512^2 1-spp steps a turn through bvh and cluster (1 warm-up)
+MT_SHELL_RES = 128       # the shell frames after pt_backend brute / bvh
+MT_SHADOW_T = 7.0        # one t_far for all of the camera rays' any hit
+MT_PLAIN_RUNS = 1        # timed calls of a plain MT version (a walk takes ~0.7 s)
+
+
+def _check_mt(label: str, got, want) -> float:
+    """Kernel outputs against the plain version's, bit for bit; returns the
+    largest |difference| of the first output (t, or the flag)."""
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    diffs = [int((g.view(torch.int32) != w.view(torch.int32)).sum()) for g, w in zip(got, want)]
+    hits = int((got[1] >= 0).sum()) if len(got) > 1 else int(got[0].sum())
+    print(f"{label}: lanes {got[0].shape[0]}, hits {hits}, bit differences {diffs} "
+          "(t, tri, u, v, det | flag)")
+    if any(diffs) or len(got) != len(want):
+        raise AssertionError(f"{label} differs from its plain version: {diffs}")
+    return float((got[0].float() - want[0].float()).abs().max())
+
+
+def check_bvh_builds(e1m1_positions) -> None:
+    """Both builders on the Cornell, spheres and e1m1 soups: seconds, nodes,
+    and every tree's validate_bvh depth (it must fit the walk's stack)."""
+    from pim_tpu_torch import native
+    from pim_tpu_torch.geom import bvh
+    from pim_tpu_torch.geom.cornell import build_cornell_box
+    from pim_tpu_torch.geom.entities import flatten
+
+    t0 = time.perf_counter()
+    path = native.build_bvh_builder()
+    print(f"bvh builder: {path} (g++ {' '.join(native.GXX_FLAGS)}) "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name, pos in (("cornell boxes", flatten(build_cornell_box("boxes")[0]).positions),
+                      ("cornell spheres", flatten(build_cornell_box("spheres")[0]).positions),
+                      ("e1m1", e1m1_positions)):
+        t0 = time.perf_counter()
+        tn = bvh.build_bvh_numpy(pos)
+        t1 = time.perf_counter()
+        tc = native.build_bvh_native(pos)
+        t2 = time.perf_counter()
+        dn, dc = bvh.validate_bvh(tn, pos), bvh.validate_bvh(tc, pos)
+        print(f"bvh build {name}: {pos.shape[0] // 3} tris; numpy {t1 - t0:.3f} s, "
+              f"{len(tn.node_a)} nodes, depth {dn}; native {t2 - t1:.3f} s, {len(tc.node_a)} "
+              f"nodes, depth {dc} (the walk's stack {bvh.STACK_DEPTH})")
+        if max(dn, dc) > bvh.STACK_DEPTH:
+            raise AssertionError(f"the {name} BVH is deeper than the walk's stack")
+
+
+def _mt_time(label: str, kernel, plain, work: dict, args, anyhit: bool) -> tuple:
+    """A kernel timed (queued) beside its plain version (MT_PLAIN_RUNS calls
+    from an idle device: the walk waits on the device every trip) and its
+    bound: `work`'s operations and scene bytes, the rays `args` (ro, rd,
+    t_near, t_far) and the outputs (t, tri, u, v, det; or the flag).
+    Returns (kernel, plain, bound)."""
+    k = _timing(kernel)
+    p = _timing(plain, MT_PLAIN_RUNS, queued=False)
+    n = args[0].x.shape[0]
+    n_bytes = work["scene_bytes"] + _ray_bytes(n, args[3]) + n * (4 if anyhit else 20)
+    bound = _bound(n_bytes, work["ops"])
+    print(f"{label}: kernel {_fmt(k)}; plain {_fmt(p)} ({MT_PLAIN_RUNS} runs); bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; {n_bytes} bytes, "
+          f"{work['ops']} operations)")
+    return k, p, bound
+
+
+def _check_no_syncs(label: str, scene, scene_name: str, res: int, spp: int) -> None:
+    """One more step of an MT frame (res^2, BOUNCES, spp samples, each
+    through the same bounce loop) queued under the bench's sync watch
+    (`bench._sync_watch`, torch's sync debug mode): the host syncs torch
+    reports in it must be 0, as in the bench's timed steps."""
+    from pim_tpu_torch.app import bench_camera, render_step, timed_steps
+    from pim_tpu_torch.bench import _sync_watch
+
+    dev = scene[1].tri_table.device
+    cam = bench_camera(scene_name, res, res)
+    syncs = {"count": 0, "at": {}}
+    timed_steps(lambda i: render_step(scene, cam, res, res, BOUNCES, spp, i).rays_traced, dev,
+                1, 0, _sync_watch(dev, syncs))
+    print(f"{label}: host syncs in one queued step {syncs['count']} {syncs['at']}")
+    if syncs["count"]:
+        raise AssertionError(f"{label}: the step synced with the host: {syncs['at']}")
+
+
+def _camera_rays(dev, scene_name: str):
+    """The N_RAYS primary rays of sample 0 of the scene's bench camera."""
+    import torch
+
+    from pim_tpu_torch.app import bench_camera
+    from pim_tpu_torch.core import rng
+    from pim_tpu_torch.math.vec3 import V3
+    from pim_tpu_torch.render.camera import generate_primary_rays
+
+    state = rng.make_state(torch.arange(N_RAYS, device=dev), 0)
+    _, ro, rd = generate_primary_rays(bench_camera(scene_name, WIDTH, HEIGHT), WIDTH, HEIGHT,
+                                      state)
+    return V3(*(c.contiguous() for c in ro)), V3(*(c.contiguous() for c in rd))
+
+
+def run_cornell_brute(dev) -> tuple:
+    """The Cornell slice through `brute`: its main path (built on the card,
+    the 512^2 frame gated by `cornell512`, its host syncs), brute_isect and brute_anyhit on
+    the camera rays and one seeded bounce against their plain versions, the
+    small frame against the CPU.  Returns (rows, launches)."""
+    import torch
+
+    from pim_tpu_torch import native
+    from pim_tpu_torch.app import build_cornell_scene, render_frame
+    from pim_tpu_torch.math.vec3 import RCP_EPS
+    from pim_tpu_torch.render import intersect as MT
+    from pim_tpu_torch.tools.mt_check import brute_work
+
+    native.reset_launches()
+    t0 = time.perf_counter()
+    scene = build_cornell_scene(dev, "brute")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fr = render_frame(scene, "cornell", WIDTH, HEIGHT, BOUNCES, SPP, STEPS)
+    launches = dict(native.launches)
+    lo, hi = _band("pim_tpu_torch/render/gate_bands.json", "cornell512")
+    print(f"cornell brute scene build on card: {build_s:.3f} s")
+    print(_frame_line(f"cornell brute frame {WIDTH}x{HEIGHT} bounces={BOUNCES} spp/step={SPP} "
+                      f"steps={STEPS} band=[{lo:.6f}, {hi:.6f}]", fr))
+    print(f"cornell brute launches during build+frame: {launches}")
+    _check_frame(fr, WIDTH * HEIGHT, ("gather_cols", "brute_isect", "brute_anyhit"))
+    if not lo <= fr.mean <= hi:
+        raise AssertionError(f"brute frame mean {fr.mean} outside cornell512 [{lo}, {hi}]")
+    _check_no_syncs("cornell brute frame", scene, "cornell", WIDTH, 1)
+
+    pos = scene[1].positions
+    cro, crd = _camera_rays(dev, "cornell")
+    ro, rd, t_far, t_short = _bounce_rays(dev, scene, "cornell")
+    err = _check_mt("brute_isect [cornell camera]", MT.brute_isect(pos, cro, crd, 0.0, RCP_EPS),
+                    MT.brute_isect_plain(pos, cro, crd, 0.0, RCP_EPS))
+    err = max(err, _check_mt("brute_isect [cornell bounce]",
+                             MT.brute_isect(pos, ro, rd, 0.0, t_far),
+                             MT.brute_isect_plain(pos, ro, rd, 0.0, t_far)))
+    aerr = _check_mt("brute_anyhit [cornell camera]",
+                     MT.brute_anyhit(pos, cro, crd, 0.0, MT_SHADOW_T),
+                     MT.brute_anyhit_plain(pos, cro, crd, 0.0, MT_SHADOW_T))
+    aerr = max(aerr, _check_mt("brute_anyhit [cornell bounce]",
+                               MT.brute_anyhit(pos, ro, rd, 0.0, t_short),
+                               MT.brute_anyhit_plain(pos, ro, rd, 0.0, t_short)))
+    rows = {
+        "brute_isect": _row(err, *_mt_time(
+            "brute_isect time [cornell bounce]", lambda: MT.brute_isect(pos, ro, rd, 0.0, t_far),
+            lambda: MT.brute_isect_plain(pos, ro, rd, 0.0, t_far),
+            brute_work(pos, ro, rd, 0.0, t_far, False), (ro, rd, 0.0, t_far), False)),
+        "brute_anyhit": _row(aerr, *_mt_time(
+            "brute_anyhit time [cornell bounce]",
+            lambda: MT.brute_anyhit(pos, ro, rd, 0.0, t_short),
+            lambda: MT.brute_anyhit_plain(pos, ro, rd, 0.0, t_short),
+            brute_work(pos, ro, rd, 0.0, t_short, True), (ro, rd, 0.0, t_short), True)),
+    }
+    check_small_frame("cornell", scene, _scene_to(scene, "cpu"))
+    return rows, {"cornell_brute": launches}
+
+
+def run_e1m1_bvh(dev, e1m1_scene) -> tuple:
+    """The e1m1 slice through `bvh`: its main path (built on the card, the
+    128^2 16-step render gated by `e1m1_128`, its host syncs), a 512^2
+    1-spp step through bvh beside the same step through cluster (two turns
+    each), bvh_isect / bvh_anyhit on the main path's camera, bounce-1 and
+    NEE rays and a seeded bounce against the plain walk on every lane
+    (K4/K5 timed on the same rays), brute_isect / brute_anyhit on
+    MT_BRUTE_LANES of the seeded bounce, the small frame against the CPU.  Returns (rows, launches, scene)."""
+    import torch
+
+    from pim_tpu_torch import native
+    from pim_tpu_torch.app import build_e1m1_scene, render_frame
+    from pim_tpu_torch.math.vec3 import V3
+    from pim_tpu_torch.render import cluster as CL
+    from pim_tpu_torch.geom.bvh import BvhArrays
+    from pim_tpu_torch.render import intersect as MT
+    from pim_tpu_torch.tools.mt_check import brute_work, bvh_work, main_path_wavefronts
+
+    native.reset_launches()
+    t0 = time.perf_counter()
+    scene = build_e1m1_scene(dev, "bvh")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    lo, hi = _band("pim_tpu_torch/render/gate_bands.json", "e1m1_128")
+    gate = render_frame(scene, "e1m1", GATE_RES, GATE_RES, BOUNCES, 1, 16)
+    launches = dict(native.launches)
+    meta, arrays, _ = scene
+    print(f"e1m1 bvh scene build on card: {build_s:.3f} s ({arrays.bvh_a.shape[0]} nodes, "
+          f"max_leaf {meta.max_leaf})")
+    print(_frame_line(f"e1m1 bvh gate frame {GATE_RES}x{GATE_RES} bounces={BOUNCES} spp=16 "
+                      f"band=[{lo:.6f}, {hi:.6f}] (CPU anchor)", gate))
+    print(f"e1m1 bvh launches during build+frame: {launches}")
+    _check_frame(gate, GATE_RES * GATE_RES, ("gather_cols", "gather_bilinear", "bvh_isect",
+                                             "bvh_anyhit"))
+    if not lo <= gate.mean <= hi:
+        raise AssertionError(f"e1m1 bvh {GATE_RES}^2 mean {gate.mean} outside e1m1_128 "
+                             f"[{lo}, {hi}]")
+    _check_no_syncs("e1m1 bvh gate frame", scene, "e1m1", GATE_RES, 1)
+    walls = {"bvh": [], "cluster": []}
+    for name, sc in (("bvh", scene), ("cluster", e1m1_scene), ("cluster", e1m1_scene),
+                     ("bvh", scene)):  # in turns: the host drifts within a call
+        fr = render_frame(sc, "e1m1", WIDTH, HEIGHT, BOUNCES, 1, MT_E1M1_STEPS)
+        walls[name].append(fr.ms_per_step)
+        print(_frame_line(f"e1m1 {WIDTH}^2 1-spp step through {name}", fr))
+    print(f"e1m1 {WIDTH}^2 1-spp step, mean of two turns: bvh {sum(walls['bvh']) / 2:.3f} ms, "
+          f"cluster {sum(walls['cluster']) / 2:.3f} ms")
+
+    bvh = BvhArrays(arrays.bvh_lo, arrays.bvh_hi, arrays.bvh_a, arrays.bvh_b, arrays.tri_order)
+    pos, ml = arrays.positions, meta.max_leaf
+    cl = CL.ClusterArrays(tris=e1m1_scene[1].cl_tris, clb=e1m1_scene[1].cl_clb,
+                          scb=e1m1_scene[1].cl_scb)
+    waves = main_path_wavefronts(scene, "e1m1", WIDTH, HEIGHT)
+    ro, rd, t_far, t_short = _bounce_rays(dev, scene)
+    sets = {"camera": waves["primary"], "bounce-1": waves["bounce"],
+            "seeded bounce": (ro, rd, 0.0, t_far)}
+    rows = {"bvh_isect": {}, "bvh_anyhit": {}}
+    err = 0.0
+    for which, args in sets.items():
+        out, work = bvh_work(bvh, pos, *args, ml, False)
+        err = max(err, _check_mt(f"bvh_isect [e1m1 {which}]", MT.bvh_isect(bvh, pos, *args, ml),
+                                 out))
+        print(f"bvh_isect [e1m1 {which}] walk: {work}")
+        if which == "bounce-1":
+            timed = _mt_time(f"bvh_isect time [e1m1 {which}]",
+                             lambda: MT.bvh_isect(bvh, pos, *args, ml),
+                             lambda: MT.bvh_isect_plain(bvh, pos, *args, ml), work, args, False)
+            rows["bvh_isect"].update(_row(0.0, *timed))
+            k4 = _timing(lambda: CL.cluster_isect(cl, *args))
+            rows["bvh_isect"]["k4_same_rays_ms"] = k4["ms"]
+            print(f"K4 cluster_isect on the same rays: {_fmt(k4)}")
+    rows["bvh_isect"]["max_abs_err"] = err
+    aerr = 0.0
+    for which, args in (("NEE", waves["shadow"]), ("seeded bounce", (ro, rd, 0.0, t_short))):
+        out, work = bvh_work(bvh, pos, *args, ml, True)
+        aerr = max(aerr, _check_mt(f"bvh_anyhit [e1m1 {which}]",
+                                   MT.bvh_anyhit(bvh, pos, *args, ml), out))
+        print(f"bvh_anyhit [e1m1 {which}] walk: {work}")
+        if which == "NEE":
+            timed = _mt_time(f"bvh_anyhit time [e1m1 {which}]",
+                             lambda: MT.bvh_anyhit(bvh, pos, *args, ml),
+                             lambda: MT.bvh_anyhit_plain(bvh, pos, *args, ml), work, args, True)
+            rows["bvh_anyhit"].update(_row(aerr, *timed))
+            k5 = _timing(lambda: CL.cluster_anyhit(cl, *args))
+            rows["bvh_anyhit"]["k5_same_rays_ms"] = k5["ms"]
+            print(f"K5 cluster_anyhit on the same rays: {_fmt(k5)}")
+    rows["bvh_anyhit"]["max_abs_err"] = aerr
+
+    sub = slice(0, MT_BRUTE_LANES)
+    bro, brd = V3(*(c[sub] for c in ro)), V3(*(c[sub] for c in rd))
+    extra = {}
+    for name, kernel, plain, tf, anyhit in (
+            ("brute_isect", MT.brute_isect, MT.brute_isect_plain, t_far[sub], False),
+            ("brute_anyhit", MT.brute_anyhit, MT.brute_anyhit_plain, t_short[sub], True)):
+        e = _check_mt(f"{name} [e1m1 seeded bounce, {MT_BRUTE_LANES} lanes]",
+                      kernel(pos, bro, brd, 0.0, tf), plain(pos, bro, brd, 0.0, tf))
+        timed = _mt_time(f"{name} time [e1m1, {MT_BRUTE_LANES} lanes]",
+                         lambda: kernel(pos, bro, brd, 0.0, tf),
+                         lambda: plain(pos, bro, brd, 0.0, tf),
+                         brute_work(pos, bro, brd, 0.0, tf, anyhit), (bro, brd, 0.0, tf), anyhit)
+        extra[name] = {f"e1m1_{key}": v for key, v in _row(e, *timed).items()
+                       if not key.startswith("library")}
+    check_small_frame("e1m1", scene, _scene_to(scene, "cpu"))
+    return rows, extra, {"e1m1_bvh": launches}, scene
+
+
+def check_mt_tie_soup(dev) -> dict:
+    """Both families on a soup of coincident triangles in different chunks
+    and leaves (cluster_check.tie_soup, the C++ builder's tree), rays
+    aimed at them with ~10% dead lanes: bit for bit on every lane."""
+    import numpy as np
+    import torch
+
+    from pim_tpu_torch.geom import bvh as B
+    from pim_tpu_torch.math.vec3 import V3
+    from pim_tpu_torch.render import intersect as MT
+    from pim_tpu_torch.tools.cluster_check import aimed_rays, tie_soup
+
+    soup, base = tie_soup(MT_TIE_DISTINCT, MT_TIE_COPIES, seed=12)
+    tree = B.build_bvh(soup)
+    print(f"MT tie soup: {MT_TIE_DISTINCT} triangles x {MT_TIE_COPIES} copies, "
+          f"{len(tree.node_a)} nodes, depth {B.validate_bvh(tree, soup)}")
+    ro, rd, t_far = aimed_rays(base, MT_TIE_LANES, seed=13)
+    t_short = np.where(t_far > 0.0, np.random.default_rng(14).uniform(
+        0.5, 15.0, MT_TIE_LANES), 0.0).astype(np.float32)
+
+    def cuda(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    pos, bvh = cuda(soup), B.BvhArrays(*(cuda(x) for x in tree))
+    ro, rd, t_far, t_short = V3(*(cuda(c) for c in ro)), V3(*(cuda(c) for c in rd)), \
+        cuda(t_far), cuda(t_short)
+    return {
+        "brute_isect": _check_mt("brute_isect [tie soup]", MT.brute_isect(pos, ro, rd, 0.0, t_far),
+                                 MT.brute_isect_plain(pos, ro, rd, 0.0, t_far)),
+        "brute_anyhit": _check_mt("brute_anyhit [tie soup]",
+                                  MT.brute_anyhit(pos, ro, rd, 0.0, t_short),
+                                  MT.brute_anyhit_plain(pos, ro, rd, 0.0, t_short)),
+        "bvh_isect": _check_mt("bvh_isect [tie soup]", MT.bvh_isect(bvh, pos, ro, rd, 0.0, t_far),
+                               MT.bvh_isect_plain(bvh, pos, ro, rd, 0.0, t_far)),
+        "bvh_anyhit": _check_mt("bvh_anyhit [tie soup]",
+                                MT.bvh_anyhit(bvh, pos, ro, rd, 0.0, t_short),
+                                MT.bvh_anyhit_plain(bvh, pos, ro, rd, 0.0, t_short)),
+    }
+
+
+def run_mt_shell(smi: str) -> dict:
+    """One shell frame each after `pt_backend brute` (Cornell) and
+    `pt_backend bvh` (e1m1): finite, nonzero, the scene on that backend,
+    its kernels launched.  Returns the launches."""
+    import shutil
+
+    import torch
+
+    from pim_tpu_torch.core import cvars as cv
+
+    out_dir = os.path.join(ROOT, "build", "mt_shell")
+    shutil.rmtree(out_dir, ignore_errors=True)  # this phase's own outputs only
+    os.makedirs(out_dir)
+    cwd = os.getcwd()
+    os.chdir(out_dir)
+    launches = {}
+    try:
+        cv.cv_basedir.set(os.path.join(ROOT, "data"))
+        for path, backend, load in (
+                ("cornell_brute_shell", "brute", "cornell_box; teleport -4 0 4; lookat 0 -1 0"),
+                ("e1m1_bvh_shell", "bvh", "mapload e1m1; teleport -2.5 1.7 -2.5; lookat 6 1 6")):
+            eng, launches[path] = _run_engine(
+                f"{path} {MT_SHELL_RES}^2", MT_SHELL_RES,
+                f"pt_backend {backend}; pt_max_bounces {BOUNCES}; {load}; pt_trace 1; wait 1; "
+                "pt_trace 0; quit", smi)
+            img = eng.render.buffers.color
+            mean = float(img.mean())
+            print(f"{path}: backend {eng.render.meta.backend}, {eng.render.meta.tri_count} tris, "
+                  f"{eng.render.sample_count} samples, mean {mean:.6f}")
+            if eng.render.meta.backend != backend:
+                raise AssertionError(f"pt_backend {backend} built a {eng.render.meta.backend} "
+                                     "scene")
+            if not bool(torch.isfinite(img).all()) or not mean > 0.0:
+                raise AssertionError(f"the {path} frame is not finite and nonzero")
+            _check_counts("the shell", launches[path], path)
+    finally:
+        cv.cv_pt_backend.set("auto")
+        os.chdir(cwd)
+    return launches
+
+
+def run_mt(dev, e1m1_scene, smi: str) -> tuple:
+    """Phase 10, the Moller-Trumbore backends; returns (kernel rows, the
+    launches of their paths)."""
+    check_bvh_builds(e1m1_scene[1].positions.cpu().numpy())
+    rows, launches = run_cornell_brute(dev)
+    e1m1_rows, extra, e1m1_launches, _ = run_e1m1_bvh(dev, e1m1_scene)
+    rows.update(e1m1_rows)
+    launches.update(e1m1_launches)
+    for name, err in check_mt_tie_soup(dev).items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    for name, more in extra.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], more["e1m1_max_abs_err"])
+        rows[name].update(more)
+    launches.update(run_mt_shell(smi))
+    print(f"MT kernels [{smi}]: " + "; ".join(
+        f"{n} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.3f})"
+        for n, r in rows.items()))
+    return rows, launches
 
 
 def main() -> int:
@@ -3054,18 +3464,23 @@ def main() -> int:
     t0 = time.perf_counter()
     measure_launches = run_measurement(dev, e1m1_scene, smi)
     print(f"measurement phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mt_kernels, mt_launches = run_mt(dev, e1m1_scene, smi)
+    print(f"Moller-Trumbore phase: {time.perf_counter() - t0:.1f} s")
     # K3 runs on both paths: its row keeps the Cornell times and adds the
     # e1m1 tri table's; its error is the larger of the two checks
     e1m1_k3 = e1m1_kernels.pop("gather_cols")
     kernels.update(e1m1_kernels)
     kernels.update(train_kernels)
+    kernels.update(mt_kernels)
     k3 = kernels["gather_cols"]
     k3["max_abs_err"] = max(k3["max_abs_err"], e1m1_k3.pop("max_abs_err"))
     k3.update({f"e1m1_{key}": v for key, v in e1m1_k3.items()})
     kernels["dense_isect"]["max_abs_err"] = max(kernels["dense_isect"]["max_abs_err"],
                                                 probe["max_abs_err"])
     by_path = {"cornell": cornell_launches, "e1m1": e1m1_launches, **train_launches,
-               **shell_launches, **bake_launches, **par_launches, **measure_launches}
+               **shell_launches, **bake_launches, **par_launches, **measure_launches,
+               **mt_launches}
     launches = {name: {p: by_path[p][name] for p in ps} for name, ps in PATHS.items()}
     for name, counts in launches.items():
         for p, count in counts.items():
@@ -3076,7 +3491,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": sum(launches[name].values()),
          "launches_by_path": launches[name], **kernels[name]}
-        for name in CORNELL_KERNELS + E1M1_KERNELS + TRAIN_KERNELS]}
+        for name in CORNELL_KERNELS + E1M1_KERNELS + TRAIN_KERNELS + MT_KERNELS]}
     print(json.dumps(report))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -74,22 +74,24 @@ SKY_STEPS = 8
 EXPOSURE_DT = 1.0 / 60.0
 
 
-def build_cornell_scene(device):
-    """The Cornell 'boxes' scene built on `device` (light grid baked there)."""
+def build_cornell_scene(device, backend: str = "auto"):
+    """The Cornell 'boxes' scene built on `device` (light grid baked there)
+    with `backend` (scene.build_scene's)."""
     ents, pool = build_cornell_box("boxes")
-    return build_scene(ents, pool, device)
+    return build_scene(ents, pool, device, backend=backend)
 
 
-def build_e1m1_scene(device):
+def build_e1m1_scene(device, backend: str = "auto"):
     """The e1m1 map (data/e1m1/glTF) with its sky, built on `device`: the
-    sky is baked there and the light grid through the cluster kernels.
-    The asset is committed; it is never regenerated here."""
+    sky is baked there and the light grid through the scene's intersector
+    (`auto`: the cluster kernels).  The asset is committed; it is never
+    regenerated here."""
     if not os.path.exists(E1M1_GLTF):
         raise FileNotFoundError(f"{E1M1_GLTF}: the e1m1 asset is missing from the checkout")
     ents, pool = load_gltf_scene(E1M1_GLTF)
     sky = bake_sky_cubemap(earth_atmosphere(), SUN_DIR, SUN_LUM, SKY_SIZE, SKY_STEPS,
                            device=device)
-    return build_scene(ents, pool, device, sky=sky)
+    return build_scene(ents, pool, device, sky=sky, backend=backend)
 
 
 @dataclass(frozen=True)

@@ -1,13 +1,15 @@
 """Physically-based BRDF building blocks (GGX / Smith / Schlick / Burley).
 
 Counterpart of `pim_tpu.math.brdf`: the eval functions, the split-sum BRDF
-LUT bake and its bilinear fetch.  Colors are SoA V3; scalars flat [N].
+LUT bake and its bilinear fetch.  The BSDF inlines `f_schlick`,
+`fd_lambert` and `diffuse_color`; they are here for the public surface.  Colors are SoA V3; scalars flat [N].
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from pim_tpu_torch.math.vec3 import EPS, EPS_SQ, PI, V3, f32, lerp, saturate
@@ -15,6 +17,7 @@ from pim_tpu_torch.math.vec3 import EPS, EPS_SQ, PI, V3, f32, lerp, saturate
 K_MIN_DENOM = f32(1.0 / (1 << 10))
 K_MIN_ALPHA = K_MIN_DENOM
 _F90_SCALE = f32(50.0 * 0.33)
+_RCP_PI = f32(np.float32(1.0) / np.float32(PI))
 
 
 def brdf_alpha(roughness):
@@ -34,6 +37,13 @@ def f_0(albedo: V3, metallic) -> V3:
 def f_90(f0: V3):
     """Grazing reflectance."""
     return saturate(_F90_SCALE * (f0.x + f0.y + f0.z))
+
+
+def f_schlick(f0: V3, f90, cos_theta) -> V3:
+    """Schlick fresnel of a colour."""
+    t = 1.0 - cos_theta
+    t5 = t * t * t * t * t
+    return V3(lerp(f0.x, f90, t5), lerp(f0.y, f90, t5), lerp(f0.z, f90, t5))
 
 
 def f_schlick1(f0, f90, cos_theta):
@@ -82,6 +92,15 @@ def fd_burley(nol, nov, hov, roughness):
     light_scatter = f_schlick1(1.0, fd90, nol)
     view_scatter = f_schlick1(1.0, fd90, nov)
     return (light_scatter * view_scatter) / PI
+
+
+def fd_lambert() -> float:
+    """The Lambert lobe, 1 / pi in float32."""
+    return _RCP_PI
+
+
+def diffuse_color(albedo: V3, metallic) -> V3:
+    return albedo * (1.0 - metallic)
 
 
 # ---------------------------------------------------------------------------

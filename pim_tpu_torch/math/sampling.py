@@ -1,7 +1,7 @@
 """Monte-Carlo sampling library over flat [N] float32 tensors.
 
-Counterpart of `pim_tpu.math.sampling` (the functions the frames and the
-bakes use, and `hg_phase`).  2D random variables are (u, v) tuples of [N] tensors; directions
+Counterpart of `pim_tpu.math.sampling`: every public function of it (the
+importance samplers and `hg_phase` have no caller on the port's paths).  2D random variables are (u, v) tuples of [N] tensors; directions
 are V3.  Constant expressions are formed in float32 (`f32`) so they round
 as the reference's float32 constants do.
 """
@@ -20,6 +20,7 @@ from pim_tpu_torch.math.vec3 import (
     TAU,
     V3,
     f32,
+    reflect,
     sqrt0,
 )
 
@@ -166,6 +167,17 @@ def sample_ggx_microfacet(u, v, alpha) -> V3:
     return spherical_to_cartesian(cos_theta, phi)
 
 
+def importance_sample_ggx(i: V3, n: V3, u, v, alpha) -> V3:
+    """A GGX-sampled reflection of `i` about normal `n`."""
+    m = tan_to_world(n, sample_ggx_microfacet(u, v, alpha))
+    return reflect(i, m)
+
+
+def importance_sample_lambert(n: V3, u, v) -> V3:
+    """A cosine-weighted direction about normal `n`."""
+    return tan_to_world(n, sample_cosine_hemisphere(u, v))
+
+
 def lambert_pdf(nol):
     return nol * _RCP_PI
 
@@ -222,3 +234,17 @@ def hg_phase(cos_theta, g):
     denom = 1.0 + g2 + 2.0 * g * cos_theta
     denom = denom * torch.sqrt(torch.clamp_min(denom, EPS_SQ))
     return (1.0 - g2) / torch.clamp_min(_4PI * denom, EPS)
+
+
+def importance_sample_hg_phase(u, v, g) -> V3:
+    """A Henyey-Greenstein scattering direction about +Z; g a tensor or a
+    float32 constant (|g| <= 1e-3 samples the sphere uniformly)."""
+    g = torch.as_tensor(g, dtype=torch.float32, device=u.device)
+    aniso = torch.abs(g) > 1e-3
+    g_safe = torch.where(aniso, g, f32(1e-3))
+    a = -1.0 / (2.0 * g_safe)
+    b = 1.0 + g_safe * g_safe
+    c = (1.0 - g_safe * g_safe) / torch.clamp_min(1.0 + g_safe - 2.0 * g_safe * u, EPS)
+    cos_aniso = torch.clamp(a * (b - c * c), -1.0, 1.0)
+    cos_iso = u * 2.0 - 1.0
+    return spherical_to_cartesian(torch.where(aniso, cos_aniso, cos_iso), TAU * v)

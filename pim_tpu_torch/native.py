@@ -11,11 +11,18 @@ toolkit or a failed compile raises.
 Each kernel wrapper counts its launches in `launches` (one per kernel
 launch, nowhere else), so a run can show that its main path went through
 the kernels.
+
+The host-side BVH builder (csrc/bvh_builder.cpp, a copy of the JAX
+package's) is built here too, with g++ and the JAX package's flags, into
+its own directory under the same root; `build_bvh_native` runs it.  A
+failed compile raises: there is no quiet fallback to the numpy builder,
+whose tree (and so the `bvh` backend's ties) differs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -30,7 +37,7 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("dense_isect.cu", "gather_cols.cu", "cluster_isect.cu", "gather_bilinear.cu",
-           "gather_texels.cu")
+           "gather_texels.cu", "mt_isect.cu")
 HEADERS = ("gather_tiles.cuh",)  # included by the sources; in the build hash
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "pim_tpu_torch")
 LIB_NAME = "libpim_tpu_torch.so"
@@ -45,6 +52,7 @@ launches: Dict[str, int] = {
     "dense_isect": 0, "dense_anyhit": 0, "gather_cols": 0, "gather_cols_bwd": 0,
     "cluster_isect": 0, "cluster_anyhit": 0, "gather_bilinear": 0,
     "gather_texels": 0, "gather_texels_bwd": 0,
+    "brute_isect": 0, "brute_anyhit": 0, "bvh_isect": 0, "bvh_anyhit": 0,
 }
 
 
@@ -165,6 +173,19 @@ def bind(lib) -> None:
     # texel rows, c, t, idx, tx, ty, valid, k * n, out, stream
     lib.pim_gather_bilinear.argtypes = [p, i, i, p, p, p, p, ll, p, p]
     lib.pim_gather_bilinear.restype = i
+    # positions, tri count, the ray arguments, n, t, tri, u, v, det, stream
+    mt_args = [p, i] + [p] * 6 + [f, p, f, i]
+    lib.pim_brute_isect.argtypes = mt_args + [p] * 6
+    lib.pim_brute_isect.restype = i
+    lib.pim_brute_anyhit.argtypes = mt_args + [p, p]
+    lib.pim_brute_anyhit.restype = i
+    # node_lo, node_hi, node_a, node_b, tri_order, max_leaf, positions, the
+    # ray arguments, n, outputs as above, stream
+    bvh_args = [p] * 5 + [i, p] + [p] * 6 + [f, p, f, i]
+    lib.pim_bvh_isect.argtypes = bvh_args + [p] * 6
+    lib.pim_bvh_isect.restype = i
+    lib.pim_bvh_anyhit.argtypes = bvh_args + [p, p]
+    lib.pim_bvh_anyhit.restype = i
     lib.pim_cuda_error_string.argtypes = [i]
     lib.pim_cuda_error_string.restype = ctypes.c_char_p
 
@@ -198,3 +219,104 @@ def require_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) 
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+# ---------------------------------------------------------------------------
+# The host-side BVH builder (g++)
+# ---------------------------------------------------------------------------
+
+BVH_SOURCE = "bvh_builder.cpp"
+BVH_LIB_NAME = "libpim_bvh_builder.so"
+# the JAX package's loader's flags (its native/__init__.py), so that on one
+# host both packages' builders compile to the same code
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-march=native")
+
+_bvh_lock = threading.Lock()
+_bvh_lib: Optional[ctypes.CDLL] = None
+
+
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH: the BVH builder cannot be built")
+    return gxx
+
+
+def bvh_builder_hash(gxx: str) -> str:
+    """The builder's build hash: its source, the flags, and what
+    -march=native resolves to on this host (a tree built elsewhere may use
+    instructions this CPU lacks, and a different arch may round the SAH
+    costs differently)."""
+    target = subprocess.run([gxx, "-march=native", "-Q", "--help=target"], capture_output=True,
+                            text=True, timeout=60).stdout
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode() + target.encode())
+    with open(os.path.join(CSRC, BVH_SOURCE), "rb") as f:
+        h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build_bvh_builder() -> str:
+    """Compile csrc/bvh_builder.cpp unless this hash is already built;
+    returns the library's path.  The compile writes a temporary name and
+    renames it into place under a lock file, so processes that build at
+    once neither race nor load a half-written library."""
+    gxx = _gxx()
+    out_dir = os.path.join(BUILD_ROOT, "bvh_" + bvh_builder_hash(gxx))
+    path = os.path.join(out_dir, BVH_LIB_NAME)
+    if os.path.exists(path):
+        return path
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(path):  # another process built it meanwhile
+            return path
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [gxx, *GXX_FLAGS, "-o", tmp, os.path.join(CSRC, BVH_SOURCE)]
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            raise RuntimeError(f"g++ failed ({res.returncode}) on {BVH_SOURCE}:\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(tmp, path)
+    return path
+
+
+def load_bvh_builder() -> ctypes.CDLL:
+    """The BVH builder's library, built on first use."""
+    global _bvh_lib
+    with _bvh_lock:
+        if _bvh_lib is not None:
+            return _bvh_lib
+        lib = ctypes.CDLL(build_bvh_builder())
+        p, ll = ctypes.c_void_p, ctypes.c_int64
+        lib.pim_bvh_build.restype = p
+        lib.pim_bvh_build.argtypes = [p, ll, ctypes.c_int]
+        lib.pim_bvh_counts.restype = None
+        lib.pim_bvh_counts.argtypes = [p, ctypes.POINTER(ll), ctypes.POINTER(ll)]
+        lib.pim_bvh_export.restype = None
+        lib.pim_bvh_export.argtypes = [p] * 6
+        lib.pim_bvh_free.restype = None
+        lib.pim_bvh_free.argtypes = [p]
+        _bvh_lib = lib
+        return lib
+
+
+def build_bvh_native(positions, max_leaf: int = 4):
+    """Binned-SAH build in C++ of a [V, 3] float32 flat triangle soup
+    (V = 3*T); returns geom.bvh.BvhArrays."""
+    import numpy as np
+
+    from pim_tpu_torch.geom.bvh import BvhArrays
+
+    lib = load_bvh_builder()
+    v = np.ascontiguousarray(positions, np.float32)
+    handle = lib.pim_bvh_build(v.ctypes.data, v.shape[0] // 3, int(max_leaf))
+    try:
+        nn, nt = ctypes.c_int64(), ctypes.c_int64()
+        lib.pim_bvh_counts(handle, ctypes.byref(nn), ctypes.byref(nt))
+        out = BvhArrays(np.empty((nn.value, 3), np.float32), np.empty((nn.value, 3), np.float32),
+                        np.empty(nn.value, np.int32), np.empty(nn.value, np.int32),
+                        np.empty(nt.value, np.int32))
+        lib.pim_bvh_export(handle, *(a.ctypes.data for a in out))
+    finally:
+        lib.pim_bvh_free(handle)
+    return out

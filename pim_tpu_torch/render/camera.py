@@ -83,6 +83,17 @@ def proj_slope(fov_y_radians: float, aspect: float):
     return (aspect * t, t)
 
 
+def proj_dir(right, up, fwd, slope, coord) -> torch.Tensor:
+    """Screen coordinates [-1, 1]^2 ([..., 2]) -> unit world ray directions
+    [..., 3] (an AoS helper; the frames use generate_primary_rays)."""
+    right, up, fwd = (torch.as_tensor(x, dtype=torch.float32) for x in (right, up, fwd))
+    coord = torch.as_tensor(coord, dtype=torch.float32)
+    x = coord[..., 0:1] * f32(slope[0])
+    y = coord[..., 1:2] * f32(slope[1])
+    d = fwd + right * x + up * y
+    return d / torch.sqrt(torch.clamp_min(torch.sum(d * d, -1, keepdim=True), 1e-24))
+
+
 class CameraArrays(NamedTuple):
     """The camera basis as float32 values (Python floats holding float32).
     `eye` may instead be a [3] float32 tensor, e.g. one that requires grad

@@ -62,7 +62,8 @@ from pim_tpu_torch.render.screenshot import quantize_dithered, tonemap_for_displ
 
 BANDS_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "pt_gate_bands.json")
 # the pt_backend cvar's names -> the port's intersectors
-_BACKENDS = {"auto": "auto", "pallas": "dense", "dense": "dense", "cluster": "cluster"}
+_BACKENDS = {"auto": "auto", "pallas": "dense", "dense": "dense", "cluster": "cluster",
+             "brute": "brute", "bvh": "bvh"}
 _LIGHT_FIELDS = ("pdf", "cdf", "integral", "sum", "live")
 _U32_FIELDS = ("sum", "live")  # uint32 words in a crate, int64 in the port
 
@@ -224,8 +225,8 @@ class RenderSystem:
             with profile("PtScene_Update"):
                 name = str(cv.cv_pt_backend.get()).strip().lower()
                 if name not in _BACKENDS:
-                    raise ValueError(f"pt_backend {name!r}: the port has auto, pallas (dense) "
-                                     "and cluster")
+                    raise ValueError(f"pt_backend {name!r}: the port has auto, pallas (dense), "
+                                     "cluster, brute and bvh")
                 self.meta, self.arrays, self.lights = build_scene(
                     self.entities, self.pool, self.device, backend=_BACKENDS[name],
                     media_enabled=bool(cv.cv_pt_media.get()))

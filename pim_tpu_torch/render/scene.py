@@ -4,36 +4,45 @@ Counterpart of `pim_tpu.render.scene`.  The scene is split into:
 
   SceneMeta   — static configuration (counts, grid dims, backend, feature
                 flags);
-  SceneArrays — the tensors the frame reads: BW rows for K1/K2, the cluster
-                hierarchy for K4/K5, the fused [48, T] attribute table, the
+  SceneArrays — the tensors the frame reads: the triangle soup (the MT
+                backends), BW rows for K1/K2, the cluster hierarchy for
+                K4/K5, the BVH (`bvh`), the fused [48, T] attribute table, the
                 emissive table, the atlas corner planes and texture records
                 (K6), the atlas parameter planes (K7, the differentiable
                 path), the sky cube and its corner planes (K6), the
                 light-grid activity and the BRDF LUT;
   LightState  — the per-cell light distributions (pdf, cdf, live histogram).
 
-Two intersectors: `dense` (K1/K2, render/dense_kernels.py) up to
-DENSE_CROSSOVER_TRIS triangles and `cluster` (K4/K5, render/cluster.py)
-past it, as the reference chooses on its TPU.  Cluster traces sort their
-rays first where `SceneMeta.sort_rays` says so (on the card).
+Four intersectors.  `auto` chooses `dense` (K1/K2,
+render/dense_kernels.py) up to DENSE_CROSSOVER_TRIS triangles and `cluster`
+(K4/K5, render/cluster.py) past it, as the reference chooses on its TPU.
+`brute` and `bvh` (render/intersect.py, csrc/mt_isect.cu) are the JAX
+package's Moller-Trumbore backends, its CPU choice: every triangle in
+index order, and the lockstep walk of a SAH BVH.  They are taken only when
+asked for (`build_scene(backend=...)`, the `pt_backend` cvar,
+`from_jax_scene`).  Cluster traces sort their rays first where
+`SceneMeta.sort_rays` says so (on the card).
 
 No intersection kernel has a backward: ray origins, directions and t_far
-are detached before K1, K2, K4 or K5 (and their plain versions) see them.
-The hit distance t of a closest hit takes its gradient from the
-Moller-Trumbore t that `_finalize_hit_fused` computes on the hit triangle,
-as the JAX package's brute-force backend differentiates it; its value stays
-the kernel's.
+are detached before any intersector (or its plain version) sees them.  The
+hit distance t of a closest hit takes its gradient from the
+Moller-Trumbore t computed on the hit triangle (`_finalize_hit_fused`;
+the MT backends' `_carry_mt_grad`, which carries u and v as well), as the
+JAX package's brute-force backend differentiates it; the values stay the
+kernel's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import NamedTuple, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
+from pim_tpu_torch.geom.bvh import BvhArrays, build_bvh, bvh_depth
+from pim_tpu_torch.geom.bvh import STACK_DEPTH as BVH_STACK_DEPTH
 from pim_tpu_torch.geom.entities import Entities, FlatScene, flatten
 from pim_tpu_torch.geom.material import MatFlag, TexturePool
 from pim_tpu_torch.render import cluster as CL
@@ -45,28 +54,23 @@ from pim_tpu_torch.math.grid import GridSpec, grid_len, grid_position, make_grid
 from pim_tpu_torch.math.sampling import hammersley_2d, sample_bary_coord, sample_unit_sphere
 from pim_tpu_torch.math.vec3 import MILLI, RCP_EPS, V3, cross, dot, f32, where3
 from pim_tpu_torch.render import fetch as F
+from pim_tpu_torch.render import intersect as MT
 from pim_tpu_torch.render.dense_kernels import intersect_dense_raw, occluded_dense, pack_tris
+from pim_tpu_torch.render.intersect import Hit, moller_trumbore
 from pim_tpu_torch.render.raysort import sorted_rays, unsort_rows
 from pim_tpu_torch.render.sky import sky_corner_planes
 
 # Past this many triangles the cluster kernels (K4/K5) take over from the
 # dense ones (K1/K2).  This is the reference's crossover, measured on a TPU
-# v5e; it has not been measured again on the H100.
+# v5e.  On the H100 tools/bench_cluster.py measured 1,088 (K4 beats K1 and
+# K5 beats K2 on both ray sets from there); the benchmark's decision sets
+# the constant (ROADMAP item 25).
 DENSE_CROSSOVER_TRIS = 8192
 DEFAULT_CELLS_PER_METER = 1.0 / 1.5   # 1 / pt_dist_meters (default 1.5)
 DEFAULT_BRDF_LUT_SAMPLES = 5120       # max(4096, r_brdflut_spf * 512), spf = 10
 
 _SHADOW_BIAS = f32(np.float32(0.01) * np.float32(MILLI))
 _DIST_TRI_CHUNK = 128  # triangles per [G, C] block of _min_dist_to_tris
-
-
-class Hit(NamedTuple):
-    t: torch.Tensor        # [N] f32, <0 on miss
-    tri: torch.Tensor      # [N] i32 triangle index, -1 on miss
-    u: torch.Tensor        # [N] f32 barycentric u (weight of vertex B)
-    v: torch.Tensor        # [N] f32 barycentric v (weight of vertex C)
-    backface: torch.Tensor  # [N] bool
-    ng: V3                 # unit geometric normal, faces the ray origin
 
 
 @dataclass(frozen=True)
@@ -83,7 +87,8 @@ class SceneMeta:
     media_enabled: bool
     textured: bool
     has_normal_maps: bool
-    backend: str = "dense"   # 'dense' (K1/K2) | 'cluster' (K4/K5)
+    backend: str = "dense"   # 'dense' (K1/K2) | 'cluster' (K4/K5) | 'brute' | 'bvh'
+    max_leaf: int = 4        # triangles a BVH leaf holds at most (`bvh`)
     sort_rays: bool = False  # coherence-sort cluster traces (render/raysort.py)
     # the differentiable path (render/diff.py): the atlas and the sky are
     # sampled from their parameter planes through K7, and the refraction
@@ -118,6 +123,12 @@ class SceneArrays:
     tex_rec_t: torch.Tensor       # [5, Ntex] f32 (x0, y0, w, h, atlas width)
     sky: torch.Tensor             # [6, R, R, 3] f32 sky cube (R = 1, zeros: none)
     sky_corners: torch.Tensor     # [12, 6*R*R] f32 its corner planes (K6, C = 3)
+    # the BVH (geom/bvh.py; one leaf of no triangle unless backend == 'bvh')
+    bvh_lo: torch.Tensor          # [Nn, 3] f32
+    bvh_hi: torch.Tensor          # [Nn, 3] f32
+    bvh_a: torch.Tensor           # [Nn] i32 left child | first slot
+    bvh_b: torch.Tensor           # [Nn] i32 right child | ~count
+    tri_order: torch.Tensor       # [T] i32 leaf slots -> triangles
 
 
 @dataclass
@@ -130,22 +141,8 @@ class LightState:
 
 
 # ---------------------------------------------------------------------------
-# Intersection (dense backend)
+# Intersection
 # ---------------------------------------------------------------------------
-
-
-def _mt_soa(ro: V3, rd: V3, a: V3, e1: V3, e2: V3):
-    """Moller-Trumbore on SoA lanes; returns (t, u, v, det)."""
-    p = cross(rd, e2)
-    det = dot(e1, p)
-    ok = torch.abs(det) > 1e-12
-    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)  # no 0 * inf in the backward
-    tv = ro - a
-    u = dot(tv, p) * inv_det
-    q = cross(tv, e1)
-    v = dot(rd, q) * inv_det
-    t = dot(e2, q) * inv_det
-    return t, u, v, det
 
 
 def _finalize_hit_fused(arrays: SceneArrays, t, tri, ro: V3, rd: V3) -> Hit:
@@ -154,7 +151,7 @@ def _finalize_hit_fused(arrays: SceneArrays, t, tri, ro: V3, rd: V3) -> Hit:
     a = F.v3_rows(rows, F.PA)
     b = F.v3_rows(rows, F.PB)
     c = F.v3_rows(rows, F.PC)
-    t_mt, u, v, det = _mt_soa(ro, rd, a, b - a, c - a)
+    t_mt, u, v, det = moller_trumbore(ro, rd, a, b - a, c - a)
     if t_mt.requires_grad:
         t = t + (t_mt - t_mt.detach())
     miss = tri < 0
@@ -184,10 +181,37 @@ def _detached(*xs):
             else x.detach() if isinstance(x, torch.Tensor) else x for x in xs]
 
 
+def _bvh(arrays: SceneArrays) -> BvhArrays:
+    return BvhArrays(arrays.bvh_lo, arrays.bvh_hi, arrays.bvh_a, arrays.bvh_b, arrays.tri_order)
+
+
+def _mt_state(meta: SceneMeta, arrays: SceneArrays, ro: V3, rd: V3, t_near, t_far):
+    """The MT backends' closest-hit state (t, tri, u, v, det), no gradient."""
+    if meta.backend == "bvh":
+        return MT.bvh_isect(_bvh(arrays), arrays.positions, ro, rd, t_near, t_far, meta.max_leaf)
+    return MT.brute_isect(arrays.positions, ro, rd, t_near, t_far)
+
+
+def _carry_mt_grad(arrays: SceneArrays, state, ro: V3, rd: V3):
+    """The MT state with t, u and v taking their gradient from
+    Moller-Trumbore recomputed on the hit triangle (values unchanged)."""
+    t, tri, u, v, det = state
+    if not any(c.requires_grad for c in (*ro, *rd)) or arrays.positions.shape[0] == 0:
+        return state
+    a, b, c = MT.tri_verts(arrays.positions, torch.clamp_min(tri, 0))
+    t_mt, u_mt, v_mt, _ = moller_trumbore(ro, rd, a, b - a, c - a)
+    return (t + (t_mt - t_mt.detach()), tri, u + (u_mt - u_mt.detach()),
+            v + (v_mt - v_mt.detach()), det)
+
+
 def intersect_raw(meta: SceneMeta, arrays: SceneArrays, ro: V3, rd: V3, t_near, t_far):
     """Closest hit through the scene's intersector: (t [N], tri [N] i32),
     -1 on a miss; neither carries a gradient."""
     ro, rd, t_far = _detached(ro, rd, t_far)
+    if meta.backend in ("brute", "bvh"):
+        t, tri, *_ = _mt_state(meta, arrays, ro, rd, t_near, t_far)
+        miss = (tri < 0) | (t >= MT.per_ray_t_far(t_far, ro.x.shape[0], ro.x.device))
+        return torch.where(miss, -1.0, t), torch.where(miss, -1, tri)
     if meta.backend == "dense":
         return intersect_dense_raw(arrays.tris12, ro, rd, t_near, t_far)
     cl = _cluster_arrays(arrays)
@@ -200,13 +224,26 @@ def intersect_raw(meta: SceneMeta, arrays: SceneArrays, ro: V3, rd: V3, t_near, 
 
 def scene_intersect(meta: SceneMeta, arrays: SceneArrays, ro: V3, rd: V3,
                     t_near, t_far) -> Hit:
+    if meta.backend in ("brute", "bvh"):
+        dro, drd, dtf = _detached(ro, rd, t_far)
+        state = _carry_mt_grad(arrays, _mt_state(meta, arrays, dro, drd, t_near, dtf), ro, rd)
+        return MT._finalize_hit(arrays.positions, *state,
+                                MT.per_ray_t_far(dtf, dro.x.shape[0], dro.x.device))
     t, tri = intersect_raw(meta, arrays, ro, rd, t_near, t_far)
     return _finalize_hit_fused(arrays, t, tri, ro, rd)
 
 
 def scene_occluded(meta: SceneMeta, arrays: SceneArrays, ro: V3, rd: V3,
                    t_near, t_far) -> torch.Tensor:
+    """[N] bool, True where the segment is blocked (a dead ray, t_far <= 0:
+    True through K2, False through K5 and the MT backends, as the
+    reference's backends)."""
     ro, rd, t_far = _detached(ro, rd, t_far)
+    if meta.backend == "bvh":
+        return MT.bvh_anyhit(_bvh(arrays), arrays.positions, ro, rd, t_near, t_far,
+                             meta.max_leaf) > 0
+    if meta.backend == "brute":
+        return MT.brute_anyhit(arrays.positions, ro, rd, t_near, t_far) > 0
     if meta.backend == "dense":
         return occluded_dense(arrays.tris12, ro, rd, t_near, t_far)
     cl = _cluster_arrays(arrays)
@@ -416,9 +453,20 @@ def _to_device(x, device, dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype).contiguous()
 
 
+BACKENDS = ("dense", "cluster", "brute", "bvh")
+
+
 def choose_backend(tri_count: int) -> str:
-    """'dense' up to DENSE_CROSSOVER_TRIS triangles, 'cluster' past it."""
+    """'dense' up to DENSE_CROSSOVER_TRIS triangles, 'cluster' past it (the
+    MT backends are taken only when asked for)."""
     return "dense" if tri_count <= DENSE_CROSSOVER_TRIS else "cluster"
+
+
+def one_leaf_bvh() -> BvhArrays:
+    """The placeholder BVH of a scene whose backend is not 'bvh'."""
+    return BvhArrays(np.zeros((1, 3), np.float32), np.zeros((1, 3), np.float32),
+                     np.zeros(1, np.int32), np.full(1, ~0, np.int32),
+                     np.zeros(0, np.int32))
 
 
 def _resolve_sort_rays(sort_rays, backend: str, device: torch.device) -> bool:
@@ -478,7 +526,8 @@ def build_scene(
 ) -> Tuple[SceneMeta, SceneArrays, LightState]:
     """Entities + textures -> (meta, device arrays, light state).
 
-    backend: 'auto' (choose_backend), 'dense' or 'cluster'.  sky: a
+    backend: 'auto' (choose_backend), 'dense', 'cluster', 'brute' or 'bvh'
+    (the BVH built by `geom.bvh.build_bvh`).  sky: a
     [6, R, R, 3] radiance cube, or None: then a scene with sky surfaces
     gets a black 1-texel cube, as the reference's.  sort_rays: None
     follows `_resolve_sort_rays`.  media_enabled: the integrator marches
@@ -490,8 +539,9 @@ def build_scene(
     tri_count = flat.mat_ids.shape[0]
     if backend == "auto":
         backend = choose_backend(tri_count)
-    if backend not in ("dense", "cluster"):
-        raise ValueError(f"backend {backend!r}: the port has 'dense' and 'cluster'")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: the port has 'auto', 'dense', 'cluster', "
+                         "'brute' and 'bvh'")
     atlas, tex_rec = pool.pack()
 
     pdfs = _emission_pdf_host(flat, atlas, tex_rec)
@@ -542,6 +592,7 @@ def build_scene(
 
     cluster = CL.build_clusters(flat.positions) if backend == "cluster" \
         else CL.dummy_cluster_arrays()
+    bvh = build_bvh(flat.positions) if backend == "bvh" else one_leaf_bvh()
     g = grid_len(grid)
     arrays = SceneArrays(
         positions=dev_t(flat.positions),
@@ -561,6 +612,7 @@ def build_scene(
         tex_rec_t=dev_t(texture_records_t(atlas, tex_rec)),
         sky=sky_t,
         sky_corners=sky_corner_planes(sky_t),
+        **_bvh_fields(bvh, dev_t),
     )
     cell_active, light_state = bake_light_grid(meta, arrays)
     arrays = dataclasses.replace(
@@ -569,7 +621,13 @@ def build_scene(
     return meta, arrays, light_state
 
 
-_JAX_BACKENDS = {"pallas": "dense", "cluster": "cluster"}
+def _bvh_fields(bvh: BvhArrays, dev_t) -> dict:
+    return dict(bvh_lo=dev_t(bvh.node_lo), bvh_hi=dev_t(bvh.node_hi),
+                bvh_a=dev_t(bvh.node_a, torch.int32), bvh_b=dev_t(bvh.node_b, torch.int32),
+                tri_order=dev_t(bvh.tri_order, torch.int32))
+
+
+_JAX_BACKENDS = {"pallas": "dense", "cluster": "cluster", "brute": "brute", "bvh": "bvh"}
 
 
 def from_jax_scene(meta_fields: dict, arrays_np: dict, lights_np: dict,
@@ -578,17 +636,24 @@ def from_jax_scene(meta_fields: dict, arrays_np: dict, lights_np: dict,
     `dataclasses.asdict(meta)` and `{field: numpy array}` dicts, -> the
     port's, so both packages can render the identical scene.
 
-    The JAX backends 'pallas' and 'cluster' map to the port's 'dense' and
-    'cluster'; its CPU intersectors ('brute', 'bvh') are not ported.
-    `tris9` holds the [Tpad, 12] BW rows (whatever its field comment says);
-    fields the port does not read (BVH, slot_tri, normals, uvs) are not
-    carried."""
+    The JAX backends map to the port's: 'pallas' -> 'dense', 'cluster',
+    'brute' and 'bvh' to themselves.  The BVH arrays and `max_leaf` are
+    carried (the JAX package builds a BVH for every backend); a tree deeper
+    than the port's walk's stack is refused.  `tris9` holds the [Tpad, 12]
+    BW rows (whatever its field comment says); fields the port does not
+    read (slot_tri, normals, uvs) are not carried."""
     device = torch.device(device)
     backend = _JAX_BACKENDS.get(meta_fields["backend"])
     if backend is None:
         raise NotImplementedError(
-            f"JAX backend {meta_fields['backend']!r}: the port has only 'dense' (from "
-            "'pallas') and 'cluster'")
+            f"JAX backend {meta_fields['backend']!r}: the port has 'dense' (from 'pallas'), "
+            "'cluster', 'brute' and 'bvh'")
+    bvh = BvhArrays(*(np.asarray(arrays_np[k]) for k in
+                      ("bvh_lo", "bvh_hi", "bvh_a", "bvh_b", "tri_order")))
+    depth = bvh_depth(bvh)
+    if depth > BVH_STACK_DEPTH:
+        raise ValueError(f"the JAX scene's BVH has depth {depth}: the port's walk holds "
+                         f"{BVH_STACK_DEPTH}")
     e = int(meta_fields["emissive_count"])
 
     def dev_t(x, dtype=torch.float32):
@@ -608,6 +673,7 @@ def from_jax_scene(meta_fields: dict, arrays_np: dict, lights_np: dict,
         textured=bool(meta_fields["textured"]),
         has_normal_maps=bool(meta_fields["has_normal_maps"]),
         backend=backend,
+        max_leaf=int(meta_fields["max_leaf"]),
         sort_rays=bool(meta_fields["sort_rays"]),
     )
     sky = dev_t(arrays_np["sky"])
@@ -629,6 +695,7 @@ def from_jax_scene(meta_fields: dict, arrays_np: dict, lights_np: dict,
         tex_rec_t=dev_t(arrays_np["tex_rec_t"]),
         sky=sky,
         sky_corners=sky_corner_planes(sky),
+        **_bvh_fields(bvh, dev_t),
     )
     lights = LightState(
         pdf=dev_t(lights_np["pdf"]),

@@ -182,6 +182,17 @@ def atmosphere(sky: SkyMedium, ro, rd: V3, light_dir, luminance, steps: int) -> 
     return V3(*out)
 
 
+def earth_sky(ro, rd: V3, light_dir, luminance, steps: int, sky: SkyMedium = None) -> V3:
+    """The atmosphere seen from `ro` (3 floats) above the north pole's
+    surface: `atmosphere` with the origin moved up by the crust radius.
+    The port's frames read the baked cube instead (K6)."""
+    if sky is None:
+        sky = earth_atmosphere()
+    o = np.asarray(_components(ro), np.float32) + np.float32([0.0, 1.0, 0.0]) * np.float32(
+        sky.r_crust)
+    return atmosphere(sky, [float(c) for c in o], rd, light_dir, luminance, steps)
+
+
 # face conventions (right and up axes of each cube face)
 _FORWARDS = np.array(
     [[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]], np.float32)

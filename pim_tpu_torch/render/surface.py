@@ -26,6 +26,7 @@ from pim_tpu_torch.math.color import K_EMISSION_SCALE
 from pim_tpu_torch.math.sampling import tan_to_world
 from pim_tpu_torch.math.vec3 import MILLI, V2, V3, dot, f32, normalize, reflect, where3
 from pim_tpu_torch.render import fetch as F
+from pim_tpu_torch.render.sky import sky_radiance
 from pim_tpu_torch.render.table_gather import gather_bilinear, gather_texels
 
 _SURFACE_BIAS = f32(f32(0.01) * MILLI)
@@ -241,3 +242,10 @@ def get_emission_from_attribs(meta, at: HitAttribs, sky_col: V3 = None) -> V3:
     if not meta.has_sky:
         return at.emission
     return where3(is_sky(at.flags), sky_col, at.emission)
+
+
+def get_emission(meta, arrays, ro: V3, rd: V3, hit) -> V3:
+    """Emission-only view of a hit (fetched here): the integrator fetches
+    once and calls `get_emission_from_attribs` itself."""
+    at = fetch_hit_attribs(meta, arrays, hit)
+    return get_emission_from_attribs(meta, at, sky_radiance(meta, arrays, rd))

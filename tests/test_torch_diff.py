@@ -3,8 +3,9 @@
 
 The JAX side is its `brute` backend, as tests/test_grad.py builds it; the
 port builds the same entities itself (dense backend, the kernels' plain
-versions on the CPU) and takes the JAX light state, so both select the same
-lights.  Criteria:
+versions on the CPU; Cornell also with the port's own `brute` backend,
+`cornell_brute`, like for like) and takes the JAX light state, so both
+select the same lights.  Criteria:
   - `apply_params`' grafts (tri table, emissive table, camera) bit for bit;
   - the 16^2, 3-bounce, seed-7 colour: 99% of the values within rtol 1e-4 /
     atol 1e-6 and all within rtol 1e-2 / atol 1e-5 (BW against
@@ -82,19 +83,25 @@ class Case:
     params, loss) and the port's, the JAX gradient, and the port's."""
 
     def __init__(self, jents, jpool, pents_pool, eye, at, sky=None, sky_steps=16,
-                 sun_dir=(0.0, 1.0, 0.0), sun_lum=(1.0, 1.0, 1.0)):
-        self.jm, self.ja, self.jl = jax_build_scene(jents, jpool, backend="brute", sky=sky)
-        jc = JCamera(position=np.array(eye, np.float32))
-        jc.look_at(list(at))
-        self.jcam = jcamera_arrays(jc, JDofInfo(autofocus=False), W, H)
-        self.jparams = jdiff.extract_params(self.jm, self.ja, self.jcam, sun_dir=sun_dir,
-                                            sun_lum=sun_lum)
-        self.jloss = jax.jit(jdiff.make_loss_fn(self.jm, W, H, max_bounces=BOUNCES,
-                                                sky_steps=sky_steps))
-        self.jargs = (self.ja, self.jl, self.jcam, jnp.zeros((W * H, 3), jnp.float32),
-                      jnp.uint32(SEED))
+                 sun_dir=(0.0, 1.0, 0.0), sun_lum=(1.0, 1.0, 1.0), port_backend="dense",
+                 jax_case=None):
+        if jax_case is not None:  # the same JAX scene, loss and gradient
+            for name in ("jm", "ja", "jl", "jcam", "jparams", "jloss", "jargs"):
+                setattr(self, name, getattr(jax_case, name))
+            self.jgrad = jax_case.jgrad
+        else:
+            self.jm, self.ja, self.jl = jax_build_scene(jents, jpool, backend="brute", sky=sky)
+            jc = JCamera(position=np.array(eye, np.float32))
+            jc.look_at(list(at))
+            self.jcam = jcamera_arrays(jc, JDofInfo(autofocus=False), W, H)
+            self.jparams = jdiff.extract_params(self.jm, self.ja, self.jcam, sun_dir=sun_dir,
+                                                sun_lum=sun_lum)
+            self.jloss = jax.jit(jdiff.make_loss_fn(self.jm, W, H, max_bounces=BOUNCES,
+                                                    sky_steps=sky_steps))
+            self.jargs = (self.ja, self.jl, self.jcam, jnp.zeros((W * H, 3), jnp.float32),
+                          jnp.uint32(SEED))
 
-        m, a, _ = build_scene(*pents_pool, "cpu", backend="dense",
+        m, a, _ = build_scene(*pents_pool, "cpu", backend=port_backend,
                               sky=None if sky is None else torch.from_numpy(sky))
         jl = self.jl
         self.lights = LightState(
@@ -143,6 +150,15 @@ def _cornell_eye():
 def cornell():
     eye, at = _cornell_eye()
     return Case(*jax_cornell("boxes"), build_cornell_box("boxes"), eye, at)
+
+
+@pytest.fixture(scope="module")
+def cornell_brute(cornell):
+    """The port's `brute` Cornell scene against the JAX `brute` scene, loss
+    and gradient of `cornell`: both differentiate Moller-Trumbore."""
+    eye, at = _cornell_eye()
+    return Case(None, None, build_cornell_box("boxes"), eye, at, port_backend="brute",
+                jax_case=cornell)
 
 
 def _sky_scene():
@@ -261,13 +277,30 @@ def test_render_color_matches_reference(cornell):
     np.testing.assert_array_equal(live.numpy(), np.asarray(jlive).astype(np.int64))
 
 
+def test_render_color_brute_matches_reference(cornell_brute):
+    """The port's `brute` scene: the same colour rule as the dense one."""
+    c = cornell_brute
+    assert c.meta.backend == "brute"
+    jcolor, jlive = jax.jit(jdiff.make_render_fn(c.jm, W, H, max_bounces=BOUNCES))(
+        c.jparams, c.ja, c.jl, c.jcam, jnp.uint32(SEED))
+    color, live = diff.make_render_fn(c.meta, W, H, max_bounces=BOUNCES)(
+        c.params(), c.arrays, c.lights, c.cam, SEED)
+    assert color.shape == (W * H, 3) and bool(torch.isfinite(color).all())
+    close = np.isclose(color.numpy(), np.asarray(jcolor), rtol=1e-4, atol=1e-6)
+    assert close.mean() >= 0.99, close.mean()
+    np.testing.assert_allclose(color.numpy(), np.asarray(jcolor), rtol=1e-2, atol=1e-5)
+    np.testing.assert_array_equal(live.numpy(), np.asarray(jlive).astype(np.int64))
+
+
 @pytest.mark.parametrize("scene,group", [
     ("cornell", "albedo"), ("cornell", "roughness"), ("cornell", "emission"),
     ("cornell", "camera"), ("sky", "sun_dir"), ("sky", "sun_lum"), ("map", "atlas"),
+    ("cornell_brute", "albedo"), ("cornell_brute", "roughness"),
+    ("cornell_brute", "emission"), ("cornell_brute", "camera"),
 ])
 def test_directional_derivative_matches_jax(scene, group, request):
     case = request.getfixturevalue({"cornell": "cornell", "sky": "sky_case",
-                                    "map": "map_case"}[scene])
+                                    "map": "map_case", "cornell_brute": "cornell_brute"}[scene])
     gi, v = _direction(case, group)
     on = v != 0  # NaN outside the direction (see the module note) stays out
     want = float(np.sum(case.jgrad()[gi][on] * v[on]))

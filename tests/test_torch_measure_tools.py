@@ -60,11 +60,14 @@ def test_bench_cluster_rows_on_the_cpu():
     assert [(r["tris"], r["rays"]) for r in rows] == [
         (180, "coh"), (180, "inc"), (1088, "coh"), (1088, "inc")]
     for r in rows:
-        for k in ("k1", "k4", "k2", "k5"):
+        for k in bench_cluster.KERNELS:
             assert r[f"{k}_ms"] > 0.0 and math.isfinite(r[f"{k}_mrays"])
         # the plain K4 and K5 see the rays K1 and K2 see: same closest t, same flag
         assert r["t_equal"] == 1.0 and r["anyhit_equal"] == 1.0
-    assert "not ported" in bench_cluster.table(rows)
+        # the plain walk (Moller-Trumbore) meets the same triangles
+        assert r["bvh_tri_equal"] == 1.0 and r["bvh_anyhit_equal"] == 1.0 and r["bvh_off"] == 0
+    assert not bench_cluster.disagreements(rows)
+    assert "bvh any" in bench_cluster.table(rows)
 
 
 def test_crossover_is_the_first_soup_won_on_every_ray_set():

@@ -6,7 +6,9 @@ through another module) raises there.  No module of the JAX package may be
 imported at all: the port keeps its own copies of the host modules it needs
 (entities, meshes, materials, the glTF helpers, the cvar registry) and of
 the gate bands.  The port loads the e1m1 glTF there too, so its texture
-pool needs no `ml_dtypes`, its engine shell runs a media pt_test and the
+pool needs no `ml_dtypes`, the Cornell frame renders through each
+backend (the MT ones build their BVH with the C++ builder), its engine
+shell runs a media pt_test and the
 bakes (lm_gen, r_refl_gen, probe_bake, probe_report, a checkpoint), the
 scale-out layer (parallel/, tools/scaling_worker.py) runs a one-rank
 `dryrun_multichip`, and the measurement modules (bench.py, tools/perf_table,
@@ -30,21 +32,25 @@ torch.set_num_threads(2)
 import pim_tpu_torch
 from pim_tpu_torch import app, bench, native
 from pim_tpu_torch.core import cmd, console, crate, cvar, cvars, guid, profiler, rng, timesys
-from pim_tpu_torch.geom import cornell, entities, gltf, maps, material, mesh
+from pim_tpu_torch.geom import bvh, cornell, entities, gltf, maps, material, mesh
 from pim_tpu_torch.math import (brdf, color, cubic_fit, dist1d, geometry, grid, noise, sampling,
                                 sh, sphgauss, vec3)
 from pim_tpu_torch.render import (bsdf, camera, cluster, cubemap, dense_kernels, denoise,
-                                  exposure, fetch, gather_kernel, diff, integrator, lightmap,
+                                  exposure, fetch, gather_kernel, diff, integrator, intersect,
+                                  lightmap,
                                   lights, media, probes, raysort, render_system, scene,
                                   screenshot, sky, surface, table_gather)
 from pim_tpu_torch.parallel import dist, dryrun, shard
 from pim_tpu_torch.tools import (ab_sort, bake_e1m1_lightmap, bench_cluster, corr_check,
-                                 devtime, grad_eps_sweep, overlap_ab, perf_table, prof_frame,
-                                 scaling_bench, scaling_worker, vml_first_call)
+                                 devtime, grad_eps_sweep, mt_check, overlap_ab, perf_table,
+                                 prof_frame, scaling_bench, scaling_worker, vml_first_call)
 sc = app.build_cornell_scene("cpu")
 fr = app.render_frame(sc, "cornell", 8, 8, 2, 1, 1)
 assert fr.buffers.color.shape == (64, 3) and bool(torch.isfinite(fr.buffers.color).all())
 assert fr.rays > 0
+for backend in ("brute", "bvh"):  # the MT backends, the C++ BVH builder
+    fr = app.render_frame(app.build_cornell_scene("cpu", backend), "cornell", 8, 8, 2, 1, 1)
+    assert bool(torch.isfinite(fr.buffers.color).all()) and fr.mean > 0
 dryrun.dryrun_multichip(1, "cpu")
 ents, pool = gltf.load_gltf_scene(app.E1M1_GLTF)
 atlas, rec = pool.pack()

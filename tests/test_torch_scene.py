@@ -152,13 +152,20 @@ def test_from_jax_scene_round_trips_every_field(jax_scene):
 
 def test_dense_only_scenes_are_enforced(jax_scene):
     """The dense kernels serve scenes up to DENSE_CROSSOVER_TRIS triangles,
-    the cluster kernels the rest; JAX backends the port lacks are refused."""
+    the cluster kernels the rest; every JAX backend maps to the port's own
+    ('pallas' to 'dense', the others to themselves) with the JAX BVH and
+    max_leaf carried, and a name the port lacks is refused."""
     assert choose_backend(DENSE_CROSSOVER_TRIS) == "dense"
     assert choose_backend(DENSE_CROSSOVER_TRIS + 1) == "cluster"
     meta_f, arrays_np, lights_np = _jax_dicts(jax_scene)
-    for backend in ("bvh", "brute"):
-        with pytest.raises(NotImplementedError, match="port has only"):
-            from_jax_scene(dict(meta_f, backend=backend), arrays_np, lights_np, "cpu")
+    for backend, want in (("pallas", "dense"), ("cluster", "cluster"), ("bvh", "bvh"),
+                          ("brute", "brute")):
+        m, a, _ = from_jax_scene(dict(meta_f, backend=backend), arrays_np, lights_np, "cpu")
+        assert m.backend == want and m.max_leaf == meta_f["max_leaf"]
+        for name in ("bvh_lo", "bvh_hi", "bvh_a", "bvh_b", "tri_order"):
+            np.testing.assert_array_equal(getattr(a, name).numpy(), arrays_np[name])
+    with pytest.raises(NotImplementedError, match="the port has"):
+        from_jax_scene(dict(meta_f, backend="embree"), arrays_np, lights_np, "cpu")
 
 
 def test_light_table_matches_reference(jax_scene):

@@ -477,29 +477,56 @@ def test_checkpoint_from_the_reference_resumes_in_the_port(rs, tmp_path):
             c.set(v)
 
 
-def test_cornell_box_spheres_frame_matches_the_reference_shell(rs, tmp_path):
+@pytest.fixture(scope="module")
+def jax_spheres(tmp_path_factory):
+    """pim_tpu's shell after one frame of `cornell_box spheres` (its CPU
+    `bvh` backend): (meta, light pdf, colour)."""
+    saved = [(c, c.get()) for c in (jcv.cv_pt_max_bounces, jcv.cv_pt_trace, jcv.cv_exp_manual)]
+    try:
+        jsys = _jax_rs(tmp_path_factory.mktemp("jax_spheres"))
+        jsys.entities, jsys.pool = jax_cornell("spheres")
+        jsys.update()
+        return jsys.meta, np.asarray(jsys.lights.pdf), np.asarray(jsys.buffers.color)
+    finally:
+        for c, v in saved:
+            c.set(v)
+
+
+def _spheres_frame(rs):
+    assert get_cmd_system().immediate("cornell_box spheres") == CmdStat.OK
+    rs.camera.position = np.asarray([-4.0, 0.0, 4.0], np.float32)
+    rs.camera.look_at([0.0, -1.0, 0.0])
+    _frames(rs, 1)
+    got = rs.buffers.color.numpy()
+    assert np.isfinite(got).all() and got.mean() > 0
+    return got
+
+
+def test_cornell_box_spheres_frame_matches_the_reference_shell(rs, jax_spheres):
     """`cornell_box spheres` loads the 15-sphere scene in both shells (the
     port's cluster backend with glass, pim_tpu's CPU `bvh`); their first
     frames agree at the frame tolerance.  The two light grids differ in a
     few cells (pim_tpu's BVH and the port's Baldwin-Weber tests disagree on
     some grazing shadow rays), which moves a pixel or two."""
-    saved = [(c, c.get()) for c in (jcv.cv_pt_max_bounces, jcv.cv_pt_trace, jcv.cv_exp_manual)]
-    try:
-        jsys = _jax_rs(tmp_path)
-        jsys.entities, jsys.pool = jax_cornell("spheres")
-        jsys.update()
-        assert get_cmd_system().immediate("cornell_box spheres") == CmdStat.OK
-        rs.camera.position = np.asarray([-4.0, 0.0, 4.0], np.float32)
-        rs.camera.look_at([0.0, -1.0, 0.0])
-        _frames(rs, 1)
-        assert rs.meta.backend == "cluster" and rs.meta.has_refractive
-        assert rs.meta.tri_count == jsys.meta.tri_count == 33204
-        got = rs.buffers.color.numpy()
-        assert np.isfinite(got).all() and got.mean() > 0
-        _frame_close(got, np.asarray(jsys.buffers.color))
-    finally:
-        for c, v in saved:
-            c.set(v)
+    jmeta, _, jcolor_ = jax_spheres
+    got = _spheres_frame(rs)
+    assert rs.meta.backend == "cluster" and rs.meta.has_refractive
+    assert rs.meta.tri_count == jmeta.tri_count == 33204
+    _frame_close(got, jcolor_)
+
+
+def test_cornell_box_spheres_bvh_matches_the_reference_shell(rs, jax_spheres):
+    """With `pt_backend bvh` the port walks the same BVH as pim_tpu's shell
+    (both C++ builders on this host) with the same Moller-Trumbore tests:
+    its light grid is the reference's bit for bit (ROADMAP F14: 36 (cell,
+    light) pairs differ with the cluster backend) and the first frames
+    agree at the frame tolerance."""
+    jmeta, jpdf, jcolor_ = jax_spheres
+    cv.cv_pt_backend.set("bvh")
+    got = _spheres_frame(rs)
+    assert rs.meta.backend == jmeta.backend == "bvh" and rs.meta.has_refractive
+    np.testing.assert_array_equal(rs.lights.pdf.numpy(), jpdf)
+    _frame_close(got, jcolor_)
 
 
 def test_mapsave_round_trips_textures(rs):
