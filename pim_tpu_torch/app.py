@@ -45,10 +45,11 @@ import numpy as np
 import torch
 
 from pim_tpu_torch import native
-from pim_tpu_torch.core import cvars  # noqa: F401 (registers the engine cvars)
+from pim_tpu_torch.core import cvars  # registers the engine cvars
+from pim_tpu_torch.core import profiler
 from pim_tpu_torch.core.cmd import get_cmd_system
 from pim_tpu_torch.core.console import LogSev, con_logf, get_console
-from pim_tpu_torch.core.profiler import get_profiler, profile
+from pim_tpu_torch.core.profiler import profile
 from pim_tpu_torch.core.timesys import get_timesys
 from pim_tpu_torch.geom.cornell import build_cornell_box
 from pim_tpu_torch.geom.gltf import load_gltf_scene
@@ -267,6 +268,7 @@ class Engine:
         get_timesys().update()
         with profile("cmd"):
             get_cmd_system().update()
+        profiler.set_tracing(cvars.cv_prof_trace.get())
         with profile("render"):
             self.render.update()
         if self.sync_frames:
@@ -289,9 +291,13 @@ class Engine:
         return 1 if cmds.error_count else 0
 
     def shutdown(self) -> None:
-        prof = get_profiler()
-        if prof.stats:
-            con_logf(LogSev.Verbose, "prof", "\n%s", prof.report())
+        """The profiler's report: logged where the console prints it when
+        the shell traced (`prof_trace 1`: marks, pt.* spans and counters),
+        else to the console's ring only."""
+        prof = profiler.get_profiler()
+        if prof.stats or profiler.counters():
+            sev = LogSev.Info if cvars.cv_prof_trace.get() else LogSev.Verbose
+            con_logf(sev, "prof", "\n%s", prof.report())
 
 
 def check_device(device: torch.device) -> None:

@@ -74,6 +74,12 @@ cv_pt_sort = cvar(
     "(auto = cluster backend on TPU; render/raysort.py)",
 )
 
+cv_prof_trace = cvar(
+    "prof_trace", CVarType.Bool, False,
+    "program tracing (core/profiler.py): pt.* spans and device counters, "
+    "listed with the marks in the report at shutdown",
+)
+
 cv_r_tonemap_fit = cvar(
     "r_tonemap_fit", CVarType.Bool, False,
     "screenshot tonemap via the cached rational curve fit (cubic_fit "

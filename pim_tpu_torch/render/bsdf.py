@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from pim_tpu_torch.core import rng
+from pim_tpu_torch.core.profiler import spanned
 from pim_tpu_torch.geom.material import MatFlag
 from pim_tpu_torch.math.brdf import (
     BrdfLut,
@@ -120,6 +121,7 @@ def eval_principled(lut: BrdfLut, surf: Surface, i: V3, l: V3):
     )
 
 
+@spanned("pt.bsdf")
 def scatter_principled(lut: BrdfLut, surf: Surface, i: V3, state, occluded_fn=None):
     """One-sample lobe-mixed BSDF sample.  Returns (state, Scatter).
 

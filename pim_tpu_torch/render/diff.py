@@ -35,6 +35,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from pim_tpu_torch.core import profiler as prof
 from pim_tpu_torch.core import rng
 from pim_tpu_torch.render import fetch as F
 from pim_tpu_torch.render import lights as L
@@ -141,7 +142,8 @@ def make_render_fn(meta: SceneMeta, width: int, height: int, max_bounces: int = 
     dmeta = dataclasses.replace(meta, differentiable=True)
 
     def render(params: DiffParams, arrays, lights, cam, sample_idx, pixel_ids=None):
-        arrays, cam = apply_params(dmeta, arrays, cam, params, sky_steps)
+        with prof.span("pt.train.params"):
+            arrays, cam = apply_params(dmeta, arrays, cam, params, sky_steps)
         dev = arrays.tri_table.device
         if pixel_ids is None:
             pixel_ids = torch.arange(width * height, dtype=torch.int64, device=dev)
@@ -194,15 +196,21 @@ def make_train_step(meta: SceneMeta, width: int, height: int, max_bounces: int =
             p.requires_grad_(bool(on))
         return torch.optim.Adam(list(params), lr=learning_rate, betas=ADAM_BETAS, eps=ADAM_EPS)
 
+    @prof.spanned("pt.train")
     def step(params: DiffParams, opt_state: torch.optim.Adam, arrays, lights, cam, target,
              sample_idx):
         opt_state.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(params, arrays, lights, cam, target, sample_idx)
-        loss.backward()
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        opt_state.step()
+        # pt.train.params (the sky re-bake) nests in the forward: the loss
+        # function applies the parameters
+        with prof.span("pt.train.forward"):
+            loss, _ = loss_fn(params, arrays, lights, cam, target, sample_idx)
+        with prof.span("pt.train.backward"):
+            loss.backward()
+        with prof.span("pt.train.adam"):
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            opt_state.step()
         return loss.detach(), params, opt_state
 
     return init, step

@@ -13,6 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pim_tpu_torch.core.profiler import spanned
 from pim_tpu_torch.math.color import avg_lum
 from pim_tpu_torch.math.dist1d import cumsum_seq
 from pim_tpu_torch.math.vec3 import EPS, LOG2_EPS, f32, saturate
@@ -137,6 +138,7 @@ def build_histogram(light: torch.Tensor, min_ev: float, max_ev: float) -> torch.
     return counts.scatter_add_(0, bins.to(torch.int64), torch.ones_like(bins))
 
 
+@spanned("pt.exposure")
 def exposure_pass(light: torch.Tensor, params: ExposureParams, state: ExposureState,
                   dt: float) -> ExposureState:
     """One frame of auto-exposure: the cdf-windowed weighting w = pdf * w0

@@ -31,6 +31,7 @@ import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from pim_tpu_torch import native
+from pim_tpu_torch.core.profiler import spanned
 
 # csrc/gather_tiles.cuh: a table up to kStageMaxBytes is staged in shared
 # memory; a block covers kTileLanes lanes per tile
@@ -190,6 +191,7 @@ class _GatherCols(torch.autograd.Function):
         return gather_cols_bwd(g.contiguous(), idx, ctx.t), None
 
 
+@spanned("pt.gather")
 def gather_cols(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table_t [F, T] f32, idx [N] i32/i64 -> [F, N] f32, differentiable in
     table_t when it requires grad."""

@@ -38,6 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pim_tpu_torch.core import profiler as prof
 from pim_tpu_torch.core import rng
 from pim_tpu_torch.geom.material import MatFlag
 from pim_tpu_torch.math.brdf import BrdfLut
@@ -101,6 +102,7 @@ def _evaluate_light(meta, arrays, light_table, media_desc, state, p: V3, active)
     return state, lum * tr, ls.dir, ok
 
 
+@prof.spanned("pt.segment")
 def _finish_segment(meta, arrays, light_table, media_desc, state, ro, rd, hit, at, atten,
                     lum, alive, live, emis_w, is_primary: bool):
     """Shared tail of every traced segment: sky on a miss, the media scatter
@@ -187,98 +189,107 @@ def trace_rays(meta: SceneMeta, arrays: SceneArrays, lights: LightState, ro: V3,
             return intersect_raw(meta, arrays, p, l, 0.0, t_far)[0]
 
     # --- primary segment
-    alive = torch.ones((n,), dtype=torch.bool, device=dev)
-    live = torch.zeros((g, e_live), dtype=torch.int64, device=dev)
-    rays = torch.full((), float(n), dtype=torch.float32, device=dev)
-    hit = scene_intersect(meta, arrays, ro, rd, 0.0, RCP_EPS)
-    at = fetch_hit_attribs(meta, arrays, hit)
-    state, ro, rd, atten, lum, alive, media_skip, live, sky = _finish_segment(
-        meta, arrays, light_table, media_desc, state, ro, rd, hit, at, V3.ones(n, dev),
-        V3.zeros(n, dev), alive, live, 1.0, is_primary=True)
+    tracing = prof.tracing()
+    with prof.span("pt.primary"):
+        alive = torch.ones((n,), dtype=torch.bool, device=dev)
+        # the live lanes entering each segment (tracing only)
+        seg_live = [alive.sum()] if tracing else None
+        live = torch.zeros((g, e_live), dtype=torch.int64, device=dev)
+        rays = torch.full((), float(n), dtype=torch.float32, device=dev)
+        hit = scene_intersect(meta, arrays, ro, rd, 0.0, RCP_EPS)
+        at = fetch_hit_attribs(meta, arrays, hit)
+        state, ro, rd, atten, lum, alive, media_skip, live, sky = _finish_segment(
+            meta, arrays, light_table, media_desc, state, ro, rd, hit, at, V3.ones(n, dev),
+            V3.zeros(n, dev), alive, live, 1.0, is_primary=True)
 
     aov_albedo = V3.zeros(n, dev)
     aov_normal = V3.zeros(n, dev)
     aov_weight = torch.zeros((n,), dtype=torch.float32, device=dev)
 
     for _ in range(max_bounces):
-        surf = get_surface(meta, rd, hit, at, sky_col=sky)
-        surf_alive = alive & ~media_skip
+        with prof.span("pt.bounce"):
+            surf = get_surface(meta, rd, hit, at, sky_col=sky)
+            surf_alive = alive & ~media_skip
 
-        # --- NEE: light strategy, one any-hit shadow ray
-        state, u_sel = rng.next_f32(state)
-        state, (bu, bv) = rng.next_f32x2(state)
-        if e > 0:
-            tr_fn = None
+            # --- NEE: light strategy, one any-hit shadow ray
+            state, u_sel = rng.next_f32(state)
+            state, (bu, bv) = rng.next_f32x2(state)
+            if e > 0:
+                tr_fn = None
+                if meta.media_enabled:
+                    # the shadow ray's transmittance; the RNG state threads
+                    # through the closure's cell
+                    st_box = [state]
+
+                    def tr_fn(p, ldir, ldist):
+                        st_box[0], tr = calc_transmittance(media_desc, st_box[0], p, ldir, ldist)
+                        return tr
+                li, ls = nee_light_strategy(meta, arrays, light_table, lut, surf, hit.tri, rd,
+                                            u_sel, bu, bv, active=surf_alive,
+                                            transmittance_fn=tr_fn)
+                if meta.media_enabled:
+                    state = st_box[0]
+                lum = lum + li * atten * surf_alive.to(torch.float32)
+                rays = rays + torch.sum(surf_alive.to(torch.float32))
+
+            # --- continuation = BSDF strategy (its MIS weight is applied to the
+            # NEXT hit's emission)
+            state, scat = scatter_principled(lut, surf, rd, state, occluded_fn=thickness_fn)
+            cont = surf_alive & (scat.pdf > EPS)
+            inv_pdf = 1.0 / torch.clamp_min(scat.pdf, EPS)
+            atten = where3(cont, atten * scat.attenuation * inv_pdf, atten)
+            ro2 = where3(cont, scat.pos, ro)
+            rd2 = where3(cont, scat.dir, rd)
+            alive2 = cont | (alive & media_skip)
+
+            # --- AOV accumulation
+            w = saturate(1.0 - avg_lum3(atten) * _RCP_PI) * cont.to(torch.float32)
+            aov_albedo = aov_albedo + surf.albedo * w
+            aov_normal = aov_normal + surf.n * w
+            aov_weight = aov_weight + w
+
+            # --- Russian roulette before the trace
+            state, u_rr = rng.next_f32(state)
+            if use_rr:
+                p = saturate(avg_lum3(atten))
+                survive = u_rr < p
+                scale = torch.where(alive2 & survive, 1.0 / torch.clamp_min(p, EPS), 1.0)
+                atten = atten * scale
+                alive2 = alive2 & survive
+
+            # --- trace the continuation segment; dead lanes carry t_far = 0
+            rays = rays + torch.sum(alive2.to(torch.float32))
+            if tracing:
+                seg_live.append(alive2.sum())
+            t_far2 = torch.where(alive2, RCP_EPS, 0.0)
+            hit2 = scene_intersect(meta, arrays, ro2, rd2, 0.0, t_far2)
+            at2 = fetch_hit_attribs(meta, arrays, hit2)
+
+            # MIS weight for emission at the new hit; refractive chains carry
+            # the full emission
+            if e > 0:
+                h_dist_sq = torch.clamp_min(hit2.t * hit2.t, EPS)
+                lp_area = light_pdf(at2.rows[F.AREA], torch.abs(dot(rd2, hit2.ng)), h_dist_sq)
+                lp2 = lp_area * light_select_pdf_from_rows(
+                    ls.pdf_rows, ls.id_rows, at2.rows[F.EMIT_IDX].to(torch.int64))
+                bp2 = scat.pdf
+                ok_b = (bp2 > EPS) & (lp_area > EPS)
+                w_mis = power_heuristic(bp2, lp2) * ok_b.to(torch.float32)
+            else:
+                w_mis = torch.ones((n,), dtype=torch.float32, device=dev)
+            if meta.has_refractive:
+                w_mis = torch.where(cont & ((surf.flags & _REFRACTIVE) != 0), 1.0, w_mis)
             if meta.media_enabled:
-                # the shadow ray's transmittance; the RNG state threads
-                # through the closure's cell
-                st_box = [state]
+                # a media-scattered lane's in-media NEE covers the direct light
+                w_mis = torch.where(media_skip, 0.0, w_mis)
 
-                def tr_fn(p, ldir, ldist):
-                    st_box[0], tr = calc_transmittance(media_desc, st_box[0], p, ldir, ldist)
-                    return tr
-            li, ls = nee_light_strategy(meta, arrays, light_table, lut, surf, hit.tri, rd,
-                                        u_sel, bu, bv, active=surf_alive,
-                                        transmittance_fn=tr_fn)
-            if meta.media_enabled:
-                state = st_box[0]
-            lum = lum + li * atten * surf_alive.to(torch.float32)
-            rays = rays + torch.sum(surf_alive.to(torch.float32))
+            state, ro, rd, atten, lum, alive, media_skip, live, sky = _finish_segment(
+                meta, arrays, light_table, media_desc, state, ro2, rd2, hit2, at2, atten, lum,
+                alive2, live, w_mis, is_primary=False)
+            hit, at = hit2, at2
 
-        # --- continuation = BSDF strategy (its MIS weight is applied to the
-        # NEXT hit's emission)
-        state, scat = scatter_principled(lut, surf, rd, state, occluded_fn=thickness_fn)
-        cont = surf_alive & (scat.pdf > EPS)
-        inv_pdf = 1.0 / torch.clamp_min(scat.pdf, EPS)
-        atten = where3(cont, atten * scat.attenuation * inv_pdf, atten)
-        ro2 = where3(cont, scat.pos, ro)
-        rd2 = where3(cont, scat.dir, rd)
-        alive2 = cont | (alive & media_skip)
-
-        # --- AOV accumulation
-        w = saturate(1.0 - avg_lum3(atten) * _RCP_PI) * cont.to(torch.float32)
-        aov_albedo = aov_albedo + surf.albedo * w
-        aov_normal = aov_normal + surf.n * w
-        aov_weight = aov_weight + w
-
-        # --- Russian roulette before the trace
-        state, u_rr = rng.next_f32(state)
-        if use_rr:
-            p = saturate(avg_lum3(atten))
-            survive = u_rr < p
-            scale = torch.where(alive2 & survive, 1.0 / torch.clamp_min(p, EPS), 1.0)
-            atten = atten * scale
-            alive2 = alive2 & survive
-
-        # --- trace the continuation segment; dead lanes carry t_far = 0
-        rays = rays + torch.sum(alive2.to(torch.float32))
-        t_far2 = torch.where(alive2, RCP_EPS, 0.0)
-        hit2 = scene_intersect(meta, arrays, ro2, rd2, 0.0, t_far2)
-        at2 = fetch_hit_attribs(meta, arrays, hit2)
-
-        # MIS weight for emission at the new hit; refractive chains carry
-        # the full emission
-        if e > 0:
-            h_dist_sq = torch.clamp_min(hit2.t * hit2.t, EPS)
-            lp_area = light_pdf(at2.rows[F.AREA], torch.abs(dot(rd2, hit2.ng)), h_dist_sq)
-            lp2 = lp_area * light_select_pdf_from_rows(
-                ls.pdf_rows, ls.id_rows, at2.rows[F.EMIT_IDX].to(torch.int64))
-            bp2 = scat.pdf
-            ok_b = (bp2 > EPS) & (lp_area > EPS)
-            w_mis = power_heuristic(bp2, lp2) * ok_b.to(torch.float32)
-        else:
-            w_mis = torch.ones((n,), dtype=torch.float32, device=dev)
-        if meta.has_refractive:
-            w_mis = torch.where(cont & ((surf.flags & _REFRACTIVE) != 0), 1.0, w_mis)
-        if meta.media_enabled:
-            # a media-scattered lane's in-media NEE covers the direct light
-            w_mis = torch.where(media_skip, 0.0, w_mis)
-
-        state, ro, rd, atten, lum, alive, media_skip, live, sky = _finish_segment(
-            meta, arrays, light_table, media_desc, state, ro2, rd2, hit2, at2, atten, lum,
-            alive2, live, w_mis, is_primary=False)
-        hit, at = hit2, at2
-
+    if tracing:
+        prof.count("bounce.live", torch.stack(seg_live))
     s = 1.0 / torch.clamp_min(aov_weight, EPS)
     return TraceResult(
         color=lum.aos(),
@@ -307,6 +318,7 @@ def make_trace_buffers(width: int, height: int, device) -> TraceBuffers:
     return TraceBuffers(color=z, albedo=z, normal=z)
 
 
+@prof.spanned("pt.accumulate")
 def accumulate(buffers: TraceBuffers, result: TraceResult, sample_weight: float) -> TraceBuffers:
     """Progressive EMA: lerp(prev, new, 1/sampleCount)."""
     sw = float(sample_weight)

@@ -27,6 +27,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from pim_tpu_torch.core import profiler as prof
 from pim_tpu_torch.core import rng
 from pim_tpu_torch.core.console import LogSev, con_logf
 from pim_tpu_torch.math.sampling import normal_to_tbn, sample_unit_hemisphere
@@ -363,6 +364,7 @@ def bake_rays(pack: LmPack, frame: int, texel_offset: int, texel_count: int) -> 
     return BakeRays(state, ro, rd, tan, bit, safe_n, alive)
 
 
+@prof.spanned("pt.bake")
 def bake_step(meta, arrays, lights, pack: LmPack, frame: int, max_bounces: int = 4,
               texel_offset: int = 0, texel_count: Optional[int] = None) -> LmPack:
     """One progressive bake pass over the texel shard [texel_offset,
@@ -376,6 +378,9 @@ def bake_step(meta, arrays, lights, pack: LmPack, frame: int, max_bounces: int =
     counts = pack.sample_counts[sl]
     probes = pack.probes[sl]
     state, ro, rd, tan, bit, safe_n, alive = bake_rays(pack, frame, texel_offset, texel_count)
+    if prof.tracing():
+        prof.count("bake.lanes", texel_count)
+        prof.count("bake.live", alive.sum())
 
     radiance = trace_rays(meta, arrays, lights, ro, rd, state, max_bounces).color  # [T, 3]
 

@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from pim_tpu_torch.core.profiler import spanned
 from pim_tpu_torch.math.dist1d import cumsum_seq
 from pim_tpu_torch.math.grid import grid_index_soa
 from pim_tpu_torch.math.sampling import light_pdf, power_heuristic, sample_bary_coord
@@ -206,6 +207,7 @@ def sample_light(meta: SceneMeta, arrays: SceneArrays, light_table, p: V3,
     )
 
 
+@spanned("pt.nee")
 def nee_light_strategy(meta: SceneMeta, arrays: SceneArrays, light_table, lut,
                        surf: Surface, src_tri, i_dir: V3, u_sel, bu, bv, active=None,
                        transmittance_fn=None):

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from pim_tpu_torch.core.profiler import spanned
 from pim_tpu_torch.math.grid import GridSpec, grid_index_soa
 from pim_tpu_torch.math.vec3 import V3
 
@@ -63,6 +64,7 @@ def sort_perm(keys: torch.Tensor):
     return perm, inv
 
 
+@spanned("pt.sort")
 def sorted_rays(grid: GridSpec, ro: V3, rd: V3, t_far):
     """Sort a wavefront for coherence.  Returns (ro', rd', t_far', perm):
     lane i of the sorted rays is lane perm[i] of the input; a Python-number
@@ -79,6 +81,7 @@ def sorted_rays(grid: GridSpec, ro: V3, rd: V3, t_far):
     return V3(block[0], block[1], block[2]), V3(block[3], block[4], block[5]), t_far_s, perm
 
 
+@spanned("pt.sort")
 def unsort_rows(rows, perm: torch.Tensor):
     """Restore the original lane order of [N] results of sorted rays."""
     inv = torch.empty_like(perm)

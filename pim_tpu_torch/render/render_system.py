@@ -44,7 +44,7 @@ from pim_tpu_torch.core import rng
 from pim_tpu_torch.core.cmd import CmdStat, cmd_getopt, get_cmd_system
 from pim_tpu_torch.core.console import LogSev, con_logf
 from pim_tpu_torch.core.crate import Crate
-from pim_tpu_torch.core.profiler import profile
+from pim_tpu_torch.core.profiler import profile, spanned
 from pim_tpu_torch.core.timesys import get_timesys
 from pim_tpu_torch.geom.cornell import build_cornell_box
 from pim_tpu_torch.geom.entities import Entities
@@ -87,6 +87,7 @@ def load_gate_band(sample_count: int, scene: str = "cornell"):
     return float(best["maxstddev"]), float(best["meanlo"]), float(best["meanhi"])
 
 
+@spanned("pt.trace")
 def trace_samples(scene, cam: CameraArrays, width: int, height: int, bounces: int, spp: int,
                   first_sample: int, seed: int = rng.DEFAULT_SEED, blade_count: int = 5,
                   blade_rot: float = float(np.pi / 10.0)) -> TraceResult:

@@ -46,6 +46,7 @@ from pim_tpu_torch.geom.bvh import STACK_DEPTH as BVH_STACK_DEPTH
 from pim_tpu_torch.geom.entities import Entities, FlatScene, flatten
 from pim_tpu_torch.geom.material import MatFlag, TexturePool
 from pim_tpu_torch.render import cluster as CL
+from pim_tpu_torch.core import profiler as prof
 from pim_tpu_torch.core import rng
 from pim_tpu_torch.math import dist1d
 from pim_tpu_torch.math.brdf import bake_brdf_lut
@@ -204,9 +205,27 @@ def _carry_mt_grad(arrays: SceneArrays, state, ro: V3, rd: V3):
             v + (v_mt - v_mt.detach()), det)
 
 
+def _count_lanes(kind: str, n: int, t_far) -> None:
+    """Counters `<kind>.lanes` and `<kind>.live` (the lanes with t_far > 0)
+    of one intersection call, while tracing."""
+    if not prof.tracing():
+        return
+    prof.count(kind + ".lanes", n)
+    if isinstance(t_far, torch.Tensor):
+        prof.count(kind + ".live", torch.broadcast_to(t_far > 0.0, (n,)).sum())
+    else:
+        prof.count(kind + ".live", n if t_far > 0.0 else 0)
+
+
+@prof.spanned("pt.isect")
 def intersect_raw(meta: SceneMeta, arrays: SceneArrays, ro: V3, rd: V3, t_near, t_far):
     """Closest hit through the scene's intersector: (t [N], tri [N] i32),
     -1 on a miss; neither carries a gradient."""
+    _count_lanes("isect", ro.x.shape[0], t_far)
+    return _intersect_raw(meta, arrays, ro, rd, t_near, t_far)
+
+
+def _intersect_raw(meta: SceneMeta, arrays: SceneArrays, ro: V3, rd: V3, t_near, t_far):
     ro, rd, t_far = _detached(ro, rd, t_far)
     if meta.backend in ("brute", "bvh"):
         t, tri, *_ = _mt_state(meta, arrays, ro, rd, t_near, t_far)
@@ -222,22 +241,26 @@ def intersect_raw(meta: SceneMeta, arrays: SceneArrays, ro: V3, rd: V3, t_near, 
     return tuple(unsort_rows([t, tri], perm))
 
 
+@prof.spanned("pt.isect")
 def scene_intersect(meta: SceneMeta, arrays: SceneArrays, ro: V3, rd: V3,
                     t_near, t_far) -> Hit:
+    _count_lanes("isect", ro.x.shape[0], t_far)
     if meta.backend in ("brute", "bvh"):
         dro, drd, dtf = _detached(ro, rd, t_far)
         state = _carry_mt_grad(arrays, _mt_state(meta, arrays, dro, drd, t_near, dtf), ro, rd)
         return MT._finalize_hit(arrays.positions, *state,
                                 MT.per_ray_t_far(dtf, dro.x.shape[0], dro.x.device))
-    t, tri = intersect_raw(meta, arrays, ro, rd, t_near, t_far)
+    t, tri = _intersect_raw(meta, arrays, ro, rd, t_near, t_far)
     return _finalize_hit_fused(arrays, t, tri, ro, rd)
 
 
+@prof.spanned("pt.shadow")
 def scene_occluded(meta: SceneMeta, arrays: SceneArrays, ro: V3, rd: V3,
                    t_near, t_far) -> torch.Tensor:
     """[N] bool, True where the segment is blocked (a dead ray, t_far <= 0:
     True through K2, False through K5 and the MT backends, as the
     reference's backends)."""
+    _count_lanes("shadow", ro.x.shape[0], t_far)
     ro, rd, t_far = _detached(ro, rd, t_far)
     if meta.backend == "bvh":
         return MT.bvh_anyhit(_bvh(arrays), arrays.positions, ro, rd, t_near, t_far,

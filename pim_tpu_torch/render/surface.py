@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from pim_tpu_torch.core.profiler import spanned
 from pim_tpu_torch.geom.material import MatFlag
 from pim_tpu_torch.math.color import K_EMISSION_SCALE
 from pim_tpu_torch.math.sampling import tan_to_world
@@ -141,6 +142,7 @@ class HitAttribs(NamedTuple):
     nm: tuple = None     # (x, y) sampled normal-map channels, or None
 
 
+@spanned("pt.fetch")
 def fetch_hit_attribs(meta, arrays, hit) -> HitAttribs:
     """Fused fetch + interpolation for a Hit batch."""
     rows = F.fetch_cols(arrays.tri_table, torch.clamp_min(hit.tri, 0))  # [48, N]
@@ -204,6 +206,7 @@ def attribs_from_rows(meta, arrays, rows, hit) -> HitAttribs:
                       rome=tuple(rome), emission=emission, nm=nm)
 
 
+@spanned("pt.surface")
 def get_surface(meta, rd: V3, hit, at: HitAttribs, sky_col: V3 = None) -> Surface:
     """The shading state of an already-fetched hit.  sky_col: the sky
     radiance along `rd` (required for a scene with a sky: sky surfaces emit

@@ -45,6 +45,7 @@ from __future__ import annotations
 import torch
 
 from pim_tpu_torch import native
+from pim_tpu_torch.core.profiler import spanned
 from pim_tpu_torch.render.gather_kernel import (
     gather_bwd_variant,
     gather_variant,
@@ -69,6 +70,7 @@ def gather_bilinear_plain(corner_planes: torch.Tensor, idx: torch.Tensor, tx: to
     return torch.where(valid, out, 0.0)
 
 
+@spanned("pt.gather")
 def gather_bilinear(corner_planes: torch.Tensor, idx: torch.Tensor, tx: torch.Tensor,
                     ty: torch.Tensor, valid: torch.Tensor, c: int) -> torch.Tensor:
     """corner_planes [4C, T] f32, idx [K, N] i32, tx/ty [K, N] f32, valid
@@ -189,6 +191,7 @@ class _GatherTexels(torch.autograd.Function):
         return gather_texels_bwd(g.contiguous(), idx, ctx.t), None
 
 
+@spanned("pt.gather")
 def gather_texels(planes: torch.Tensor, idx: torch.Tensor, parts: int = 3) -> torch.Tensor:
     """planes [C, T] f32, idx [K, N] i32 -> [C, K, N] f32, differentiable in
     `planes` when it requires grad.  `parts` is the TPU kernel's bf16 split

@@ -306,18 +306,6 @@ def test_curve_models_match(kind):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
 
 
-def test_profile_marks_wait_on_a_device():
-    """`profile(name, block_on=device)` ends its mark after the device's
-    queued work; a CPU device (by name or torch.device) has none."""
-    prof = profiler.Profiler()
-    for dev in ("cpu", torch.device("cpu")):
-        with prof.mark("Pt_Trace", block_on=dev):
-            torch.ones(4).sum()
-    with prof.mark("Pt_Trace"):
-        pass
-    assert prof.stats["Pt_Trace"].calls == 3
-
-
 def test_curve_fit_quality():
     """The port draws its mutations from a torch.Generator, not from
     jax.random, so its fit is held by its error: a GT-tonemap fit close to
@@ -900,6 +888,37 @@ def _cli_pt_test_pngs(tmp_path, monkeypatch, frames: int) -> list:
         for c, v in saved:
             c.set(v)
     return sorted(os.listdir(tmp_path / "screenshots"))
+
+
+def test_prof_trace_reports_spans_and_counters(tmp_path, monkeypatch):
+    """The shell's cvar `prof_trace` turns the program's tracing on for the
+    frames after it, and the report at shutdown then lists the pt.* spans
+    under the frame's marks and the counters, where the console prints it."""
+    from pim_tpu_torch.core.console import LogSev, get_console
+
+    monkeypatch.chdir(tmp_path)
+    saved = [(c, c.get()) for c in _SAVED + (cv.cv_prof_trace,)]
+    try:
+        eng = app.Engine(width=8, height=8, device="cpu")
+        eng.init()
+        assert eng.run("cornell_box; pt_max_bounces 2; prof_trace 1; pt_trace 1; wait 2; "
+                       "quit") == 0
+        assert profiler.tracing()
+        get_console().clear()
+        eng.shutdown()
+        ((sev, report),) = [(sev, msg) for sev, tag, msg in get_console().lines()
+                            if tag == "prof"]
+        assert sev == LogSev.Info
+        assert "render/Pt_Trace/pt.trace/pt.bounce/pt.isect" in report
+        counts = profiler.counters()
+        assert counts["bounce.live"][0] == 64 * eng.render.sample_count > 0
+        for name in ("isect.lanes", "isect.live", "shadow.lanes", "shadow.live", "bounce.live"):
+            assert f"\n{name:<40} {counts[name]}" in report, name
+    finally:
+        for c, v in saved:
+            c.set(v)
+        profiler.set_tracing(False)
+        profiler.reset_counters()
 
 
 def test_cli_pt_test_writes_two_pngs(tmp_path, monkeypatch):
