@@ -66,7 +66,13 @@ exits non-zero:
      K3 and K7 with 64-bit offsets, launched through the library's C
      interface at the main path's tables, and one K3 call of 2^28 lanes
      whose output passes 2^31 floats, through the wrapper, bitwise; the
-     build's parts timed; the 128^2, 16-spp frame gated by the CPU-anchored `e1m1_128`
+     build's parts timed; the BSDF kernels (bsdf_scatter, bsdf_refract_finish,
+     bsdf_eval) bitwise against the plain form on 262,144 seeded lanes and
+     on tools/bsdf_check.py's edge lanes, with and without the glass path,
+     and on the first scatter and eval calls of one e1m1 512^2, 10-bounce
+     step, each timed there beside its byte bound and the plain form's
+     wall (the plain form's thickness probe a stub: its hits given);
+     the 128^2, 16-spp frame gated by the CPU-anchored `e1m1_128`
      band of pim_tpu_torch/render/gate_bands.json (the 512^2 mean is printed
      beside the reference's TPU drift band, for information only); a 32^2,
      3-bounce frame on the card against the same frame on the CPU;
@@ -606,6 +612,7 @@ def check_gather_cols(dev, scene_name: str, tables, rs):
 CORNELL_KERNELS = ("dense_isect", "dense_anyhit", "gather_cols")
 E1M1_KERNELS = ("cluster_isect", "cluster_anyhit", "gather_bilinear")
 TRAIN_KERNELS = ("gather_cols_bwd", "gather_texels", "gather_texels_bwd")
+BSDF_KERNELS = ("bsdf_scatter", "bsdf_refract_finish", "bsdf_eval")
 # the main paths that run each kernel
 CORNELL_BAKES = ("cornell_lightmap", "cornell_refl", "cornell_light_probe")
 E1M1_BAKES = ("e1m1_lightmap", "e1m1_lightmap_compacted", "e1m1_refl", "e1m1_light_probe")
@@ -626,6 +633,10 @@ PATHS = {
     "brute_anyhit": (),
     "bvh_isect": (),
     "bvh_anyhit": (),
+    # the training paths' inputs require grad: they keep the plain form
+    "bsdf_scatter": ("cornell", "e1m1", "cornell_shell", "e1m1_shell"),
+    "bsdf_refract_finish": ("e1m1", "e1m1_shell"),
+    "bsdf_eval": ("cornell", "e1m1", "cornell_shell", "e1m1_shell"),
 }
 # phase 8's paths and the kernels each must launch (added to PATHS)
 PAR_KERNELS = {
@@ -675,6 +686,10 @@ SOURCES = {
     "brute_anyhit": ("pim_tpu_torch/csrc/mt_isect.cu", "pim_tpu/render/intersect.py:75"),
     "bvh_isect": ("pim_tpu_torch/csrc/mt_isect.cu", "pim_tpu/render/intersect.py:189"),
     "bvh_anyhit": ("pim_tpu_torch/csrc/mt_isect.cu", "pim_tpu/render/intersect.py:189"),
+    # not TPU kernels: the JAX package leaves the BSDF to XLA
+    "bsdf_scatter": ("pim_tpu_torch/csrc/bsdf.cu", "pim_tpu/render/bsdf.py:126"),
+    "bsdf_refract_finish": ("pim_tpu_torch/csrc/bsdf.cu", "pim_tpu/render/bsdf.py:173"),
+    "bsdf_eval": ("pim_tpu_torch/csrc/bsdf.cu", "pim_tpu/render/bsdf.py:107"),
 }
 
 
@@ -1408,6 +1423,106 @@ def time_e1m1_build(dev, scene) -> None:
           f"({meta.grid_len} cells x {meta.emissive_count} emissives x 16 shadow rays)")
 
 
+BSDF_SEED = 3_141_592_653  # the seeded lanes of the BSDF kernels' check
+
+
+def _check_bsdf_bits(label: str, diffs: dict) -> None:
+    print(f"{label}: lanes whose bits differ {diffs}")
+    if any(diffs.values()):
+        raise AssertionError(f"{label}: the BSDF kernels differ from the plain form")
+
+
+def check_bsdf(dev, scene) -> dict:
+    """The BSDF kernels against the plain form, bit for bit, on seeded and
+    edge lanes and on the first scatter and eval calls of one e1m1 512^2,
+    10-bounce step; each kernel timed there beside its byte bound and the
+    plain form (a wall: it dispatches hundreds of ops).  Returns the three
+    kernel rows."""
+    import torch
+
+    from pim_tpu_torch.app import bench_camera, render_step
+    from pim_tpu_torch.math.brdf import BrdfLut
+    from pim_tpu_torch.math.vec3 import V3
+    from pim_tpu_torch.render import bsdf
+    from pim_tpu_torch.tools import bsdf_check as bc
+
+    meta, arrays, _ = scene
+    lut = BrdfLut(texels=arrays.brdf_lut)
+    for label, lanes in (("seeded", bc.random_lanes(N_RAYS, BSDF_SEED, dev)),
+                         ("edge", bc.edge_lanes(dev))):
+        n = lanes.i.x.shape[0]
+        for refract in (False, True):
+            _check_bsdf_bits(f"bsdf_scatter {label} lanes ({n}), glass path {refract}",
+                             bc.scatter_differences(lut, lanes, refract))
+        _check_bsdf_bits(f"bsdf_eval {label} lanes ({n})", bc.eval_differences(lut, lanes))
+
+    with bc.recorded_calls() as calls:
+        render_step(scene, bench_camera("e1m1", WIDTH, HEIGHT), WIDTH, HEIGHT, BOUNCES, 1, 0)
+    torch.cuda.synchronize()
+    s_lut, surf, i, state, occluded_fn = calls["scatter"][0]
+    e_lut, e_surf, e_i, e_l = calls["eval"][0]
+    n = i.x.shape[0]
+    probes = []
+
+    def probe(p, l, mask):
+        probes.append((p, l, mask))
+        return occluded_fn(p, l, mask)
+
+    got_state, got = bsdf.scatter_principled(s_lut, surf, i, state, probe)
+    want_state, want = bsdf.scatter_principled_plain(s_lut, surf, i, state, probe)
+    diffs = bc.differing([*got_state, *got.pos, *got.dir, *got.attenuation, got.pdf,
+                          *probes[0][0], *probes[0][1], probes[0][2]],
+                         [*want_state, *want.pos, *want.dir, *want.attenuation, want.pdf,
+                          *probes[1][0], *probes[1][1], probes[1][2]])
+    _check_bsdf_bits(f"bsdf_scatter main path bounce 1 ({n} lanes; words, pos, dir, "
+                     "attenuation, pdf, probe origin, direction, mask)", dict(enumerate(diffs)))
+    got_a, got_p = bsdf.eval_principled(e_lut, e_surf, e_i, e_l)
+    want_a, want_p = bsdf.eval_principled_plain(e_lut, e_surf, e_i, e_l)
+    _check_bsdf_bits(f"bsdf_eval main path bounce 1 ({n} lanes; attenuation, pdf)",
+                     dict(enumerate(bc.differing([*got_a, got_p], [*want_a, want_p]))))
+
+    fields = [t.contiguous() for t in bsdf.scatter_fields(surf, i, state)]
+    out, _, mask = bsdf.bsdf_scatter(s_lut.texels, fields, True)
+    t_hit = occluded_fn(V3(out[10], out[11], out[12]), V3(out[13], out[14], out[15]),
+                        mask).contiguous()
+    albedo, rough = V3(*fields[9:12]), fields[12]
+    probed = int(mask.sum())
+    print(f"bsdf main path bounce 1: {n} lanes, {probed} probed for thickness")
+
+    def given(p, l, m):
+        return t_hit
+
+    rows = {}
+    k, p = _time_pair("bsdf_scatter main path bounce 1 (glass path)",
+                      lambda: bsdf.bsdf_scatter(s_lut.texels, fields, True),
+                      lambda: bsdf.scatter_principled_plain(s_lut, surf, i, state, given),
+                      plain_runs=PLAIN_RUNS, plain_queued=False)
+    rows["bsdf_scatter"] = _row(0.0, k, p, _bound(bc.scatter_bytes(n, True), 0))
+    k0, p0 = _time_pair("bsdf_scatter main path bounce 1 (no glass path, Cornell's form)",
+                        lambda: bsdf.bsdf_scatter(s_lut.texels, fields, False),
+                        lambda: bsdf.scatter_principled_plain(s_lut, surf, i, state),
+                        plain_runs=PLAIN_RUNS, plain_queued=False)
+    rows["bsdf_scatter"].update({f"noglass_{key}": v for key, v in _row(
+        0.0, k0, p0, _bound(bc.scatter_bytes(n, False), 0)).items() if key != "max_abs_err"})
+    scratch = out.clone()
+    k, p = _time_pair("bsdf_refract_finish main path bounce 1",
+                      lambda: bsdf.bsdf_refract_finish(scratch, mask, t_hit, albedo, rough),
+                      lambda: bc.refract_finish_plain(out, mask, t_hit, albedo, rough),
+                      plain_runs=PLAIN_RUNS, plain_queued=False)
+    rows["bsdf_refract_finish"] = _row(0.0, k, p, _bound(bc.refract_finish_bytes(n, probed), 0))
+    rows["bsdf_refract_finish"]["probed_lanes"] = probed
+    efields = [t.contiguous() for t in bsdf.eval_fields(e_surf, e_i, e_l)]
+    k, p = _time_pair("bsdf_eval main path bounce 1",
+                      lambda: bsdf.bsdf_eval(e_lut.texels, efields),
+                      lambda: bsdf.eval_principled_plain(e_lut, e_surf, e_i, e_l),
+                      plain_runs=PLAIN_RUNS, plain_queued=False)
+    rows["bsdf_eval"] = _row(0.0, k, p, _bound(bc.eval_bytes(n), 0))
+    for name, row in rows.items():
+        print(f"{name}: {row['ms']:.4f} ms device a call, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms wall")
+    return rows
+
+
 def run_e1m1(dev):
     """Phase 4; returns (kernel rows, launches of the main path, the scene,
     the main-path indices of K3 and K7)."""
@@ -1436,6 +1551,7 @@ def run_e1m1(dev):
     _check_frame(fr, WIDTH * HEIGHT, ("gather_cols",) + E1M1_KERNELS)
 
     kernels, main_idx = check_e1m1_kernels(dev, scene)
+    kernels.update(check_bsdf(dev, scene))
     time_e1m1_build(dev, scene)
 
     lo, hi = _band("pim_tpu_torch/render/gate_bands.json", "e1m1_128")
@@ -3491,7 +3607,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": sum(launches[name].values()),
          "launches_by_path": launches[name], **kernels[name]}
-        for name in CORNELL_KERNELS + E1M1_KERNELS + TRAIN_KERNELS + MT_KERNELS]}
+        for name in CORNELL_KERNELS + E1M1_KERNELS + TRAIN_KERNELS + MT_KERNELS + BSDF_KERNELS]}
     print(json.dumps(report))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

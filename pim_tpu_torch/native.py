@@ -37,12 +37,13 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("dense_isect.cu", "gather_cols.cu", "cluster_isect.cu", "gather_bilinear.cu",
-           "gather_texels.cu", "mt_isect.cu")
+           "gather_texels.cu", "mt_isect.cu", "bsdf.cu")
 HEADERS = ("gather_tiles.cuh",)  # included by the sources; in the build hash
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "pim_tpu_torch")
 LIB_NAME = "libpim_tpu_torch.so"
 # --fmad=false: the intersection kernels must round every product and sum
-# as separate float32 operations (no fused multiply-add), as the reference.
+# as separate float32 operations (no fused multiply-add), as the reference;
+# the BSDF kernels as PyTorch's one-op kernels do.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -53,6 +54,7 @@ launches: Dict[str, int] = {
     "cluster_isect": 0, "cluster_anyhit": 0, "gather_bilinear": 0,
     "gather_texels": 0, "gather_texels_bwd": 0,
     "brute_isect": 0, "brute_anyhit": 0, "bvh_isect": 0, "bvh_anyhit": 0,
+    "bsdf_scatter": 0, "bsdf_refract_finish": 0, "bsdf_eval": 0,
 }
 
 
@@ -186,6 +188,15 @@ def bind(lib) -> None:
     lib.pim_bvh_isect.restype = i
     lib.pim_bvh_anyhit.argtypes = bvh_args + [p, p]
     lib.pim_bvh_anyhit.restype = i
+    # the pointer table, lut, lut size, n, refractive_path, out, words, probe, stream
+    lib.pim_bsdf_scatter.argtypes = [p, p, i, ll, i, p, p, p, p]
+    lib.pim_bsdf_scatter.restype = i
+    # probe, t_hit, albedo x/y/z, roughness, n, out, stream
+    lib.pim_bsdf_refract_finish.argtypes = [p] * 6 + [ll, p, p]
+    lib.pim_bsdf_refract_finish.restype = i
+    # the pointer table, lut, lut size, n, out, stream
+    lib.pim_bsdf_eval.argtypes = [p, p, i, ll, p, p]
+    lib.pim_bsdf_eval.restype = i
     lib.pim_cuda_error_string.argtypes = [i]
     lib.pim_cuda_error_string.restype = ctypes.c_char_p
 

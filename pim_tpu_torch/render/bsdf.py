@@ -5,14 +5,26 @@ stochastic lobe mix: specular weight lerp(0.5, 1.0, metallic), the rest
 diffuse; refractive materials switch to a GGX-microfacet dielectric with
 Beer-Lambert interior transmittance, whose thickness comes from a
 closest-hit probe along the refracted ray.
+
+Two forms compute it.  The composed one (`scatter_principled_plain`,
+`eval_principled_plain`) is PyTorch ops; it runs on the CPU, and on the
+card wherever an input requires grad (autograd differentiates it).  On
+CUDA tensors that carry no gradient, `scatter_principled` and
+`eval_principled` launch the hand-written kernels of `csrc/bsdf.cu`
+(`bsdf_scatter`, `bsdf_refract_finish`, `bsdf_eval`), one thread a lane,
+bit for bit the composed version on the card.  The refractive thickness
+probe stays an eager closest-hit call between the two glass kernels.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
+from pim_tpu_torch import native
+from pim_tpu_torch.core import profiler as prof
 from pim_tpu_torch.core import rng
 from pim_tpu_torch.core.profiler import spanned
 from pim_tpu_torch.geom.material import MatFlag
@@ -104,8 +116,9 @@ def eval_specular(lut: BrdfLut, surf: Surface, i: V3, l: V3):
     return atten, torch.where(valid, pdf, 0.0)
 
 
-def eval_principled(lut: BrdfLut, surf: Surface, i: V3, l: V3):
-    """Mixed-lobe eval for NEE.  Refractive lanes evaluate to zero."""
+def eval_principled_plain(lut: BrdfLut, surf: Surface, i: V3, l: V3):
+    """Mixed-lobe eval for NEE, composed of PyTorch ops.  Refractive lanes
+    evaluate to zero."""
     nol = dot(surf.n, l)
     amt_spec = lerp(0.5, 1.0, surf.metallic)
     amt_diff = 1.0 - amt_spec
@@ -121,13 +134,8 @@ def eval_principled(lut: BrdfLut, surf: Surface, i: V3, l: V3):
     )
 
 
-@spanned("pt.bsdf")
-def scatter_principled(lut: BrdfLut, surf: Surface, i: V3, state, occluded_fn=None):
-    """One-sample lobe-mixed BSDF sample.  Returns (state, Scatter).
-
-    occluded_fn(ro V3, rd V3, mask) -> t_hit [N] is the interior-thickness
-    probe of refractive transmission; None leaves the refractive path out
-    (a scene without refractive materials)."""
+def scatter_principled_plain(lut: BrdfLut, surf: Surface, i: V3, state, occluded_fn=None):
+    """`scatter_principled` composed of PyTorch ops."""
     state, u_lobe = rng.next_f32(state)
     state, (xu, xv) = rng.next_f32x2(state)
     amt_spec = lerp(0.5, 1.0, surf.metallic)
@@ -203,3 +211,171 @@ def _scatter_refractive(surf: Surface, i: V3, state, thickness_fn, mask):
     tr = albedo_to_transmittance(surf.albedo, surf.roughness, thickness)
     atten = where3(refracting_in, tr * pdf, V3(pdf, pdf, pdf))
     return state, Scatter(pos=pos, dir=l, attenuation=atten, pdf=pdf)
+
+
+# ---------------------------------------------------------------------------
+# The kernels (csrc/bsdf.cu) and the dispatch between them and the plain form
+# ---------------------------------------------------------------------------
+
+_F32, _I32, _I64, _BOOL = torch.float32, torch.int32, torch.int64, torch.bool
+# (name, dtype) of each [N] input, in the order of csrc/bsdf.cu's pointer
+# tables ScatterArgs and EvalArgs
+SCATTER_FIELDS = (
+    *((f"{v}.{c}", _F32) for v in ("p", "m", "n", "albedo") for c in "xyz"),
+    ("roughness", _F32), ("metallic", _F32), ("ior", _F32), ("flags", _I32),
+    ("backface", _BOOL), *((f"i.{c}", _F32) for c in "xyz"),
+    *((f"state.{c}", _I64) for c in "xyzw"),
+)
+EVAL_FIELDS = (
+    *((f"{v}.{c}", _F32) for v in ("n", "albedo") for c in "xyz"),
+    ("roughness", _F32), ("metallic", _F32), ("flags", _I32),
+    *((f"{v}.{c}", _F32) for v in ("i", "l") for c in "xyz"),
+)
+
+
+def scatter_fields(surf: Surface, i: V3, state) -> list:
+    """The scatter kernel's inputs in SCATTER_FIELDS' order."""
+    return [*surf.p, *surf.m, *surf.n, *surf.albedo, surf.roughness, surf.metallic, surf.ior,
+            surf.flags, surf.backface, *i, *state]
+
+
+def eval_fields(surf: Surface, i: V3, l: V3) -> list:
+    """The eval kernel's inputs in EVAL_FIELDS' order."""
+    return [*surf.n, *surf.albedo, surf.roughness, surf.metallic, surf.flags, *i, *l]
+
+
+def _lut_size(name: str, lut: torch.Tensor) -> int:
+    if lut.dim() != 3:
+        raise ValueError(f"{name}.lut: expected [S, S, 2], got {tuple(lut.shape)}")
+    size = lut.shape[0]
+    native.require_cuda(f"{name}.lut", lut, _F32, (size, size, 2), lut.device)
+    return size
+
+
+def _lane_table(name: str, specs, fields, dev):
+    """(N, the ctypes pointer table) of `fields`, each a contiguous [N]
+    tensor of its spec's dtype on `dev`; raises on anything else, and on a
+    device that is not CUDA."""
+    if len(fields) != len(specs):
+        raise ValueError(f"{name}: {len(fields)} inputs, expected {len(specs)}")
+    if fields[0].dim() != 1:
+        raise ValueError(f"{name}.{specs[0][0]}: expected [N], got {tuple(fields[0].shape)}")
+    n = fields[0].shape[0]
+    for (field, dtype), t in zip(specs, fields):
+        native.require_cuda(f"{name}.{field}", t, dtype, (n,), dev)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")
+    return n, (ctypes.c_void_p * len(fields))(*(t.data_ptr() for t in fields))
+
+
+def bsdf_scatter(lut: torch.Tensor, fields, refract: bool):
+    """The scatter kernel over SCATTER_FIELDS' [N] CUDA tensors: (out, words,
+    probe).  out [10, N] f32 holds position, direction, attenuation and pdf;
+    with `refract` out is [16, N], rows 10-15 the thickness probe's origin
+    and direction on every lane, and probe [N] bool marks the lanes whose
+    thickness it traces (None without `refract`); words [4, N] int64 are the
+    new RNG state.  The probed lanes' attenuation waits for
+    `bsdf_refract_finish`."""
+    dev = lut.device
+    size = _lut_size("bsdf_scatter", lut)
+    n, table = _lane_table("bsdf_scatter", SCATTER_FIELDS, fields, dev)
+    out = torch.empty((16 if refract else 10, n), dtype=_F32, device=dev)
+    words = torch.empty((4, n), dtype=_I64, device=dev)
+    probe = torch.empty((n,), dtype=_BOOL, device=dev) if refract else None
+    if n == 0:
+        return out, words, probe
+    lib = native.load()
+    rc = lib.pim_bsdf_scatter(table, lut.data_ptr(), size, n, int(refract), out.data_ptr(),
+                              words.data_ptr(), None if probe is None else probe.data_ptr(),
+                              native.stream_ptr(dev))
+    native.check(lib, rc, "bsdf_scatter")
+    native.launches["bsdf_scatter"] += 1
+    return out, words, probe
+
+
+def bsdf_refract_finish(out: torch.Tensor, probe: torch.Tensor, t_hit: torch.Tensor,
+                        albedo: V3, roughness: torch.Tensor) -> None:
+    """In place on `bsdf_scatter`'s out [16, N]: the Beer-Lambert attenuation
+    (rows 6-8) of the lanes `probe` marks, from the probe's hit distance
+    t_hit [N] and the pdf (row 9)."""
+    dev = out.device
+    n, table = _lane_table(
+        "bsdf_refract_finish",
+        (("probe", _BOOL), ("t_hit", _F32), ("albedo.x", _F32), ("albedo.y", _F32),
+         ("albedo.z", _F32), ("roughness", _F32)),
+        [probe, t_hit, *albedo, roughness], dev)
+    native.require_cuda("bsdf_refract_finish.out", out, _F32, (16, n), dev)
+    if n == 0:
+        return
+    lib = native.load()
+    rc = lib.pim_bsdf_refract_finish(*table, n, out.data_ptr(), native.stream_ptr(dev))
+    native.check(lib, rc, "bsdf_refract_finish")
+    native.launches["bsdf_refract_finish"] += 1
+
+
+def bsdf_eval(lut: torch.Tensor, fields) -> torch.Tensor:
+    """The eval kernel over EVAL_FIELDS' [N] CUDA tensors: [4, N] f32, the
+    attenuation and the pdf."""
+    dev = lut.device
+    size = _lut_size("bsdf_eval", lut)
+    n, table = _lane_table("bsdf_eval", EVAL_FIELDS, fields, dev)
+    out = torch.empty((4, n), dtype=_F32, device=dev)
+    if n == 0:
+        return out
+    lib = native.load()
+    rc = lib.pim_bsdf_eval(table, lut.data_ptr(), size, n, out.data_ptr(),
+                           native.stream_ptr(dev))
+    native.check(lib, rc, "bsdf_eval")
+    native.launches["bsdf_eval"] += 1
+    return out
+
+
+def takes_kernels(lut: BrdfLut, fields) -> bool:
+    """Whether a BSDF call takes the kernels: its tensors lie on the card and
+    none requires grad (autograd differentiates the plain form)."""
+    return (lut.texels.device.type == "cuda" and not lut.texels.requires_grad
+            and not any(t.requires_grad for t in fields))
+
+
+def _count(kernel: bool) -> None:
+    if prof.tracing():
+        prof.count("bsdf.calls", 1)
+        prof.count("bsdf.kernel", int(kernel))
+
+
+def eval_principled(lut: BrdfLut, surf: Surface, i: V3, l: V3):
+    """Mixed-lobe eval for NEE: (attenuation V3, pdf [N]).  Refractive lanes
+    evaluate to zero.  One `bsdf_eval` launch where `takes_kernels`, else the
+    plain form."""
+    fields = eval_fields(surf, i, l)
+    kernel = takes_kernels(lut, fields)
+    _count(kernel)
+    if not kernel:
+        return eval_principled_plain(lut, surf, i, l)
+    out = bsdf_eval(lut.texels, [t.contiguous() for t in fields])
+    return V3(out[0], out[1], out[2]), out[3]
+
+
+@spanned("pt.bsdf")
+def scatter_principled(lut: BrdfLut, surf: Surface, i: V3, state, occluded_fn=None):
+    """One-sample lobe-mixed BSDF sample.  Returns (state, Scatter).
+
+    occluded_fn(ro V3, rd V3, mask) -> t_hit [N] is the interior-thickness
+    probe of refractive transmission; None leaves the refractive path out
+    (a scene without refractive materials).  Where `takes_kernels`: one
+    `bsdf_scatter` launch, and with `occluded_fn` the probe and one
+    `bsdf_refract_finish`; else the plain form."""
+    fields = scatter_fields(surf, i, state)
+    kernel = takes_kernels(lut, fields)
+    _count(kernel)
+    if not kernel:
+        return scatter_principled_plain(lut, surf, i, state, occluded_fn)
+    refract = occluded_fn is not None
+    fields = [t.contiguous() for t in fields]
+    out, words, probe = bsdf_scatter(lut.texels, fields, refract)
+    if refract:
+        t_hit = occluded_fn(V3(out[10], out[11], out[12]), V3(out[13], out[14], out[15]), probe)
+        bsdf_refract_finish(out, probe, t_hit.contiguous(), V3(*fields[9:12]), fields[12])
+    return rng.RngState(*words), Scatter(pos=V3(out[0], out[1], out[2]),
+                                         dir=V3(out[3], out[4], out[5]),
+                                         attenuation=V3(out[6], out[7], out[8]), pdf=out[9])

@@ -25,9 +25,13 @@ from pim_tpu.render import cluster as jcluster
 from pim_tpu.render import pallas_kernels as pk
 from pim_tpu.render.gather_kernel import gather_cols_pallas
 from pim_tpu_torch import native
-from pim_tpu_torch.math.vec3 import V3
+from pim_tpu_torch.core import profiler
+from pim_tpu_torch.math.brdf import bake_brdf_lut
+from pim_tpu_torch.math.vec3 import EPS, V3, refract
+from pim_tpu_torch.render import bsdf
 from pim_tpu_torch.render import dense_kernels as dk
 from pim_tpu_torch.render import gather_kernel as gk
+from pim_tpu_torch.tools import bsdf_check as bc
 from pim_tpu_torch.tools import dense_check as dc
 from pim_tpu_torch.tools import prof_frame
 from pim_tpu_torch.tools.cluster_check import aimed_rays, tie_soup
@@ -360,6 +364,7 @@ def test_require_cuda_rejects_bad_inputs(bad):
 def test_build_flags_keep_ieee_float32():
     flags = " ".join(native.NVCC_FLAGS)
     assert "--fmad=false" in flags and "fast_math" not in flags and "sm_90a" in flags
+    assert "bsdf.cu" in native.SOURCES
     assert len(native.source_hash()) == 16
     for src in native.SOURCES:
         with open(f"{native.CSRC}/{src}") as fh:
@@ -378,3 +383,128 @@ def test_build_flags_keep_ieee_float32():
 ])
 def test_prof_frame_sorts_kernels_into_groups(name, group):
     assert prof_frame.kernel_group(name) == group
+
+
+# --- the BSDF kernels (csrc/bsdf.cu); their bits are held on the card by
+# tests/test_torch_bsdf_card.py
+
+
+@pytest.fixture(scope="module")
+def bsdf_lut():
+    return bake_brdf_lut(16, 256)
+
+
+def test_cpu_bsdf_takes_the_plain_form_and_counts_nothing(bsdf_lut):
+    lanes = bc.random_lanes(2048, 11)
+    before = dict(native.launches)
+    calls = []
+    state, scat = bsdf.scatter_principled(bsdf_lut, lanes.surf, lanes.i, lanes.state,
+                                          bc.probe_stub(calls))
+    want_state, want = bsdf.scatter_principled_plain(bsdf_lut, lanes.surf, lanes.i,
+                                                     lanes.state, bc.probe_stub([]))
+    atten, pdf = bsdf.eval_principled(bsdf_lut, lanes.surf, lanes.i, lanes.l)
+    want_a, want_p = bsdf.eval_principled_plain(bsdf_lut, lanes.surf, lanes.i, lanes.l)
+    assert native.launches == before
+    assert len(calls) == 1
+    for a, b in zip((*state, *scat.pos, *scat.dir, *scat.attenuation, scat.pdf, *atten, pdf),
+                    (*want_state, *want.pos, *want.dir, *want.attenuation, want.pdf, *want_a,
+                     want_p)):
+        assert torch.equal(a, b)
+
+
+def _bsdf_call(which, lut, lanes, bad=None):
+    """One BSDF kernel wrapper on CPU lanes, `bad` spoiling its first
+    float input: a float64 copy, half its lanes, or on the meta device."""
+    fields = {"scatter": bsdf.scatter_fields(lanes.surf, lanes.i, lanes.state),
+              "eval": bsdf.eval_fields(lanes.surf, lanes.i, lanes.l)}.get(which)
+    if which == "finish":
+        n = lanes.i.x.shape[0]
+        fields = [torch.zeros(n, dtype=torch.bool), torch.zeros(n), *lanes.surf.albedo,
+                  lanes.surf.roughness]
+    fields = list(fields)
+    k = 1 if which == "finish" else 0
+    fields[k] = {None: fields[k], "dtype": fields[k].double(), "shape": fields[k][::2],
+                 "device": fields[k].to("meta")}[bad]
+    if which == "scatter":
+        return bsdf.bsdf_scatter(lut.texels, fields, True)
+    if which == "eval":
+        return bsdf.bsdf_eval(lut.texels, fields)
+    out = torch.zeros((16, fields[0].shape[0]))
+    return bsdf.bsdf_refract_finish(out, fields[0], fields[1], V3(*fields[2:5]), fields[5])
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "device"])
+@pytest.mark.parametrize("which", ["scatter", "finish", "eval"])
+def test_bsdf_wrappers_reject_bad_inputs(bsdf_lut, which, bad):
+    lanes = bc.random_lanes(64, 3)
+    with pytest.raises((TypeError, ValueError)):
+        _bsdf_call(which, bsdf_lut, lanes, bad)
+
+
+@pytest.mark.parametrize("which", ["scatter", "finish", "eval"])
+def test_bsdf_wrappers_take_only_cuda_tensors(bsdf_lut, which):
+    before = dict(native.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        _bsdf_call(which, bsdf_lut, bc.random_lanes(64, 3))
+    assert native.launches == before
+
+
+def test_bsdf_lut_must_be_a_float32_square_table(bsdf_lut):
+    lanes = bc.random_lanes(64, 3)
+    fields = bsdf.eval_fields(lanes.surf, lanes.i, lanes.l)
+    for lut in (bsdf_lut.texels.double(), bsdf_lut.texels[:, :8], bsdf_lut.texels[..., 0]):
+        with pytest.raises((TypeError, ValueError)):
+            bsdf.bsdf_eval(lut, fields)
+
+
+def test_a_tensor_that_requires_grad_takes_the_plain_form(bsdf_lut):
+    lanes = bc.random_lanes(64, 3)
+    fields = bsdf.scatter_fields(lanes.surf, lanes.i, lanes.state)
+    assert not bsdf.takes_kernels(bsdf_lut, fields)  # on the CPU
+    meta = bsdf_lut._replace(texels=bsdf_lut.texels.to("meta"))
+    assert bsdf.takes_kernels(meta, fields) is False  # not CUDA either
+    grad = [fields[0].clone().requires_grad_()] + fields[1:]
+    assert not bsdf.takes_kernels(bsdf_lut, grad)
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_bsdf_counters_count_only_when_tracing(bsdf_lut, traced):
+    lanes = bc.random_lanes(256, 5)
+    profiler.reset_counters()
+    profiler.set_tracing(traced)
+    try:
+        bsdf.scatter_principled(bsdf_lut, lanes.surf, lanes.i, lanes.state)
+        bsdf.scatter_principled(bsdf_lut, lanes.surf, lanes.i, lanes.state, bc.probe_stub([]))
+        bsdf.eval_principled(bsdf_lut, lanes.surf, lanes.i, lanes.l)
+        counts = profiler.counters()
+    finally:
+        profiler.set_tracing(False)
+        profiler.reset_counters()
+    assert counts == ({"bsdf.calls": 3, "bsdf.kernel": 0} if traced else {})
+
+
+def test_bsdf_edge_lanes_reach_each_edge(bsdf_lut):
+    """The card test's edge lanes hold each case it names: light at or
+    below the horizon, zero pdfs beside positive ones, total internal
+    reflection, refraction entering and leaving, roughness and metallic at
+    0 and 1."""
+    lanes = bc.edge_lanes()
+    s = lanes.surf
+    nol = s.n.x * lanes.l.x + s.n.y * lanes.l.y + s.n.z * lanes.l.z
+    assert (nol <= EPS).any() and (nol > EPS).any()
+    _, pdf = bsdf.eval_principled_plain(bsdf_lut, s, lanes.i, lanes.l)
+    assert (pdf == 0).any() and (pdf > 0).any()
+    _, scat = bsdf.scatter_principled_plain(bsdf_lut, s, lanes.i, lanes.state)
+    assert (scat.pdf <= EPS).any() and (scat.pdf > EPS).any()
+    refr = (s.flags & bsdf._REFRACTIVE) != 0
+    assert (refr & s.backface).any() and (refr & ~s.backface).any()
+    # leaving glass past the critical angle: the refracted ray vanishes
+    k = s.ior / bsdf._ETA_AIR
+    out = refract(lanes.i, s.n, k)
+    tir = (out.x == 0) & (out.y == 0) & (out.z == 0)
+    assert (tir & refr & s.backface).any() and (~tir & refr).any()
+    calls = []
+    bsdf.scatter_principled_plain(bsdf_lut, s, lanes.i, lanes.state, bc.probe_stub(calls))
+    assert calls[0][2].any() and not calls[0][2].all()
+    for x in (s.roughness, s.metallic):
+        assert (x == 0).any() and (x == 1).any()
