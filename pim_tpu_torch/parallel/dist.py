@@ -139,6 +139,15 @@ def global_mesh(device=None) -> Mesh:
     return Mesh(group, rank, dist.get_world_size(), torch.device(device))
 
 
+def local_pixels(mesh: Mesh, n: int):
+    """(this rank's contiguous rank-major rows of the n pixels, their ids
+    on the mesh's device)."""
+    assert n % mesh.size == 0, f"pixels {n} must divide devices {mesh.size}"
+    per = n // mesh.size
+    rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    return rows, torch.arange(rows.start, rows.stop, dtype=torch.int64, device=mesh.device)
+
+
 def replicate(tree, mesh: Mesh):
     """`tree` (tensors in tuples, lists, dicts, NamedTuples and
     dataclasses, such as a built scene) with every tensor on the mesh's

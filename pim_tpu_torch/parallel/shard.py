@@ -11,6 +11,14 @@ Counterpart of `pim_tpu.parallel.shard`, whose `shard_map` over the mesh's
 A pixel's RNG is keyed by its global id, so a pixel traces the same path
 whatever rank traces it.  With no process group initialised, both steps
 are a world of one, as the reference's one-device mesh.
+
+Two train steps run on a mesh, and share `grad_reduce.GradReducer`, the
+gradient average overlapped with the backward:
+  `diff.make_train_step(..., mesh=mesh)`  the deployment's step: Adam over
+      `DiffParams` on each rank, after the ranks' gradients are averaged
+      (the one-card training step, sharded);
+  `make_sharded_train_step`  the JAX package's counterpart, plain SGD
+      p - lr * g, held against `pim_tpu.parallel.shard` by the tests.
 """
 
 from __future__ import annotations
@@ -21,8 +29,10 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from pim_tpu_torch.core import profiler as prof
 from pim_tpu_torch.core import rng
-from pim_tpu_torch.parallel.dist import Mesh, global_mesh
+from pim_tpu_torch.parallel.dist import Mesh, global_mesh, local_pixels
+from pim_tpu_torch.parallel.grad_reduce import GradReducer
 from pim_tpu_torch.render.camera import CameraArrays, generate_primary_rays
 from pim_tpu_torch.render.integrator import trace_rays
 from pim_tpu_torch.render.scene import SceneMeta
@@ -36,14 +46,6 @@ def make_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
         raise ValueError(f"a mesh of {n_devices} devices needs a world of {n_devices} ranks, "
                          f"this one has {mesh.size}")
     return mesh
-
-
-def _local_pixels(mesh: Mesh, n: int):
-    """(this rank's rows of the n pixels, their ids on the mesh's device)."""
-    assert n % mesh.size == 0, f"pixels {n} must divide devices {mesh.size}"
-    per = n // mesh.size
-    rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
-    return rows, torch.arange(rows.start, rows.stop, dtype=torch.int64, device=mesh.device)
 
 
 def _sum_live(live: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -65,7 +67,7 @@ def make_sharded_render_step(meta: SceneMeta, mesh: Mesh, width: int, height: in
     """Returns step(arrays, lights, cam, sample_idx) -> (color, albedo,
     normal, live): this rank's rows ([N / ranks, 3] each) and the light
     histogram delta summed over ranks."""
-    _, pixel_ids = _local_pixels(mesh, width * height)
+    _, pixel_ids = local_pixels(mesh, width * height)
 
     def step(arrays, lights, cam, sample_idx):
         state = rng.make_state(pixel_ids, int(sample_idx) & rng.MASK32)
@@ -76,34 +78,6 @@ def make_sharded_render_step(meta: SceneMeta, mesh: Mesh, width: int, height: in
     return step
 
 
-class _GradReducer:
-    """Averages the leaves' gradients over the mesh, each group in its index
-    order on every rank.  Overlapped (`start` from a post-accumulate hook):
-    a group's all_reduce starts as soon as its gradient and those of every
-    group before it are final, while the backward runs on."""
-
-    def __init__(self, mesh: Mesh, leaves):
-        self.mesh = mesh
-        self.leaves = leaves
-        self.ready = [False] * len(leaves)
-        self.works = []
-
-    def start(self, i: int) -> None:
-        self.ready[i] = True
-        while len(self.works) < len(self.leaves) and self.ready[len(self.works)]:
-            g = self.leaves[len(self.works)].grad
-            self.works.append(dist.all_reduce(g, group=self.mesh.group, async_op=True))
-
-    def finish(self) -> None:
-        for i, p in enumerate(self.leaves):
-            if p.grad is None:  # no gradient reached this group
-                p.grad = torch.zeros_like(p)
-            if not self.ready[i]:
-                self.start(i)
-        for w in self.works:
-            w.wait()
-
-
 def make_sharded_train_step(meta: SceneMeta, mesh: Mesh, width: int, height: int,
                             max_bounces: int = 3, lr: float = 0.05,
                             serialize_reduce: bool = False, sky_steps: int = 16):
@@ -112,7 +86,8 @@ def make_sharded_train_step(meta: SceneMeta, mesh: Mesh, width: int, height: int
     Loss = L2 between the rendered image and a target; parameters = the
     whole `diff.DiffParams` surface.  Per rank: raygen -> trace -> local
     loss -> backward; loss and gradients are averaged over the ranks and
-    `live` summed, then one plain SGD step p - lr * g.
+    `live` summed, then one plain SGD step p - lr * g (the JAX package's
+    counterpart; `diff.make_train_step(..., mesh=mesh)` is the Adam step).
 
     Returns step(params, arrays, lights, cam, target, sample_idx)
         -> (loss, new_params, new_lights), with `target` the whole
@@ -122,19 +97,17 @@ def make_sharded_train_step(meta: SceneMeta, mesh: Mesh, width: int, height: int
     post-accumulate-grad hook while the backward runs on (the overlap the
     reference leaves to XLA's scheduler); True reduces after the whole
     backward, the A/B control.  sky_steps: the view steps of the sky's
-    re-bake inside the render (`diff.make_loss_fn`'s)."""
+    re-bake inside the render (`diff.make_loss_fn`'s).  While tracing,
+    the reduce runs in span `pt.train.reduce`."""
     from pim_tpu_torch.render.diff import DiffParams, make_loss_fn
 
-    rows, pixel_ids = _local_pixels(mesh, width * height)
+    rows, pixel_ids = local_pixels(mesh, width * height)
     loss_fn = make_loss_fn(meta, width, height, max_bounces, sky_steps)
 
     def step(params, arrays, lights, cam, target, sample_idx):
         leaves = [p.detach().clone().requires_grad_(True) for p in params]
-        reducer = _GradReducer(mesh, leaves) if mesh.group is not None else None
-        hooks = []
-        if reducer is not None and not serialize_reduce:
-            hooks = [p.register_post_accumulate_grad_hook(lambda _p, i=i: reducer.start(i))
-                     for i, p in enumerate(leaves)]
+        reducer = GradReducer(mesh, leaves) if mesh.group is not None else None
+        hooks = reducer.hooks() if reducer is not None and not serialize_reduce else []
         try:
             loss, live = loss_fn(DiffParams(*leaves), arrays, lights, cam, target[rows],
                                  sample_idx, pixel_ids)
@@ -148,11 +121,10 @@ def make_sharded_train_step(meta: SceneMeta, mesh: Mesh, width: int, height: int
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
         else:
-            reducer.finish()
-            dist.all_reduce(loss, group=mesh.group)
-            loss = loss / mesh.size
+            with prof.span("pt.train.reduce"):
+                loss = reducer.finish(loss)
         with torch.no_grad():
-            new_params = DiffParams(*(p - lr * (p.grad / mesh.size) for p in leaves))
+            new_params = DiffParams(*(p - lr * p.grad for p in leaves))
         live = _sum_live(live.detach(), mesh)
         return loss, new_params, dataclasses.replace(lights,
                                                      live=(lights.live + live) & rng.MASK32)

@@ -24,7 +24,8 @@ forward, so its atlas gradient is lost there (ROADMAP F6); its CPU
 semantics, which its tests check, are the ones the port follows.
 
 Training is this library API, as in the JAX package: `make_train_step`
-returns (init, step), with `torch.optim.Adam` at optax's defaults.
+returns (init, step), with `torch.optim.Adam` at optax's defaults, on one
+device or data-parallel over a mesh of ranks (its `mesh` argument).
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ import torch
 
 from pim_tpu_torch.core import profiler as prof
 from pim_tpu_torch.core import rng
+from pim_tpu_torch.parallel.dist import local_pixels
+from pim_tpu_torch.parallel.grad_reduce import GradReducer
 from pim_tpu_torch.render import fetch as F
 from pim_tpu_torch.render import lights as L
 from pim_tpu_torch.render.camera import CameraArrays, generate_primary_rays
@@ -173,23 +176,42 @@ def make_loss_fn(meta: SceneMeta, width: int, height: int, max_bounces: int = 3,
 
 def make_train_step(meta: SceneMeta, width: int, height: int, max_bounces: int = 3,
                     sky_steps: int = 16, learning_rate: float = 2e-2,
-                    trainable: Optional[DiffParams] = None):
-    """Single-device inverse-rendering step: Adam over `DiffParams`.
+                    trainable: Optional[DiffParams] = None, mesh=None):
+    """Inverse-rendering step: Adam over `DiffParams`, on one device or
+    data-parallel over a mesh (`parallel.shard.make_mesh`).
 
     trainable: optional DiffParams of bools selecting the groups that are
     updated (default: all).  A frozen group gets a zero gradient, as in the
     JAX package, which leaves it unchanged; its gradient is not computed.
 
+    mesh: None or a world of one traces every pixel, as it always has.  On a
+    world of N ranks each rank traces its contiguous rank-major slice of the
+    pixel ids (the RNG keyed by the global id, so a pixel traces the same
+    path on any rank) and its loss is the mean over its rows; each trainable
+    group's gradient is then averaged over the ranks in place
+    (`parallel.grad_reduce.GradReducer`, each all_reduce started from a
+    post-accumulate-grad hook while the backward runs on), the loss too,
+    and the same Adam step runs on every rank.  After a step `p.grad` holds the whole batch's mean gradient and
+    every rank's parameters are the same bits.  This is the deployment's
+    step; `shard.make_sharded_train_step` is the JAX package's plain-SGD
+    counterpart.  The light histogram (`live`) the render returns is
+    dropped on any world, so the lights are left unchanged.
+
     Returns (init, step):
       init(params) -> opt_state, a `torch.optim.Adam` over the leaves of
         `params` (which must be leaf tensors; they are updated in place);
       step(params, opt_state, arrays, lights, cam, target, sample_idx)
-        -> (loss, params, opt_state).
+        -> (loss, params, opt_state); on a mesh `target` is the whole
+        [width * height, 3] image or this rank's rows of it, and the loss
+        the ranks' mean, the whole batch's.
     Every group gets a gradient (zeros where none reached it) before the
     update, so all of Adam's per-tensor step counts advance together, as
     optax's one count does."""
     loss_fn = make_loss_fn(meta, width, height, max_bounces, sky_steps)
     mask = DiffParams(*([True] * len(DiffParams._fields))) if trainable is None else trainable
+    rows = pixel_ids = None
+    if mesh is not None and mesh.size > 1:
+        rows, pixel_ids = local_pixels(mesh, width * height)
 
     def init(params: DiffParams) -> torch.optim.Adam:
         for p, on in zip(params, mask):
@@ -200,17 +222,31 @@ def make_train_step(meta: SceneMeta, width: int, height: int, max_bounces: int =
     def step(params: DiffParams, opt_state: torch.optim.Adam, arrays, lights, cam, target,
              sample_idx):
         opt_state.zero_grad(set_to_none=True)
-        # pt.train.params (the sky re-bake) nests in the forward: the loss
-        # function applies the parameters
-        with prof.span("pt.train.forward"):
-            loss, _ = loss_fn(params, arrays, lights, cam, target, sample_idx)
-        with prof.span("pt.train.backward"):
-            loss.backward()
+        reducer, hooks = None, []
+        if pixel_ids is not None:
+            reducer = GradReducer(mesh, [p for p in params if p.requires_grad])
+            hooks = reducer.hooks()
+            if target.shape[0] == width * height:
+                target = target[rows]
+        try:
+            # pt.train.params (the sky re-bake) nests in the forward: the loss
+            # function applies the parameters
+            with prof.span("pt.train.forward"):
+                loss, _ = loss_fn(params, arrays, lights, cam, target, sample_idx, pixel_ids)
+            with prof.span("pt.train.backward"):
+                loss.backward()
+        finally:
+            for h in hooks:
+                h.remove()
+        loss = loss.detach()
+        if reducer is not None:
+            with prof.span("pt.train.reduce"):
+                loss = reducer.finish(loss)
         with prof.span("pt.train.adam"):
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             opt_state.step()
-        return loss.detach(), params, opt_state
+        return loss, params, opt_state
 
     return init, step

@@ -24,6 +24,18 @@ lights; the JAX side is its `brute` backend, as tests/test_shard.py.
   loss within rtol 1e-3 and the update along each of test_torch_diff.py's
   Cornell directions within rtol 1e-3 (its gradient tolerance), `live`
   equal.
+- The deployment's Adam step (`diff.make_train_step(mesh=...)`, 16^2 on the
+  two-rank world and 24 x 16 on a world of three, 2 bounces, lr 0.05, all
+  six groups, three steps at samples 0-2): each step's loss, gradient and
+  update equal the one-rank whole-batch step's within rtol 1e-5 plus 1e-5
+  of a group's largest (as the SGD step's); the first step's update equals
+  the JAX package's whole-batch Adam step's (`pim_tpu.render.diff.
+  make_train_step`, optax) at that tolerance, its loss within rtol 1e-4
+  (not later steps: once the first has moved metalness off 0, the JAX
+  package's roughness gradient is NaN, the port's finite); every rank holds the same parameter bits; the
+  ranks' loss shares, each over N, add up to the whole batch's loss; while
+  tracing, one step issues seven all-reduces of the six groups' and the
+  loss's bytes.  A world-of-one mesh gives `mesh=None`'s bits.
 - Bake: a Cornell lightmap (1 texel/m: 4,096 texels, 2,048 a rank), 3
   bounces, 2 passes, sharded over the texel axis and gathered with
   `allgather_rows`: probes and sample counts bit for bit the whole bake.
@@ -73,6 +85,8 @@ SAMPLES = (0, 5)
 TRAIN_BOUNCES = 2
 LR = 0.05
 BAKE_BOUNCES = 3
+ADAM_SAMPLES = (0, 1, 2)
+W3 = 24  # a world of three: 24 x 16 pixels, 128 a rank
 BAKE_FRAMES = (0, 1)
 BAKE_DENSITY = 1.0
 WORLD_TIMEOUT_S = 120
@@ -81,10 +95,10 @@ DIRECTIONS = {"albedo": (0, slice(0, 3)), "roughness": (1, slice(0, 1)),
               "emission": (1, slice(3, 4)), "camera": (5, None)}
 
 
-def _jax_camera():
+def _jax_camera(width: int = W):
     c = jcam.Camera(position=np.array([-4, 0, 4], np.float32))
     c.look_at([0, -1, 0])
-    return jcam.camera_arrays(c, jcam.DofInfo(autofocus=False), W, H)
+    return jcam.camera_arrays(c, jcam.DofInfo(autofocus=False), width, H)
 
 
 def _port_scene(jax_scene):
@@ -107,6 +121,51 @@ def _lightmap_pack():
     flat = flatten(build_cornell_box("boxes")[0])
     return lightmap.pack_lightmaps(flat.positions, flat.normals, texels_per_meter=BAKE_DENSITY,
                                    device="cpu")
+
+
+def _adam_runs(meta, arrays, lights, mesh, width: int) -> dict:
+    """This rank's view of `diff.make_train_step(mesh=mesh)` over
+    ADAM_SAMPLES: each step's loss, gradients and parameters; the loss of
+    its own rows at the first step's parameters; and the counters of one
+    traced step."""
+    from pim_tpu_torch.core import profiler as prof
+
+    cam = app.bench_camera("cornell", width, H)
+    target = torch.zeros((width * H, 3), dtype=torch.float32)
+    params = diff.extract_params(meta, arrays, cam)
+    init, step = diff.make_train_step(meta, width, H, TRAIN_BOUNCES, learning_rate=LR,
+                                      mesh=mesh)
+    rows, ids = pdist.local_pixels(mesh, width * H)
+    share = diff.make_loss_fn(meta, width, H, TRAIN_BOUNCES)(
+        params, arrays, lights, cam, target[rows], ADAM_SAMPLES[0], ids)[0]
+    opt = init(params)
+    out = {"start": [p.detach().numpy().copy() for p in params], "share": float(share),
+           "steps": []}
+    for s in ADAM_SAMPLES:
+        loss, params, opt = step(params, opt, arrays, lights, cam, target, s)
+        out["steps"].append({"loss": float(loss),
+                             "grads": [p.grad.numpy().copy() for p in params],
+                             "params": [p.detach().numpy().copy() for p in params]})
+    prof.reset_counters()
+    prof.set_tracing(True)
+    try:
+        step(params, opt, arrays, lights, cam, target[rows], ADAM_SAMPLES[0])
+        out["counters"] = prof.counters()
+    finally:
+        prof.set_tracing(False)
+        prof.reset_counters()
+    return out
+
+
+def _adam_rank_job(out_dir: str, ranks: int, width: int) -> None:
+    """One rank of a world of `ranks`: `_adam_runs`, saved to
+    out_dir/adam<ranks>_rank<r>.pt."""
+    torch.set_num_threads(1)
+    os.environ["PIM_DIST_INIT_S"] = str(WORLD_TIMEOUT_S)
+    info = pdist.init_distributed(device="cpu")
+    meta, arrays, lights = torch.load(os.path.join(out_dir, "scene.pt"), weights_only=False)
+    out = _adam_runs(meta, arrays, lights, shard.make_mesh(ranks, "cpu"), width)
+    torch.save(out, os.path.join(out_dir, f"adam{ranks}_rank{info.process_id}.pt"))
 
 
 def _rank_job(out_dir: str) -> None:
@@ -135,6 +194,8 @@ def _rank_job(out_dir: str) -> None:
         out[f"train{int(serialize)}"] = {"loss0": float(loss0), "loss1": float(loss1),
                                          "params": [x.numpy() for x in p1],
                                          "live": l1.live.numpy()}
+
+    out["adam"] = _adam_runs(meta, arrays, lights, mesh, W)
 
     pack = _lightmap_pack()
     off, cnt, per = scaling_worker.shard_range(pack.position.shape[1], info.process_id, RANKS)
@@ -287,6 +348,133 @@ def test_sharded_train_step_matches_the_jax_sharded_step(ranks, jax_runs):
         got = np.sum((run["params"][gi] - jp0[gi]).astype(np.float64)[..., cols])
         assert abs(want) > 1e-10 and abs(got - want) <= 1e-3 * abs(want), (name, got, want)
     np.testing.assert_array_equal(run["live"], jlive)
+
+
+@pytest.fixture(scope="module")
+def adam_worlds(ranks, port_scene, tmp_path_factory):
+    """{ranks: [each rank's `_adam_runs`]} of the two-rank world and of a
+    world of three spawned for it."""
+    out_dir = str(tmp_path_factory.mktemp("world3"))
+    torch.save(port_scene, os.path.join(out_dir, "scene.pt"))
+    dryrun.spawn_world(3, _adam_rank_job, (out_dir, 3, W3), threads=1)
+    return {RANKS: [r["adam"] for r in ranks],
+            3: [torch.load(os.path.join(out_dir, f"adam3_rank{r}.pt"), weights_only=False)
+                for r in range(3)]}
+
+
+def _one_rank_adam(port_scene, width: int):
+    """The one-rank whole-batch Adam step over ADAM_SAMPLES: each step's
+    (loss, gradients, parameters)."""
+    meta, arrays, lights = port_scene
+    cam = app.bench_camera("cornell", width, H)
+    params = diff.extract_params(meta, arrays, cam)
+    init, step = diff.make_train_step(meta, width, H, TRAIN_BOUNCES, learning_rate=LR)
+    opt = init(params)
+    out = []
+    for s in ADAM_SAMPLES:
+        loss, params, opt = step(params, opt, arrays, lights, cam,
+                                 torch.zeros((width * H, 3)), s)
+        out.append((float(loss), [p.grad.numpy().copy() for p in params],
+                    [p.detach().numpy().copy() for p in params]))
+    return out
+
+
+def _close(got, want, what):
+    want = np.asarray(want, np.float64)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max() + 1e-12,
+                               err_msg=what)
+
+
+def _width(world_size: int) -> int:
+    return W if world_size == RANKS else W3
+
+
+@pytest.mark.parametrize("world_size", [RANKS, 3])
+def test_the_adam_step_on_a_mesh_equals_the_one_rank_step(adam_worlds, port_scene, world_size):
+    want = _one_rank_adam(port_scene, _width(world_size))
+    run = adam_worlds[world_size][0]
+    before = run["start"]
+    for k, (got, (wloss, wgrads, wparams)) in enumerate(zip(run["steps"], want)):
+        np.testing.assert_allclose(got["loss"], wloss, rtol=1e-5, err_msg=f"loss {k}")
+        wbefore = before if k == 0 else want[k - 1][2]
+        for name, g, wg, p, wp, b, wb in zip(diff.DiffParams._fields, got["grads"], wgrads,
+                                             got["params"], wparams, before, wbefore):
+            _close(g, wg, f"{name} gradient, step {k}")
+            _close(p - b, wp - wb, f"{name} update, step {k}")
+        before = got["params"]
+    moved = run["steps"][-1]["params"][0] - run["start"][0]
+    assert np.abs(moved).max() > 0.0
+
+
+@pytest.mark.parametrize("world_size", [RANKS, 3])
+def test_the_adam_step_on_a_mesh_equals_the_jax_whole_batch_step(adam_worlds, jax_scene,
+                                                                 world_size):
+    width = _width(world_size)
+    jm, ja, jl = jax_scene
+    cam = _jax_camera(width)
+    params = jdiff.extract_params(jm, ja, cam)
+    init, step = jdiff.make_train_step(jm, width, H, TRAIN_BOUNCES, learning_rate=LR)
+    loss, p1, _ = jax.block_until_ready(step(params, init(params), ja, jl, cam,
+                                             jnp.zeros((width * H, 3), jnp.float32),
+                                             jnp.uint32(ADAM_SAMPLES[0])))
+    run = adam_worlds[world_size][0]
+    got = run["steps"][0]
+    np.testing.assert_allclose(got["loss"], float(loss), rtol=1e-4)
+    for name, p, b, jp, jb in zip(diff.DiffParams._fields, got["params"], run["start"], p1,
+                                  params):
+        np.testing.assert_array_equal(b, np.asarray(jb), err_msg=f"{name} start")
+        _close(p - b, np.asarray(jp) - np.asarray(jb), f"{name} update")
+    assert np.abs(got["params"][0] - run["start"][0]).max() > 0.0
+
+
+@pytest.mark.parametrize("world_size", [RANKS, 3])
+def test_the_adam_step_leaves_every_rank_the_same_bits(adam_worlds, world_size):
+    runs = adam_worlds[world_size]
+    for other in runs[1:]:
+        for a, b in zip(runs[0]["steps"], other["steps"]):
+            assert a["loss"] == b["loss"]
+            for x, y in zip(a["params"] + a["grads"], b["params"] + b["grads"]):
+                np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("world_size", [RANKS, 3])
+def test_the_ranks_loss_shares_add_up_to_the_whole_loss(adam_worlds, port_scene, world_size):
+    runs = adam_worlds[world_size]
+    whole = _one_rank_adam(port_scene, _width(world_size))[0][0]
+    shares = [r["share"] for r in runs]
+    assert len(set(shares)) == world_size  # each rank its own rows
+    np.testing.assert_allclose(sum(x / world_size for x in shares), whole, rtol=1e-6)
+    np.testing.assert_allclose(runs[0]["steps"][0]["loss"], whole, rtol=1e-6)
+
+
+@pytest.mark.parametrize("world_size", [RANKS, 3])
+def test_a_traced_adam_step_counts_its_all_reduces(adam_worlds, port_scene, world_size):
+    meta, arrays, _ = port_scene
+    params = diff.extract_params(meta, arrays, app.bench_camera("cornell", W, H))
+    nbytes = sum(p.numel() * p.element_size() for p in params) + 4  # and the loss
+    for r in adam_worlds[world_size]:
+        reduce = {k: v for k, v in r["counters"].items() if k.startswith("reduce.")}
+        assert reduce == {"reduce.calls": 7, "reduce.bytes": nbytes}
+
+
+def test_a_world_of_one_mesh_is_the_one_device_step(port_scene):
+    meta, arrays, lights = port_scene
+    cam = app.bench_camera("cornell", W, H)
+    runs = []
+    for mesh in (None, shard.make_mesh(1, "cpu")):
+        params = diff.extract_params(meta, arrays, cam)
+        init, step = diff.make_train_step(meta, W, H, TRAIN_BOUNCES, learning_rate=LR,
+                                          mesh=mesh)
+        opt = init(params)
+        out = []
+        for s in ADAM_SAMPLES[:2]:
+            loss, params, opt = step(params, opt, arrays, lights, cam, torch.zeros((W * H, 3)), s)
+            out.append([loss.numpy()] + [p.detach().numpy().copy() for p in params]
+                       + [p.grad.numpy().copy() for p in params])
+        runs.append(out)
+    for a, b in zip(*runs):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
 
 
 def test_sharded_bake_equals_the_whole_bake(ranks, port_scene):
