@@ -72,6 +72,14 @@ exits non-zero:
      and on the first scatter and eval calls of one e1m1 512^2, 10-bounce
      step, each timed there beside its byte bound and the plain form's
      wall (the plain form's thickness probe a stub: its hits given);
+     the sky kernels (sky_bake, and sky_bake_bwd with sky_grad_sum) against
+     the plain form on e1m1's cube as the serving bake and the training
+     step take it, on an earth_sky fan and on a 4^2 cube (the values whose
+     bits differ, none where the 96-step sums follow torch.sum's order, and
+     the largest relative gap, at most 1e-6), the backward against autograd
+     of the plain form (rtol 1e-4) and twice to the same bits, each timed
+     on the training cube beside its operation bound and the plain form's
+     wall;
      the 128^2, 16-spp frame gated by the CPU-anchored `e1m1_128`
      band of pim_tpu_torch/render/gate_bands.json (the 512^2 mean is printed
      beside the reference's TPU drift band, for information only); a 32^2,
@@ -613,6 +621,7 @@ CORNELL_KERNELS = ("dense_isect", "dense_anyhit", "gather_cols")
 E1M1_KERNELS = ("cluster_isect", "cluster_anyhit", "gather_bilinear")
 TRAIN_KERNELS = ("gather_cols_bwd", "gather_texels", "gather_texels_bwd")
 BSDF_KERNELS = ("bsdf_scatter", "bsdf_refract_finish", "bsdf_eval")
+SKY_KERNELS = ("sky_bake", "sky_bake_bwd")
 # the main paths that run each kernel
 CORNELL_BAKES = ("cornell_lightmap", "cornell_refl", "cornell_light_probe")
 E1M1_BAKES = ("e1m1_lightmap", "e1m1_lightmap_compacted", "e1m1_refl", "e1m1_light_probe")
@@ -637,6 +646,10 @@ PATHS = {
     "bsdf_scatter": ("cornell", "e1m1", "cornell_shell", "e1m1_shell"),
     "bsdf_refract_finish": ("e1m1", "e1m1_shell"),
     "bsdf_eval": ("cornell", "e1m1", "cornell_shell", "e1m1_shell"),
+    # the e1m1 build bakes the sky; the training step re-bakes it
+    "sky_bake": ("e1m1", "e1m1_train", "e1m1_shell"),
+    "sky_bake_bwd": ("e1m1_train",),
+    "sky_grad_sum": ("e1m1_train",),
 }
 # phase 8's paths and the kernels each must launch (added to PATHS)
 PAR_KERNELS = {
@@ -690,6 +703,9 @@ SOURCES = {
     "bsdf_scatter": ("pim_tpu_torch/csrc/bsdf.cu", "pim_tpu/render/bsdf.py:126"),
     "bsdf_refract_finish": ("pim_tpu_torch/csrc/bsdf.cu", "pim_tpu/render/bsdf.py:173"),
     "bsdf_eval": ("pim_tpu_torch/csrc/bsdf.cu", "pim_tpu/render/bsdf.py:107"),
+    # not TPU kernels: the JAX package's march is a lax.scan
+    "sky_bake": ("pim_tpu_torch/csrc/sky.cu", "pim_tpu/render/sky.py:70"),
+    "sky_bake_bwd": ("pim_tpu_torch/csrc/sky.cu", "pim_tpu/render/sky.py:70"),
 }
 
 
@@ -1523,6 +1539,105 @@ def check_bsdf(dev, scene) -> dict:
     return rows
 
 
+SKY_GRAD_SEED = 1_414_213_562  # the incoming gradient of the sky backward's check
+SKY_PLAIN_RUNS = 3             # the plain form's bake takes seconds a call
+
+
+def _wall_timing(setup, fn, runs: int) -> dict:
+    """`_timing`'s dict for a function that waits on the device itself: the
+    wall of `fn(setup())` from an idle device, CUDA events around `fn`
+    alone, `runs` times after a warm-up."""
+    import torch
+
+    fn(setup())
+    times = []
+    for _ in range(runs):
+        arg = setup()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(arg)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    med = statistics.median(times)
+    return dict(ms=med, ms_range=(min(times), max(times)), call=(med, min(times), max(times)))
+
+
+def check_sky(dev) -> dict:
+    """The sky kernels against the plain form on the card: the forward on
+    `tools/sky_check.py`'s cases (the values whose bits differ, and the
+    largest relative gap, at most 1e-6), the backward against autograd of the
+    plain form (rtol 1e-4) and twice to the same bits; both timed on the
+    training step's cube beside their operation bounds (each density
+    evaluation the march needs, `tools/sky_check.py`) and the plain form's
+    wall.  Returns the two kernel rows."""
+    import torch
+
+    from pim_tpu_torch import native
+    from pim_tpu_torch.render import sky
+    from pim_tpu_torch.tools import sky_check as sc
+
+    gaps = {}
+    for case in sc.cases(dev):
+        before = native.launches["sky_bake"]
+        got = sc.kernel_out(case)
+        torch.cuda.synchronize()
+        if native.launches["sky_bake"] != before + 1:
+            raise AssertionError(f"sky {case.label}: sky_bake did not launch once")
+        differ, gap = sc.forward_gap(got, sc.plain_out(case))
+        gaps[case.label] = gap
+        print(f"sky_bake {case.label} ({case.rd.x.shape[0]} directions, {case.steps} steps): "
+              f"{differ} of {got.numel()} values differ, largest relative gap {gap:.3e}")
+        if gap > 1e-6:
+            raise AssertionError(f"sky_bake {case.label}: relative gap {gap} above 1e-6")
+    case = sc.cases(dev)[1]
+    g = sc.cube_grad(case, SKY_GRAD_SEED)
+    got, again = sc.kernel_grads(case, g), sc.kernel_grads(case, g)
+    want = sc.plain_grads(case, g)
+    bwd_gap = 0.0
+    for name, a, b, c in zip(("light_dir", "luminance"), got, want, again):
+        bwd_gap = max(bwd_gap, float(((a - b).abs() / b.abs()).max()))
+        print(f"sky_bake_bwd {name}: kernel {a.tolist()}, autograd of the plain form "
+              f"{b.tolist()}; two runs {'the same bits' if _bits_equal(a, c) else 'DIFFER'}")
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * float(b.abs().max()))
+        if not _bits_equal(a, c):
+            raise AssertionError(f"sky_bake_bwd {name}: two runs give other bits")
+
+    med = sky.earth_atmosphere()
+    ld, lum = case.light_dir.detach(), case.luminance.detach()
+    consts, trips = sky.sky_consts(med, case.ro, case.steps), sky.steps_to_trips(case.steps)
+    work = sc.work(case)
+    evals = work["view"] + work["sun"]
+    print(f"sky march of the training cube: {work['view']} view samples, {work['sun']} sun-march "
+          f"density evaluations (of {trips * sky.SUN_STEPS * case.rd.x.shape[0]} at most)")
+    n_bytes = case.rd.x.shape[0] * 4 * 6 + 6 * 4  # directions in, [3, D] out, sun and luminance
+    rows = {}
+    k, p = _time_pair("sky_bake e1m1 training cube",
+                      lambda: sky.sky_bake(case.rd, ld, lum, consts, trips),
+                      lambda: sky.atmosphere_plain(med, case.ro, case.rd, ld, lum, case.steps),
+                      plain_runs=SKY_PLAIN_RUNS, plain_queued=False)
+    rows["sky_bake"] = _row(max(gaps.values()), k, p, _bound(n_bytes, evals * sc.EVAL_FLOPS))
+    k = _timing(lambda: sky.sky_bake_bwd(case.rd, ld, lum, consts, trips, g))
+
+    def plain_graph():
+        out = sc.plain_out(case)
+        return (out * g).sum()
+
+    p = _wall_timing(plain_graph,
+                     lambda loss: torch.autograd.grad(loss, [case.light_dir, case.luminance]),
+                     SKY_PLAIN_RUNS)
+    print(f"sky_bake_bwd e1m1 training cube (with sky_grad_sum): kernel {_fmt(k)}; plain "
+          f"autograd backward {_fmt(p)} ({SKY_PLAIN_RUNS} runs)")
+    rows["sky_bake_bwd"] = _row(bwd_gap, k, p, _bound(n_bytes + 3 * 4 * case.rd.x.shape[0],
+                                                      evals * sc.EVAL_FLOPS_BWD))
+    for name, row in rows.items():
+        print(f"{name}: {row['ms']:.4f} ms device a call, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms wall")
+    return rows
+
+
 def run_e1m1(dev):
     """Phase 4; returns (kernel rows, launches of the main path, the scene,
     the main-path indices of K3 and K7)."""
@@ -1552,6 +1667,7 @@ def run_e1m1(dev):
 
     kernels, main_idx = check_e1m1_kernels(dev, scene)
     kernels.update(check_bsdf(dev, scene))
+    kernels.update(check_sky(dev))
     time_e1m1_build(dev, scene)
 
     lo, hi = _band("pim_tpu_torch/render/gate_bands.json", "e1m1_128")
@@ -3607,7 +3723,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": sum(launches[name].values()),
          "launches_by_path": launches[name], **kernels[name]}
-        for name in CORNELL_KERNELS + E1M1_KERNELS + TRAIN_KERNELS + MT_KERNELS + BSDF_KERNELS]}
+        for name in CORNELL_KERNELS + E1M1_KERNELS + TRAIN_KERNELS + MT_KERNELS + BSDF_KERNELS
+        + SKY_KERNELS]}
     print(json.dumps(report))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

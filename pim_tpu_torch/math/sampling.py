@@ -211,11 +211,17 @@ _MIE_K = f32(np.float32(3.0) / (np.float32(8.0) * np.float32(PI)))
 _RAYLEIGH_K = f32(np.float32(3.0) / (np.float32(16.0) * np.float32(PI)))
 
 
-def mie_phase(cos_theta, g: float):
-    """Mie phase function (Cornette-Shanks); g a float32 constant."""
+def mie_constants(g: float):
+    """`mie_phase`'s float32 constants (k, 1 + g^2, 2 g) for a float32 g."""
     g = np.float32(g)
     k = f32(np.float32(_MIE_K) * (np.float32(1.0) - g * g) / (np.float32(2.0) + g * g))
-    l = f32(1.0 + g * g) - f32(2.0 * g) * cos_theta
+    return k, f32(1.0 + g * g), f32(2.0 * g)
+
+
+def mie_phase(cos_theta, g: float):
+    """Mie phase function (Cornette-Shanks); g a float32 constant."""
+    k, a, b = mie_constants(g)
+    l = a - b * cos_theta
     l = l * torch.sqrt(torch.clamp_min(l, EPS_SQ))
     return k * (1.0 + cos_theta * cos_theta) / torch.clamp_min(l, EPS)
 

@@ -37,13 +37,13 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("dense_isect.cu", "gather_cols.cu", "cluster_isect.cu", "gather_bilinear.cu",
-           "gather_texels.cu", "mt_isect.cu", "bsdf.cu")
+           "gather_texels.cu", "mt_isect.cu", "bsdf.cu", "sky.cu")
 HEADERS = ("gather_tiles.cuh",)  # included by the sources; in the build hash
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "pim_tpu_torch")
 LIB_NAME = "libpim_tpu_torch.so"
 # --fmad=false: the intersection kernels must round every product and sum
 # as separate float32 operations (no fused multiply-add), as the reference;
-# the BSDF kernels as PyTorch's one-op kernels do.
+# the BSDF and sky kernels as PyTorch's one-op kernels do.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -55,6 +55,7 @@ launches: Dict[str, int] = {
     "gather_texels": 0, "gather_texels_bwd": 0,
     "brute_isect": 0, "brute_anyhit": 0, "bvh_isect": 0, "bvh_anyhit": 0,
     "bsdf_scatter": 0, "bsdf_refract_finish": 0, "bsdf_eval": 0,
+    "sky_bake": 0, "sky_bake_bwd": 0, "sky_grad_sum": 0,
 }
 
 
@@ -197,6 +198,16 @@ def bind(lib) -> None:
     # the pointer table, lut, lut size, n, out, stream
     lib.pim_bsdf_eval.argtypes = [p, p, i, ll, p, p]
     lib.pim_bsdf_eval.restype = i
+    # directions x/y/z, light_dir, luminance, the constants, trips, split, n,
+    # out, stream
+    lib.pim_sky_bake.argtypes = [p] * 6 + [i, i, ll, p, p]
+    lib.pim_sky_bake.restype = i
+    # as pim_sky_bake to n, then grad, partial, stream
+    lib.pim_sky_bake_bwd.argtypes = [p] * 6 + [i, i, ll, p, p, p]
+    lib.pim_sky_bake_bwd.restype = i
+    # partial, n, out, stream
+    lib.pim_sky_grad_sum.argtypes = [p, ll, p, p]
+    lib.pim_sky_grad_sum.restype = i
     lib.pim_cuda_error_string.argtypes = [i]
     lib.pim_cuda_error_string.restype = ctypes.c_char_p
 

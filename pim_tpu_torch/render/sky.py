@@ -2,18 +2,24 @@
 cubemap fetch (K6, or K7 on the differentiable path).
 
 Counterpart of `pim_tpu.render.sky`.  The bake marches every texel's view
-ray in fixed steps (the reference's masked `lax.scan`, a Python loop here);
-the sun march from each view sample is done for all its 96 steps at once,
-with its liveness as a running product, so the loop holds only the view
-steps.  The step positions are the reference's repeated float32 sums of the
-step length, formed on the host.
-
-The bake is differentiable in the sun's direction and luminance when they
-are given as tensors (the differentiable path re-bakes the cube in every
-step); each view step's 96-step sun march is then recomputed in the
+ray in fixed steps (the reference's masked `lax.scan`) with a 96-step sun
+march from each view sample.  Two forms compute it, dispatched on the
+directions' device.  On a CUDA card, `atmosphere` launches csrc/sky.cu's
+`sky_bake` (one block a direction; the march positions formed in the
+kernel, the cube's directions cached on the device, so a bake neither
+copies nor syncs) and, for the sun's direction and luminance given as
+tensors that require grad, its hand-written backward (`sky_bake_bwd`,
+forward-mode tangents of each sun march, and `sky_grad_sum`, the
+directions summed in a fixed order).  On the CPU it runs
+`atmosphere_plain`, PyTorch ops: a Python loop over the view steps, each
+step's sun march all at once with its liveness as a running product, the
+step positions the reference's repeated float32 sums, formed on the host;
+autograd differentiates it, recomputing each view step's sun march in the
 backward (`torch.utils.checkpoint`) instead of keeping its [96, 6*S*S]
-intermediates.  Given as floats, as the serving bake does, the cube is the
-same as before, bit for bit.
+intermediates.  On the card the two agree bit for bit (the kernels add a
+sun march's 96 steps in torch.sum's order, `torch_sum_split`;
+tests/test_torch_sky_card.py); `atmosphere_plain_vjp` is the backward's
+arithmetic in plain ops, for the CPU tests.
 
 The cubemap [6, S, S, 3] is fetched through K6 with C = 3 from [12, 6*S*S]
 corner planes (`sky_corner_planes`, the reference's slice-shifts, clamped
@@ -26,17 +32,21 @@ reference runs it as XLA ops too, outside Pallas).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import ctypes
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from pim_tpu_torch.math.sampling import mie_phase, rayleigh_phase
-from pim_tpu_torch.math.vec3 import EPS, V3, f32
+from pim_tpu_torch import native
+from pim_tpu_torch.core import profiler as prof
+from pim_tpu_torch.math.sampling import _RAYLEIGH_K, mie_constants, mie_phase, rayleigh_phase
+from pim_tpu_torch.math.vec3 import EPS, EPS_SQ, V3, f32
 from pim_tpu_torch.render.table_gather import gather_bilinear, gather_texels
 
-# fixed trip counts of the masked marches (the reference's)
+# fixed trip counts of the masked marches (the reference's; SUN_STEPS is
+# csrc/sky.cu's kSunSteps too)
 VIEW_STEPS = 224
 SUN_STEPS = 96
 _MIN_DENSITY = f32(1e-5)
@@ -95,6 +105,12 @@ def _march_positions(mfp: np.float32, n: int) -> np.ndarray:
     return out
 
 
+def _march_step(sky: SkyMedium, steps: int) -> np.float32:
+    """The march's step length (the reference's)."""
+    majorant = np.float32(max(sky.mu_m, max(sky.mu_r))) * np.float32(steps)
+    return np.float32(-np.log(np.float32(0.5))) / majorant
+
+
 def _components(x):
     """3 floats (a float is repeated), or the 3 elements of a [3] tensor."""
     if isinstance(x, torch.Tensor):
@@ -103,32 +119,52 @@ def _components(x):
     return [float(a)] * 3 if a.ndim == 0 else [float(v) for v in a]
 
 
+def _density(sky: SkyMedium, px, py, pz):
+    """(squared norm, h, rayleigh density, mie density) at the points."""
+    # |p| - r_crust cancels ~7 digits at the crust.  The squared norm is
+    # formed as the reference's compiled code forms it, with fused
+    # multiply-adds (x*x, then fma(y, y, .), then fma(z, z, .)), done
+    # exactly in float64 and rounded once each; separate float32 ops
+    # move h by ~0.5 m and the bake by up to 5e-5.
+    s = ((px * px).double() + py.double() * py.double()).float()
+    s = (s.double() + pz.double() * pz.double()).float()
+    h = torch.sqrt(torch.clamp_min(s, EPS)) - float(sky.r_crust)
+    dr = torch.exp(torch.clamp_max(-h * sky.rho_r, 0.0))
+    dm = torch.exp(torch.clamp_max(-h * sky.rho_m, 0.0))
+    return s, h, dr, dm
+
+
 def atmosphere(sky: SkyMedium, ro, rd: V3, light_dir, luminance, steps: int) -> V3:
     """Single-scatter march.  ro: 3 floats (planet centre at the origin);
     rd: V3 of [D] unit directions; light_dir: 3 floats or a [3] tensor;
     luminance: a float, 3 floats or a [3] tensor.  Returns V3 [D],
-    differentiable in the tensors given."""
+    differentiable in the tensors given.
+
+    Directions on a CUDA card take csrc/sky.cu's kernels (one launch, two
+    more for the backward), bit for bit the plain form there; directions
+    on the CPU the plain form (`atmosphere_plain`)."""
+    kernel = rd.x.device.type == "cuda"
+    if prof.tracing():
+        prof.count("sky.calls", 1)
+        prof.count("sky.kernel", int(kernel))
+    if not kernel:
+        return atmosphere_plain(sky, ro, rd, light_dir, luminance, steps)
+    dev = rd.x.device
+    out = _Atmosphere.apply(rd.x, rd.y, rd.z, _device3(light_dir, dev),
+                            _device3(luminance, dev), sky_consts(sky, ro, steps),
+                            steps_to_trips(steps))
+    return V3(out[0], out[1], out[2])
+
+
+def atmosphere_plain(sky: SkyMedium, ro, rd: V3, light_dir, luminance, steps: int) -> V3:
+    """`atmosphere` composed of PyTorch ops: the view steps a Python loop,
+    each step's sun march all at once, with its liveness as a running
+    product; differentiable by autograd."""
     dev = rd.x.device
     ld = _components(light_dir)
     lum = _components(luminance)
-    majorant = np.float32(max(sky.mu_m, max(sky.mu_r))) * np.float32(steps)
-    mfp = np.float32(-np.log(np.float32(0.5))) / majorant
+    mfp = _march_step(sky, steps)
     mfp_f = float(mfp)
-    r_crust = float(sky.r_crust)
-
-    def density(px, py, pz):
-        # |p| - r_crust cancels ~7 digits at the crust.  The squared norm is
-        # formed as the reference's compiled code forms it, with fused
-        # multiply-adds (x*x, then fma(y, y, .), then fma(z, z, .)), done
-        # exactly in float64 and rounded once each; separate float32 ops
-        # move h by ~0.5 m and the bake by up to 5e-5.
-        s = ((px * px).double() + py.double() * py.double()).float()
-        s = (s.double() + pz.double() * pz.double()).float()
-        h = torch.sqrt(torch.clamp_min(s, EPS)) - r_crust
-        dr = torch.exp(torch.clamp_max(-h * sky.rho_r, 0.0))
-        dm = torch.exp(torch.clamp_max(-h * sky.rho_m, 0.0))
-        return h, dr, dm
-
     t_sun = torch.from_numpy(_march_positions(mfp, SUN_STEPS)).to(dev)[:, None]  # [96, 1]
     sun_x = t_sun * ld[0]
     sun_y = t_sun * ld[1]
@@ -137,7 +173,8 @@ def atmosphere(sky: SkyMedium, ro, rd: V3, light_dir, luminance, steps: int) -> 
 
     def sun_march(px, py, pz):
         """Optical depth toward the sun from each [D] point, all steps at once."""
-        h, dr, dm = density(px[None, :] + sun_x, py[None, :] + sun_y, pz[None, :] + sun_z)
+        _, h, dr, dm = _density(sky, px[None, :] + sun_x, py[None, :] + sun_y,
+                                pz[None, :] + sun_z)
         crust = h < 0.0
         step_live = torch.cumprod((~crust & ((dr + dm) >= _MIN_DENSITY)).to(torch.int32),
                                   dim=0) > 0                                    # [96, D]
@@ -156,7 +193,7 @@ def atmosphere(sky: SkyMedium, ro, rd: V3, light_dir, luminance, steps: int) -> 
     ox, oy, oz = (float(c) for c in ro)
     for t_v in _march_positions(mfp, steps_to_trips(steps)).tolist():
         px, py, pz = ox + rd.x * t_v, oy + rd.y * t_v, oz + rd.z * t_v
-        h, dr, dm = density(px, py, pz)
+        _, h, dr, dm = _density(sky, px, py, pz)
         live = live & (h >= 0.0) & ((dr + dm) >= _MIN_DENSITY)
         od_r_i = dr * mfp_f
         od_m_i = dm * mfp_f
@@ -180,6 +217,215 @@ def atmosphere(sky: SkyMedium, ro, rd: V3, light_dir, luminance, steps: int) -> 
     out = [(tr_r[c] * sky.mu_r[c] * ph_r + tr_m[c] * (sky.mu_m * ph_m)) * lum[c]
            for c in range(3)]
     return V3(*out)
+
+
+def atmosphere_plain_vjp(sky: SkyMedium, ro, rd: V3, light_dir, luminance, steps: int,
+                         grad: V3):
+    """d <grad, atmosphere(...)> / d (light_dir, luminance): two [3] float64
+    tensors, by the arithmetic of csrc/sky.cu's backward in plain PyTorch
+    ops: the float32 march as `atmosphere_plain` forms it, and float64
+    forward-mode tangents of each sun march in the three components of the
+    sun's direction (a clamp passes the gradient where its bound does not
+    act, a liveness mask passes none, as autograd of the plain form)."""
+    dev = rd.x.device
+    ld = [float(v) for v in _components(light_dir)]
+    lum = [float(v) for v in _components(luminance)]
+    mfp = _march_step(sky, steps)
+    mfp_f = float(mfp)
+    t_sun = torch.from_numpy(_march_positions(mfp, SUN_STEPS)).to(dev)[:, None]
+    g = [c.double() for c in grad]
+    d = rd.x.shape[0]
+    zeros = torch.zeros(d, dtype=torch.float32, device=dev)
+    od_r_v, od_m_v = zeros, zeros
+    live = torch.ones(d, dtype=torch.bool, device=dev)
+
+    cos_theta = rd.x * ld[0] + rd.y * ld[1] + rd.z * ld[2]
+    ph_r = rayleigh_phase(cos_theta).double()
+    ph_m = mie_phase(cos_theta, sky.g_m).double()
+    w = [g[c] * lum[c] for c in range(3)]
+    pr = [w[c] * sky.mu_r[c] * ph_r for c in range(3)]
+    pm = [w[c] * sky.mu_m * ph_m for c in range(3)]
+    tr_r = [zeros.double()] * 3
+    tr_m = [zeros.double()] * 3
+    by_ld = [zeros.double()] * 3  # through the transmittances
+
+    ox, oy, oz = (float(c) for c in ro)
+    for t_v in _march_positions(mfp, steps_to_trips(steps)).tolist():
+        px, py, pz = ox + rd.x * t_v, oy + rd.y * t_v, oz + rd.z * t_v
+        _, h, dr, dm = _density(sky, px, py, pz)
+        live = live & (h >= 0.0) & ((dr + dm) >= _MIN_DENSITY)
+        od_r_i = dr * mfp_f
+        od_m_i = dm * mfp_f
+        od_r_v = od_r_v + torch.where(live, od_r_i, 0.0)
+        od_m_v = od_m_v + torch.where(live, od_m_i, 0.0)
+
+        q = [px[None, :] + t_sun * ld[0], py[None, :] + t_sun * ld[1], pz[None, :] + t_sun * ld[2]]
+        s, hs, drs, dms = _density(sky, *q)
+        crust = hs < 0.0
+        step_live = torch.cumprod((~crust & ((drs + dms) >= _MIN_DENSITY)).to(torch.int32),
+                                  dim=0) > 0
+        live_before = torch.cat([torch.ones_like(step_live[:1]), step_live[:-1]], dim=0)
+        od_r_l = torch.sum(torch.where(step_live, drs * mfp_f, 0.0), dim=0)
+        od_m_l = torch.sum(torch.where(step_live, dms * mfp_f, 0.0), dim=0)
+        hit_crust = torch.any(live_before & crust, dim=0)
+        # dh / d light_dir[j] = q_j t / |q|, where the norm's clamp passes
+        root = torch.sqrt(torch.clamp_min(s, EPS)).double()
+        dh = torch.where(s >= EPS, t_sun.double() / root, 0.0) * step_live
+        gr = torch.where(-hs * sky.rho_r <= 0.0, -sky.rho_r * drs.double(), 0.0) * mfp_f * dh
+        gm = torch.where(-hs * sky.rho_m <= 0.0, -sky.rho_m * dms.double(), 0.0) * mfp_f * dh
+        t_r = [torch.sum(gr * qj.double(), dim=0) for qj in q]
+        t_m = [torch.sum(gm * qj.double(), dim=0) for qj in q]
+
+        m = (live & ~hit_crust).to(torch.float32)
+        a_r = od_r_v + od_r_l
+        a_m = od_m_v + od_m_l
+        for c in range(3):
+            tr_i = torch.exp(-(sky.mu_r[c] * a_r + sky.mu_m * a_m))
+            tr_r[c] = tr_r[c] + (tr_i * (od_r_i * m)).double()
+            tr_m[c] = tr_m[c] + (tr_i * (od_m_i * m)).double()
+            k = -tr_i.double() * (pr[c] * od_r_i.double() + pm[c] * od_m_i.double()) * m.double()
+            for j in range(3):
+                by_ld[j] = by_ld[j] + k * (sky.mu_r[c] * t_r[j] + sky.mu_m * t_m[j])
+
+    # the phases' derivatives in cos_theta
+    cs = cos_theta.double()
+    dph_r = _RAYLEIGH_K * 2.0 * cs
+    k_mie, a_mie, b_mie = mie_constants(sky.g_m)
+    l0 = a_mie - b_mie * cos_theta
+    root = torch.sqrt(torch.clamp_min(l0, EPS_SQ))
+    l = l0 * root
+    lc = torch.clamp_min(l, EPS).double()
+    dl = -b_mie * (root.double() + torch.where(l0 >= EPS_SQ, l0.double() / (2.0 * root.double()),
+                                               0.0))
+    dl = torch.where(l >= EPS, dl, 0.0)
+    dph_m = k_mie * (2.0 * cs / lc - (1.0 + cs * cs) / (lc * lc) * dl)
+    by_cos = sum(w[c] * (tr_r[c] * sky.mu_r[c] * dph_r + tr_m[c] * sky.mu_m * dph_m)
+                 for c in range(3))
+    g_ld = torch.stack([torch.sum(by_ld[j] + by_cos * r.double()) for j, r in enumerate(rd)])
+    g_lum = torch.stack([torch.sum(g[c] * (tr_r[c] * sky.mu_r[c] * ph_r
+                                           + tr_m[c] * sky.mu_m * ph_m)) for c in range(3)])
+    return g_ld, g_lum
+
+
+# ---------------------------------------------------------------------------
+# The kernels (csrc/sky.cu)
+# ---------------------------------------------------------------------------
+
+# the float32 constants the kernels take, in csrc/sky.cu's Consts order
+SKY_CONSTS = ("ox", "oy", "oz", "mfp", "r_crust", "rho_r", "rho_m", "mu_r.x", "mu_r.y", "mu_r.z",
+              "mu_m", "k_ray", "k_mie", "a_mie", "b_mie", "eps", "eps_sq", "min_density")
+_MAX_DIRECTIONS = 2**31 - 1  # one block a direction
+
+
+def torch_sum_split(n: int) -> int:
+    """How torch.sum over dim 0 of a contiguous float32 [96, n] CUDA tensor
+    (the plain sun march's optical depths) splits each output's 96 steps
+    over a block's threads (ATen's Reduce.cuh, setReduceConfig): with the
+    outputs vectorized by 4 (n a multiple of 4) and at least 32 vectors, a
+    block is 32 x 4 threads and the 4 rows share the steps (16 or more
+    values each); else one thread sums them all.  The kernels add in the
+    same order."""
+    return 4 if n % 4 == 0 and n // 4 >= 32 else 1
+
+
+def sky_consts(sky: SkyMedium, ro, steps: int):
+    """SKY_CONSTS of a march from `ro` (3 floats), as the kernels take them."""
+    vals = (*(float(c) for c in ro), float(_march_step(sky, steps)), sky.r_crust, sky.rho_r,
+            sky.rho_m, *sky.mu_r, sky.mu_m, _RAYLEIGH_K, *mie_constants(sky.g_m), EPS, EPS_SQ,
+            _MIN_DENSITY)
+    return (ctypes.c_float * len(SKY_CONSTS))(*vals)
+
+
+def _device3(x, dev: torch.device) -> torch.Tensor:
+    """A [3] tensor as given, or 3 floats (a float repeated) copied to `dev`."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.tensor(_components(x), dtype=torch.float32, device=dev)
+
+
+def _kernel_inputs(name: str, rd: V3, ld: torch.Tensor, lum: torch.Tensor, trips: int) -> int:
+    """The number of directions; raises unless every input is what the
+    kernels take: contiguous float32 [D] directions that carry no gradient
+    and [3] sun direction and luminance, all on one CUDA device, and 1 to
+    1,024 view steps."""
+    dev = rd.x.device
+    if rd.x.dim() != 1:
+        raise ValueError(f"{name}.rd.x: expected [D], got {tuple(rd.x.shape)}")
+    n = rd.x.shape[0]
+    for c, t in zip("xyz", rd):
+        native.require_cuda(f"{name}.rd.{c}", t, torch.float32, (n,), dev)
+        if t.requires_grad:
+            raise ValueError(f"{name}.rd.{c}: the kernels give no gradient in the directions")
+    native.require_cuda(f"{name}.light_dir", ld, torch.float32, (3,), dev)
+    native.require_cuda(f"{name}.luminance", lum, torch.float32, (3,), dev)
+    if not 1 <= trips <= 1024:
+        raise ValueError(f"{name}: {trips} view steps, expected 1 to 1024")
+    if n > _MAX_DIRECTIONS:
+        raise ValueError(f"{name}: {n} directions, at most {_MAX_DIRECTIONS}")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the kernels take CUDA tensors, got {dev}")
+    return n
+
+
+def sky_bake(rd: V3, ld: torch.Tensor, lum: torch.Tensor, consts, trips: int) -> torch.Tensor:
+    """The forward kernel: [3, D] float32, `atmosphere` of the directions rd
+    (V3 of [D]) for the sun direction ld [3] and luminance lum [3]; consts
+    from `sky_consts`, trips from `steps_to_trips`."""
+    n = _kernel_inputs("sky_bake", rd, ld, lum, trips)
+    dev = rd.x.device
+    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    lib = native.load()
+    rc = lib.pim_sky_bake(rd.x.data_ptr(), rd.y.data_ptr(), rd.z.data_ptr(), ld.data_ptr(),
+                          lum.data_ptr(), consts, trips, torch_sum_split(n), n, out.data_ptr(),
+                          native.stream_ptr(dev))
+    native.check(lib, rc, "sky_bake")
+    native.launches["sky_bake"] += 1
+    return out
+
+
+def sky_bake_bwd(rd: V3, ld: torch.Tensor, lum: torch.Tensor, consts, trips: int,
+                 grad: torch.Tensor) -> torch.Tensor:
+    """The backward kernels: [6] float32, d <grad, sky_bake(...)> / d (ld,
+    lum) for grad [3, D]; a partial gradient a direction, then their sum in
+    a fixed order (no float atomics: two calls give the same bits)."""
+    n = _kernel_inputs("sky_bake_bwd", rd, ld, lum, trips)
+    dev = rd.x.device
+    native.require_cuda("sky_bake_bwd.grad", grad, torch.float32, (3, n), dev)
+    if n == 0:
+        return torch.zeros(6, dtype=torch.float32, device=dev)
+    partial = torch.empty((n, 6), dtype=torch.float64, device=dev)
+    out = torch.empty(6, dtype=torch.float32, device=dev)
+    lib = native.load()
+    stream = native.stream_ptr(dev)
+    rc = lib.pim_sky_bake_bwd(rd.x.data_ptr(), rd.y.data_ptr(), rd.z.data_ptr(), ld.data_ptr(),
+                              lum.data_ptr(), consts, trips, torch_sum_split(n), n,
+                              grad.data_ptr(), partial.data_ptr(), stream)
+    native.check(lib, rc, "sky_bake_bwd")
+    native.launches["sky_bake_bwd"] += 1
+    rc = lib.pim_sky_grad_sum(partial.data_ptr(), n, out.data_ptr(), stream)
+    native.check(lib, rc, "sky_grad_sum")
+    native.launches["sky_grad_sum"] += 1
+    return out
+
+
+class _Atmosphere(torch.autograd.Function):
+    """`sky_bake`, differentiable in the sun direction and luminance by
+    `sky_bake_bwd`."""
+
+    @staticmethod
+    def forward(ctx, rx, ry, rz, ld, lum, consts, trips):
+        ctx.save_for_backward(rx, ry, rz, ld, lum)
+        ctx.consts, ctx.trips = consts, trips
+        return sky_bake(V3(rx, ry, rz), ld, lum, consts, trips)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rx, ry, rz, ld, lum = ctx.saved_tensors
+        g = sky_bake_bwd(V3(rx, ry, rz), ld, lum, ctx.consts, ctx.trips, grad.contiguous())
+        need = ctx.needs_input_grad
+        return None, None, None, g[:3] if need[3] else None, g[3:] if need[4] else None, None, None
 
 
 def earth_sky(ro, rd: V3, light_dir, luminance, steps: int, sky: SkyMedium = None) -> V3:
@@ -211,13 +457,29 @@ def cubemap_dirs(size: int) -> np.ndarray:
     return dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
 
 
+_cube_dirs: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+
+def cube_dirs(size: int, device) -> torch.Tensor:
+    """`cubemap_dirs(size)` as [3, 6*size*size] planes on `device`, copied
+    there once a (size, device): a bake on the card copies nothing."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    dirs = _cube_dirs.get((size, dev))
+    if dirs is None:
+        dirs = torch.from_numpy(np.ascontiguousarray(cubemap_dirs(size).reshape(-1, 3).T)).to(dev)
+        _cube_dirs[(size, dev)] = dirs
+    return dirs
+
+
 def bake_sky_cubemap(sky: SkyMedium, sun_dir, sun_lum, size: int, steps: int,
                      device="cpu") -> torch.Tensor:
     """[6, size, size, 3] radiance cubemap, baked on `device` (the view
     rays start at the crust, at the north pole).  sun_dir: 3 floats or a
     [3] tensor (normalized here); sun_lum: a float, 3 floats or a [3]
     tensor.  Differentiable in the tensors given."""
-    dirs = torch.from_numpy(np.ascontiguousarray(cubemap_dirs(size).reshape(-1, 3).T)).to(device)
+    dirs = cube_dirs(size, device)
     if isinstance(sun_dir, torch.Tensor):
         s = sun_dir.to(device=device, dtype=torch.float32)
         s = s / torch.sqrt(torch.clamp_min(torch.sum(s * s), 1e-12))
