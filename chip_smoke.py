@@ -22,7 +22,9 @@ exits non-zero:
      through `pim_tpu_torch.app`, with the launch counts set to 0 just
      before and read just after; the mean must lie in the `cornell512`
      band of pim_tpu_torch/render/gate_bands.json and K1-K3 must have
-     launched; a small frame on the card must agree with the CPU's; then
+     launched; one more step, queued under torch's sync debug mode, must
+     report no host sync; a small frame on the card must agree with the
+     CPU's; then
      K1 and K2 on the main path's own rays (the calls of sample 0 of one
      512^2, 10-bounce step: K1's primary rays and one call a bounce, K2's
      one NEE shadow-ray call a bounce, recorded by tools/dense_check.py;
@@ -36,7 +38,9 @@ exits non-zero:
   4. the e1m1 slice: its main path (the map built on the card, sky and
      light grid included, then the 512^2, 10-bounce, 1-spp-per-step frame
      for 16 steps with the exposure pass), counted as above; the frame must
-     be finite and K3-K6 must have launched during it.  Then K4/K5 on
+     be finite and K3-K6 must have launched during it, and one more step
+     with its exposure pass, queued as above, must report no host sync.
+     Then K4/K5 on
      three sets of rays: 262,144 from the e1m1 camera and one seeded
      bounce (~10% dead lanes and one fully dead run; the brute-force plain
      versions timed over PLAIN_RUNS runs on the first PLAIN_LANES lanes);
@@ -170,20 +174,17 @@ exits non-zero:
      shell at 128^2 (the cluster backend with glass: finite, nonzero, K4/K5
      launched).  Each path's wall a step per rank beside the one-rank wall,
      the launches per rank and the peak memory per rank are printed;
-  9. the measurement modules, each path's launches counted: `python -m
-     pim_tpu_torch.bench` as a subprocess (its JSON line printed; gate ok,
-     no e1m1 error, e1m1 on the cluster backend, no host sync torch reports
-     inside its timed steps, K1-K3 launched in the Cornell steps and K3-K6
-     in the e1m1 steps); tools/perf_table.py on one traced Cornell and one
+  9. the measurement tools, each path's launches counted (the numbers
+     are pimbench's): tools/perf_table.py on one traced Cornell and one
      e1m1 512^2, 10-bounce sample (the subsystem rows sum to the profiler's
-     device time within 1%, the "other" share printed, every port kernel
-     in intersect, table-gather or surface-fetch); tools/ab_sort.py on e1m1
-     at SORT_RES^2 (sorted and unsorted images and ray counts bit for bit
-     equal); tools/bench_cluster.py at CLUSTER_RAYS rays (the table and the
-     measured crossover printed; K4's t equal to K1's and K5's flag to
-     K2's on every ray of all six soups, the bvh walk's hit and flag on all
-     but 1e-4 of them).  Each part prints its seconds beside the card's
-     name and power limit;
+     device time within 1%, the busy and "other" shares printed, every port
+     kernel in intersect, table-gather or surface-fetch); tools/ab_sort.py
+     on e1m1 at SORT_RES^2 (sorted and unsorted images and ray counts bit
+     for bit equal); tools/bench_cluster.py at CLUSTER_RAYS rays (the
+     table and the measured crossover printed; K4's t equal to K1's and
+     K5's flag to K2's on every ray of all six soups, the bvh walk's hit
+     and flag on all but 1e-4 of them).  Each part prints its seconds
+     beside the card's name and power limit;
  10. the Moller-Trumbore backends (csrc/mt_isect.cu; not TPU kernels: the
      JAX package runs them in XLA), each path's launches counted: both BVH
      builders on the Cornell, spheres and e1m1 soups (seconds, nodes, each
@@ -226,11 +227,13 @@ the same function, or null; K3 and K7 also carry their other shapes and
 the main-path indices under prefixed keys, K4 and K5 the main path's rays
 and the walk's counts per ray) and the card's nvidia-smi name
 and power limit; the last line is `{"ok": true, "device": {...}}`.  Imports
-nothing of JAX.
+only the port (its check and measurement tools, `app.gate_band` for the
+frame gates), nothing of JAX or of `pimbench`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -238,6 +241,8 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WIDTH = HEIGHT = 512
@@ -662,8 +667,6 @@ PAR_KERNELS = {
 }
 # phase 9's paths (the measurement modules) and the kernels each must launch
 MEASURE_KERNELS = {
-    "bench_cornell": CORNELL_KERNELS,
-    "bench_e1m1": ("gather_cols",) + E1M1_KERNELS,
     "perf_table_cornell": CORNELL_KERNELS,
     "perf_table_e1m1": ("gather_cols",) + E1M1_KERNELS,
     "ab_sort": ("gather_cols",) + E1M1_KERNELS,
@@ -707,12 +710,6 @@ SOURCES = {
     "sky_bake": ("pim_tpu_torch/csrc/sky.cu", "pim_tpu/render/sky.py:70"),
     "sky_bake_bwd": ("pim_tpu_torch/csrc/sky.cu", "pim_tpu/render/sky.py:70"),
 }
-
-
-def _band(path, name):
-    with open(os.path.join(ROOT, path)) as f:
-        band = json.load(f)[name]
-    return band["mean"] - band["half"], band["mean"] + band["half"]
 
 
 def _scene_to(scene, dev):
@@ -949,7 +946,7 @@ def run_cornell(dev):
     import torch
 
     from pim_tpu_torch import native
-    from pim_tpu_torch.app import build_cornell_scene, render_frame
+    from pim_tpu_torch.app import build_cornell_scene, gate_band, render_frame
     from pim_tpu_torch.tools import dense_check as dc
 
     cpu_scene = build_cornell_scene("cpu")
@@ -963,7 +960,7 @@ def run_cornell(dev):
     build_launches = dict(native.launches)
     fr = render_frame(scene, "cornell", WIDTH, HEIGHT, BOUNCES, SPP, STEPS)
     launches = dict(native.launches)
-    lo, hi = _band("pim_tpu_torch/render/gate_bands.json", "cornell512")
+    lo, hi = gate_band("cornell512")
     print(f"cornell scene build on card: {build_s:.3f} s, launches {build_launches}")
     print(_frame_line(f"cornell frame {WIDTH}x{HEIGHT} bounces={BOUNCES} spp/step={SPP} "
                       f"steps={STEPS} band=[{lo:.6f}, {hi:.6f}]", fr))
@@ -971,6 +968,7 @@ def run_cornell(dev):
     _check_frame(fr, WIDTH * HEIGHT, CORNELL_KERNELS)
     if not lo <= fr.mean <= hi:
         raise AssertionError(f"frame mean {fr.mean} outside the cornell512 band [{lo}, {hi}]")
+    _check_no_syncs("cornell frame", scene, "cornell", WIDTH, SPP)
     check_small_frame("cornell", _scene_to(cpu_scene, dev), cpu_scene)
     calls = dc.main_path_calls(scene, WIDTH, HEIGHT, BOUNCES)
     torch.cuda.synchronize()
@@ -1644,7 +1642,7 @@ def run_e1m1(dev):
     import torch
 
     from pim_tpu_torch import native
-    from pim_tpu_torch.app import build_e1m1_scene, render_frame
+    from pim_tpu_torch.app import build_e1m1_scene, gate_band, render_frame
 
     native.reset_launches()
     t0 = time.perf_counter()
@@ -1657,20 +1655,21 @@ def run_e1m1(dev):
     meta = scene[0]
     print(f"e1m1 scene build on card: {build_s:.3f} s ({meta.tri_count} tris, backend "
           f"{meta.backend}, sort_rays {meta.sort_rays}), launches {build_launches}")
-    lo, hi = _band("pim_tpu_torch/render/gate_bands.json", "e1m1_512")
+    lo, hi = gate_band("e1m1_512")
     print(_frame_line(f"e1m1 frame {WIDTH}x{HEIGHT} bounces={BOUNCES} spp/step=1 "
                       f"steps={E1M1_STEPS} (TPU drift band [{lo:.4f}, {hi:.4f}], "
                       "for information only)", fr))
     print(f"e1m1 launches during the frame: {fr.launches}")
     print(f"e1m1 launches during build+frame: {launches}")
     _check_frame(fr, WIDTH * HEIGHT, ("gather_cols",) + E1M1_KERNELS)
+    _check_no_syncs("e1m1 frame", scene, "e1m1", WIDTH, 1)
 
     kernels, main_idx = check_e1m1_kernels(dev, scene)
     kernels.update(check_bsdf(dev, scene))
     kernels.update(check_sky(dev))
     time_e1m1_build(dev, scene)
 
-    lo, hi = _band("pim_tpu_torch/render/gate_bands.json", "e1m1_128")
+    lo, hi = gate_band("e1m1_128")
     gate = render_frame(scene, "e1m1", GATE_RES, GATE_RES, BOUNCES, 1, 16)
     print(_frame_line(f"e1m1 gate frame {GATE_RES}x{GATE_RES} bounces={BOUNCES} spp=16 "
                       f"band=[{lo:.6f}, {hi:.6f}] (CPU anchor)", gate))
@@ -3068,7 +3067,9 @@ def check_gloo_world(ref: dict, ranks: list, out_dir: str, smi: str) -> dict:
 
 
 def check_nccl_world(r: dict, smi: str) -> dict:
-    lo, hi = _band("pim_tpu_torch/render/gate_bands.json", "cornell512")
+    from pim_tpu_torch.app import gate_band
+
+    lo, hi = gate_band("cornell512")
     line = r["dryrun"].strip().splitlines()[-1] if r["dryrun"].strip() else ""
     print(f"parallel one-rank NCCL world on cuda:0 (backend {r['backend']}, mesh "
           f"{r['mesh_backend']}): {line} ({r['dryrun_s']:.2f} s, launches "
@@ -3146,44 +3147,9 @@ def run_parallel(dev, e1m1_scene, smi: str) -> dict:
     return launches
 
 
-BENCH_TIMEOUT_S = 420     # the port's bench as a subprocess
 SORT_RES = 128            # ab_sort's frame
 CLUSTER_RAYS = 262144     # bench_cluster --n
 NAMED_SUBSYSTEMS = ("intersect", "table-gather", "surface-fetch")  # where K1-K7 must land
-
-
-def run_bench(smi: str) -> dict:
-    """`python -m pim_tpu_torch.bench` as a subprocess: gate ok, no e1m1
-    error, e1m1 on the cluster backend, no host sync inside the timed
-    steps, K1-K3 launched in the Cornell steps and K3-K6 in the e1m1
-    steps.  Returns its launches."""
-    import torch
-
-    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the subprocess
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "pim_tpu_torch.bench"], cwd=ROOT,
-                         capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
-    secs = time.perf_counter() - t0
-    for ln in res.stderr.splitlines():
-        if ln.startswith("#"):
-            print(f"bench {ln}")
-    out = res.stdout.strip().splitlines()
-    print(out[-1] if out else "bench printed nothing")
-    print(f"measurement bench: exit {res.returncode}, {secs:.1f} s [{smi}]")
-    if res.returncode != 0 or not out:
-        raise AssertionError(f"pim_tpu_torch.bench exited {res.returncode}: {res.stderr[-3000:]}")
-    extra = json.loads(out[-1])["extra"]
-    if extra["gate"] != "ok" or "e1m1_error" in extra or extra["e1m1_backend"] != "cluster":
-        raise AssertionError(f"pim_tpu_torch.bench: gate {extra['gate']}, e1m1 error "
-                             f"{extra.get('e1m1_error')}, backend {extra.get('e1m1_backend')}")
-    syncs = extra["syncs_in_timed_steps"]
-    if any(v["count"] for v in syncs.values()):
-        raise AssertionError(f"pim_tpu_torch.bench: host syncs inside the timed steps {syncs}")
-    launches = {"bench_cornell": extra["launches"]["cornell"],
-                "bench_e1m1": extra["launches"]["e1m1"]}
-    for path, counts in launches.items():
-        _check_counts("the bench", counts, path)
-    return launches
 
 
 def run_perf_table(dev, e1m1_scene, smi: str) -> dict:
@@ -3196,7 +3162,7 @@ def run_perf_table(dev, e1m1_scene, smi: str) -> dict:
     launches = {}
     for name, scene in (("cornell", build_cornell_scene(dev)), ("e1m1", e1m1_scene)):
         t0 = time.perf_counter()
-        r = perf_table.run_path(name, scene, dev, 1)
+        r = perf_table.run_path(name, scene, dev)
         perf_table.print_result(r, smi)
         print(f"measurement perf_table {name}: other share {r['device']['other_share']:.4f}, "
               f"{time.perf_counter() - t0:.1f} s [{smi}]")
@@ -3267,8 +3233,7 @@ def run_bench_cluster(dev, smi: str) -> dict:
 def run_measurement(dev, e1m1_scene, smi: str) -> dict:
     """Phase 9, the measurement modules; returns the launches of their
     paths."""
-    launches = run_bench(smi)
-    launches.update(run_perf_table(dev, e1m1_scene, smi))
+    launches = run_perf_table(dev, e1m1_scene, smi)
     launches.update(run_ab_sort(dev, e1m1_scene, smi))
     launches.update(run_bench_cluster(dev, smi))
     return launches
@@ -3350,19 +3315,65 @@ def _mt_time(label: str, kernel, plain, work: dict, args, anyhit: bool) -> tuple
     return k, p, bound
 
 
+def _repo_site(filename: str, lineno: int) -> str:
+    """The innermost line of this repository on the stack of a warning
+    being shown (skipping the hook's own frames), else the warning's own
+    location."""
+    for f in reversed(traceback.extract_stack()[:-2]):
+        if f.filename.startswith(ROOT + os.sep):
+            return f"{os.path.relpath(f.filename, ROOT)}:{f.lineno}"
+    return f"{filename}:{lineno}"
+
+
+@contextlib.contextmanager
+def _sync_watch(syncs: dict):
+    """Fills `syncs` ({"count": n, "at": {"file:line": n}}) while the block
+    runs with the host syncs torch reports on the card (sync debug mode
+    "warn"), each at the innermost line of this repository that led to it.
+    The switch into the mode happens before the block, unwatched: its first
+    use in a process reports a sync of its own."""
+    import torch
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return shown(message, category, filename, lineno, file, line)
+        at = _repo_site(filename, lineno)
+        syncs["count"] += 1
+        syncs["at"][at] = syncs["at"].get(at, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            shown, warnings.showwarning = warnings.showwarning, note
+            yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def _check_no_syncs(label: str, scene, scene_name: str, res: int, spp: int) -> None:
-    """One more step of an MT frame (res^2, BOUNCES, spp samples, each
-    through the same bounce loop) queued under the bench's sync watch
-    (`bench._sync_watch`, torch's sync debug mode): the host syncs torch
-    reports in it must be 0, as in the bench's timed steps."""
-    from pim_tpu_torch.app import bench_camera, render_step, timed_steps
-    from pim_tpu_torch.bench import _sync_watch
+    """One more step of a frame (res^2, BOUNCES, spp samples, each through
+    the same bounce loop, and the exposure pass on its image where the
+    scene is exposed, as `app.render_frame` steps) queued by
+    `app.timed_steps` under `_sync_watch` (torch's sync debug mode): the
+    host syncs torch reports in it must be 0, as in the benchmark's window."""
+    from pim_tpu_torch.app import EXPOSURE_DT, SCENES, bench_camera, render_step, timed_steps
+    from pim_tpu_torch.render.exposure import ExposureParams, exposure_pass, make_exposure_state
 
     dev = scene[1].tri_table.device
     cam = bench_camera(scene_name, res, res)
+    exp_params = ExposureParams.from_cvars() if SCENES[scene_name].exposed else None
+
+    def step(i: int):
+        res_i = render_step(scene, cam, res, res, BOUNCES, spp, i)
+        if exp_params is not None:
+            exposure_pass(res_i.color, exp_params, make_exposure_state(dev), EXPOSURE_DT)
+        return res_i.rays_traced
+
     syncs = {"count": 0, "at": {}}
-    timed_steps(lambda i: render_step(scene, cam, res, res, BOUNCES, spp, i).rays_traced, dev,
-                1, 0, _sync_watch(dev, syncs))
+    timed_steps(step, dev, 1, 0, _sync_watch(syncs))
     print(f"{label}: host syncs in one queued step {syncs['count']} {syncs['at']}")
     if syncs["count"]:
         raise AssertionError(f"{label}: the step synced with the host: {syncs['at']}")
@@ -3391,7 +3402,7 @@ def run_cornell_brute(dev) -> tuple:
     import torch
 
     from pim_tpu_torch import native
-    from pim_tpu_torch.app import build_cornell_scene, render_frame
+    from pim_tpu_torch.app import build_cornell_scene, gate_band, render_frame
     from pim_tpu_torch.math.vec3 import RCP_EPS
     from pim_tpu_torch.render import intersect as MT
     from pim_tpu_torch.tools.mt_check import brute_work
@@ -3403,7 +3414,7 @@ def run_cornell_brute(dev) -> tuple:
     build_s = time.perf_counter() - t0
     fr = render_frame(scene, "cornell", WIDTH, HEIGHT, BOUNCES, SPP, STEPS)
     launches = dict(native.launches)
-    lo, hi = _band("pim_tpu_torch/render/gate_bands.json", "cornell512")
+    lo, hi = gate_band("cornell512")
     print(f"cornell brute scene build on card: {build_s:.3f} s")
     print(_frame_line(f"cornell brute frame {WIDTH}x{HEIGHT} bounces={BOUNCES} spp/step={SPP} "
                       f"steps={STEPS} band=[{lo:.6f}, {hi:.6f}]", fr))
@@ -3453,7 +3464,7 @@ def run_e1m1_bvh(dev, e1m1_scene) -> tuple:
     import torch
 
     from pim_tpu_torch import native
-    from pim_tpu_torch.app import build_e1m1_scene, render_frame
+    from pim_tpu_torch.app import build_e1m1_scene, gate_band, render_frame
     from pim_tpu_torch.math.vec3 import V3
     from pim_tpu_torch.render import cluster as CL
     from pim_tpu_torch.geom.bvh import BvhArrays
@@ -3465,7 +3476,7 @@ def run_e1m1_bvh(dev, e1m1_scene) -> tuple:
     scene = build_e1m1_scene(dev, "bvh")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    lo, hi = _band("pim_tpu_torch/render/gate_bands.json", "e1m1_128")
+    lo, hi = gate_band("e1m1_128")
     gate = render_frame(scene, "e1m1", GATE_RES, GATE_RES, BOUNCES, 1, 16)
     launches = dict(native.launches)
     meta, arrays, _ = scene

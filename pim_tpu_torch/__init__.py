@@ -21,8 +21,12 @@ them (render/diff.py):
                        sky, bsdf, lights, integrator, exposure, diff
   native.py            nvcc build + ctypes binding of csrc/*.cu
   app.py               the frame entry point (python -m pim_tpu_torch.app)
-  tools/prof_frame.py  where one step's time goes on the card (torch.profiler)
+  tools/perf_table.py  where one step's time goes on the card (torch.profiler)
   tools/vml_first_call.py  how often a first CPU vector-math call goes wrong
+
+Its numbers come from the benchmark, `python3 -m pimbench.run --workload
+<cell> --seconds 45 --trace <0|1>`; a profile of one step from `python -m
+pim_tpu_torch.tools.perf_table`.
 
 Every kernel has a plain PyTorch version beside it.  A wrapper runs the
 plain version only for tensors on the CPU; for CUDA tensors it launches the

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import os
 import subprocess
 import time
@@ -68,6 +69,7 @@ from pim_tpu_torch.render.sky import bake_sky_cubemap, earth_atmosphere
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 E1M1_GLTF = os.path.join(ROOT, "data", "e1m1", "glTF", "e1m1.gltf")
+GATE_BANDS = os.path.join(ROOT, "pim_tpu_torch", "render", "gate_bands.json")
 SUN_DIR = (0.35, 0.82, 0.45)
 SUN_LUM = 3800.0
 SKY_SIZE = 32
@@ -121,6 +123,15 @@ def bench_camera(scene_name: str, width: int, height: int) -> CameraArrays:
     return camera_arrays(cam, DofInfo(autofocus=False), width, height)
 
 
+def gate_band(tag: str):
+    """(lo, hi) of band `tag` of render/gate_bands.json, the band that the
+    mean of a frame of SCENES through its bench camera must lie in (the
+    band's mean -/+ its half width); None when the file has no such band."""
+    with open(GATE_BANDS) as f:
+        band = json.load(f).get(tag)
+    return None if band is None else (band["mean"] - band["half"], band["mean"] + band["half"])
+
+
 def render_step(scene, cam: CameraArrays, width: int, height: int, bounces: int,
                 spp: int, step: int) -> TraceResult:
     """One progressive step of `spp` one-sample traces with sample ids
@@ -164,10 +175,10 @@ def card(device):
 
 
 def timed_steps(step, device, iters: int, warmup: int, watch=None):
-    """The port's one timed loop of frame steps (the bench's and the bench
-    frames'): step(0 .. warmup-1), a sync, then step(warmup .. warmup +
-    iters-1) queued with no sync between them, and one sync at the end: a
-    sync a step would put host round trips into what is timed.  step(i)
+    """The port's one timed loop of frame steps (the bench frames' and
+    chip_smoke.py's): step(0 .. warmup-1), a sync, then step(warmup ..
+    warmup + iters-1) queued with no sync between them, and one sync at the
+    end: a sync a step would put host round trips into what is timed.  step(i)
     returns device tensors and waits on nothing.  `watch`, a context
     manager, wraps the queued steps only.  Returns (the timed steps'
     outputs, their seconds, the kernel launches during them)."""

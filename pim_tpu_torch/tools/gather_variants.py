@@ -60,7 +60,7 @@ def queued_ms(fn) -> float:
 def profiler_ms(fn) -> float:
     """Device ms a call: the self device time of the kernels of DEVICE_RUNS
     calls in one trace."""
-    from pim_tpu_torch.tools.prof_frame import _device_ms, _is_kernel
+    from pim_tpu_torch.tools.perf_table import _device_ms, _is_kernel
 
     fn()
     torch.cuda.synchronize()

@@ -14,6 +14,7 @@ held in test_torch_media.py."""
 
 import dataclasses
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -205,3 +206,16 @@ def test_frame_step_means_the_samples(frame_step, aov):
     close = np.all(np.isclose(got, want, rtol=1e-4, atol=1e-5), axis=-1)
     assert close.mean() >= 0.97, close.mean()
 
+
+
+@pytest.mark.parametrize("tag", ["cornell512", "e1m1_128", "e1m1_512"])
+def test_gate_band(tag):
+    """app.gate_band: the band of render/gate_bands.json as (lo, hi), its
+    mean -/+ its half width."""
+    with open(app.GATE_BANDS) as fh:
+        band = json.load(fh)[tag]
+    assert app.gate_band(tag) == (band["mean"] - band["half"], band["mean"] + band["half"])
+
+
+def test_gate_band_without_a_band():
+    assert app.gate_band("no_such_band") is None

@@ -29,7 +29,7 @@ import torch
 from pim_tpu_torch import native
 from pim_tpu_torch.render import gather_kernel as gk
 from pim_tpu_torch.render import table_gather as tg
-from pim_tpu_torch.tools import prof_frame
+from pim_tpu_torch.tools import perf_table
 
 torch.set_num_threads(2)
 
@@ -190,5 +190,5 @@ def test_gather_cols_row_major_copy_keeps_the_table_gradient():
     ("void (anonymous namespace)::gather_texels_bwd_rows_kernel<int, true>(float const*, ...)",
      "K7-bwd gather_texels_bwd"),
 ])
-def test_prof_frame_groups_the_gather_kernels(name, group):
-    assert prof_frame.kernel_group(name) == group
+def test_perf_table_groups_the_gather_kernels(name, group):
+    assert perf_table.kernel_group(name) == group

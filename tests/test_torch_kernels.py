@@ -33,7 +33,7 @@ from pim_tpu_torch.render import dense_kernels as dk
 from pim_tpu_torch.render import gather_kernel as gk
 from pim_tpu_torch.tools import bsdf_check as bc
 from pim_tpu_torch.tools import dense_check as dc
-from pim_tpu_torch.tools import prof_frame
+from pim_tpu_torch.tools import perf_table
 from pim_tpu_torch.tools.cluster_check import aimed_rays, tie_soup
 
 torch.set_num_threads(2)
@@ -381,8 +381,8 @@ def test_build_flags_keep_ieee_float32():
     ("void at::native::reduce_kernel<512, 1, ...>", "torch reduce"),
     ("Memcpy DtoD (Device -> Device)", "other"),
 ])
-def test_prof_frame_sorts_kernels_into_groups(name, group):
-    assert prof_frame.kernel_group(name) == group
+def test_perf_table_sorts_kernels_into_groups(name, group):
+    assert perf_table.kernel_group(name) == group
 
 
 # --- the BSDF kernels (csrc/bsdf.cu); their bits are held on the card by

@@ -210,8 +210,8 @@ def test_grad_eps_sweep_ad_matches_jax():
 
 
 @pytest.mark.parametrize("module,argv", [
-    ("pim_tpu_torch.bench", []), ("pim_tpu_torch.tools.perf_table", []),
-    ("pim_tpu_torch.tools.ab_sort", []), ("pim_tpu_torch.tools.bench_cluster", []),
+    ("pim_tpu_torch.tools.perf_table", []), ("pim_tpu_torch.tools.ab_sort", []),
+    ("pim_tpu_torch.tools.bench_cluster", []),
     ("pim_tpu_torch.tools.scaling_bench", ["1"]), ("pim_tpu_torch.tools.overlap_ab", []),
     ("pim_tpu_torch.tools.corr_check", []), ("pim_tpu_torch.tools.grad_eps_sweep", []),
 ])

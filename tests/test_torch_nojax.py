@@ -11,9 +11,11 @@ backend (the MT ones build their BVH with the C++ builder), its engine
 shell runs a media pt_test and the
 bakes (lm_gen, r_refl_gen, probe_bake, probe_report, a checkpoint), the
 scale-out layer (parallel/, tools/scaling_worker.py) runs a one-rank
-`dryrun_multichip`, and the measurement modules (bench.py, tools/perf_table,
-ab_sort, bench_cluster, scaling_bench, overlap_ab, corr_check,
-grad_eps_sweep, and devtime, their shared device timer) import."""
+`dryrun_multichip`, and the measurement modules (tools/perf_table, ab_sort,
+bench_cluster, scaling_bench, overlap_ab, corr_check, grad_eps_sweep, and
+devtime, their shared device timer) import.  The port's numbers come from
+`python3 -m pimbench.run --workload <cell> --seconds 45 --trace <0|1>`, and
+a profile of a step from `python -m pim_tpu_torch.tools.perf_table`."""
 
 import ast
 import json
@@ -30,7 +32,7 @@ sys.modules["ml_dtypes"] = None
 import torch
 torch.set_num_threads(2)
 import pim_tpu_torch
-from pim_tpu_torch import app, bench, native
+from pim_tpu_torch import app, native
 from pim_tpu_torch.core import cmd, console, crate, cvar, cvars, guid, profiler, rng, timesys
 from pim_tpu_torch.geom import bvh, cornell, entities, gltf, maps, material, mesh
 from pim_tpu_torch.math import (brdf, color, cubic_fit, dist1d, geometry, grid, noise, sampling,
@@ -43,7 +45,7 @@ from pim_tpu_torch.render import (bsdf, camera, cluster, cubemap, dense_kernels,
 from pim_tpu_torch.parallel import dist, dryrun, shard
 from pim_tpu_torch.tools import (ab_sort, bake_e1m1_lightmap, bench_cluster, corr_check,
                                  devtime, grad_eps_sweep, mt_check, overlap_ab, perf_table,
-                                 prof_frame, scaling_bench, scaling_worker, vml_first_call)
+                                 scaling_bench, scaling_worker, vml_first_call)
 sc = app.build_cornell_scene("cpu")
 fr = app.render_frame(sc, "cornell", 8, 8, 2, 1, 1)
 assert fr.buffers.color.shape == (64, 3) and bool(torch.isfinite(fr.buffers.color).all())

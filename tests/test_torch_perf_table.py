@@ -1,16 +1,19 @@
 """pim_tpu_torch/tools/perf_table.py on the CPU: the attribution of a
 synthetic Chrome trace (python_function, launch and kernel events linked by
-correlation), the subsystem list against the port's files, the checks, and
-a CPU profile of a 16^2 Cornell step."""
+correlation), the busy share of synthetic windows, the subsystem list
+against the port's files, the checks, and a CPU profile of a 16^2 Cornell
+step."""
 
+import json
 import os
 import re
+import types
 
 import pytest
 import torch
 
 from pim_tpu_torch.app import build_cornell_scene
-from pim_tpu_torch.tools import perf_table, prof_frame
+from pim_tpu_torch.tools import perf_table
 
 torch.set_num_threads(2)
 
@@ -103,19 +106,51 @@ def test_rows_sum_to_the_timeline():
         "K2 dense_anyhit": {"intersect": 1}, "K4 cluster_isect": {"intersect": 1}}
 
 
-def test_host_ops_self_time_by_stack():
-    ev = _synthetic() + [
-        {"ph": "X", "cat": "cpu_op", "name": "aten::mul", "pid": 7, "tid": 70, "ts": 40.5,
-         "dur": 1.0},
-        {"ph": "X", "cat": "cpu_op", "name": "aten::where", "pid": 7, "tid": 70, "ts": 52.0,
-         "dur": 4.0},
-        {"ph": "X", "cat": "cpu_op", "name": "aten::empty", "pid": 7, "tid": 70, "ts": 53.0,
-         "dur": 1.5},
-    ]
-    rows = perf_table.attribute_host(ev)
-    assert sorted(rows) == sorted([("aten::mul", "nee-light", 1.0),
-                                   ("aten::where", "integrator-glue", 2.5),
-                                   ("aten::empty", "integrator-glue", 1.5)])
+def _window(ts, dur):
+    return {"ph": "X", "cat": "user_annotation", "name": perf_table.WINDOW, "pid": 7,
+            "tid": 70, "ts": ts, "dur": dur}
+
+
+def _device(cat, ts, dur, tid=7):
+    return {"ph": "X", "cat": cat, "name": "k", "pid": 0, "tid": tid, "ts": ts, "dur": dur}
+
+
+@pytest.mark.parametrize("device,busy", [
+    # two streams overlap: the union, not the sum of their times (0.8)
+    ([_device("kernel", 110.0, 40.0), _device("kernel", 130.0, 40.0, tid=8)], 0.6),
+    # a gap between kernels, and a kernel inside another's interval
+    ([_device("kernel", 100.0, 20.0), _device("kernel", 105.0, 5.0),
+      _device("kernel", 180.0, 20.0)], 0.4),
+    # kernels straddling the window's edges count only inside it
+    ([_device("kernel", 50.0, 80.0), _device("kernel", 190.0, 70.0)], 0.4),
+    # no kernel in the window: the ones before and after it do not count
+    ([_device("kernel", 0.0, 90.0), _device("kernel", 200.0, 50.0)], 0.0),
+    # copies and sets keep the device busy too
+    ([_device("gpu_memcpy", 120.0, 10.0), _device("gpu_memset", 150.0, 15.0),
+      _device("gpu_user_annotation", 100.0, 100.0)], 0.25),
+])
+def test_busy_share_is_the_union_of_device_events_in_the_window(device, busy):
+    ev = [_window(100.0, 100.0)] + device + [_frame("a.py(1): f", 0.0, 300.0)]
+    got, window_ms = perf_table.busy_share(ev)
+    assert got == pytest.approx(busy, abs=1e-12)
+    assert window_ms == pytest.approx(0.1, rel=1e-12)
+    with pytest.raises(RuntimeError, match="spans in the trace"):
+        perf_table.busy_share(device)
+
+
+def test_device_time_leaves_out_the_window_span():
+    """On the card the WINDOW span has a device-side copy in key_averages
+    whose device time covers the step's kernels."""
+    def avg(key, us, count, device=torch.autograd.DeviceType.CUDA):
+        return types.SimpleNamespace(key=key, self_device_time_total=us, count=count,
+                                     device_type=device)
+
+    avgs = [avg(perf_table.WINDOW, 900.0, 1), avg("dense_isect_kernel", 300.0, 11),
+            avg("Memcpy DtoH", 20.0, 2), avg("aten::mul", 0.0, 40, torch.autograd.DeviceType.CPU),
+            avg(perf_table.WINDOW, 0.0, 1, torch.autograd.DeviceType.CPU)]
+    kernels, ms, count = perf_table.device_time(avgs)
+    assert [e.key for e in kernels] == ["dense_isect_kernel", "Memcpy DtoH"]
+    assert ms == pytest.approx(0.32, rel=1e-12) and count == 13
 
 
 def test_every_subsystem_names_a_file_of_the_port():
@@ -138,14 +173,27 @@ def test_check_refuses_a_short_sum_and_a_lost_kernel():
                                                                      "table-gather": 4}}))
 
 
-def test_cpu_profile_of_a_cornell_step_leaves_little_in_other(tmp_path):
-    """The host ops of a 16^2, 10-bounce, 1-spp Cornell step profiled on the
-    CPU with stacks: under 10% of their self time falls to 'other'."""
+def test_cpu_profile_of_a_cornell_step_leaves_little_in_other(tmp_path, monkeypatch):
+    """The path of a 16^2, 10-bounce Cornell step profiled on the CPU with
+    stacks: the traced window is found (no device event, so busy 0), and the
+    step's torch ops, each at the subsystem of the stack around its start
+    (the stacks that name a launched kernel's subsystem on the card), leave
+    under 10% of their time in 'other'."""
+    monkeypatch.setattr(perf_table, "WIDTH", 16)
+    monkeypatch.setattr(perf_table, "HEIGHT", 16)
     dev = torch.device("cpu")
-    step = prof_frame.frame_step("cornell", build_cornell_scene(dev), dev, 1, 10, 16, 16)
-    step(0)
-    events, _, _ = perf_table.traced_step(step, 1, dev, str(tmp_path / "cornell.trace.json"))
-    s = perf_table.summarize(perf_table.attribute_host(events))
+    r = perf_table.run_path("cornell", build_cornell_scene(dev), dev,
+                            trace_dir=str(tmp_path))
+    perf_table.check(r)
+    assert r["busy_share"] == 0.0 and r["window_ms"] > 0.0 and r["device_events"] == 0
+    assert (r["width"], r["bounces"], r["train"], r["media"]) == (16, 10, False, False)
+    with open(tmp_path / "cornell.trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    ops = [e for e in events if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+    stacks = perf_table.stacks_at(perf_table.python_frames(events),
+                                  [((e["pid"], e["tid"]), e["ts"]) for e in ops])
+    s = perf_table.summarize([(e["name"], perf_table.classify(st), e["dur"])
+                              for e, st in zip(ops, stacks)])
     assert s["ms"] > 0.0
     assert s["other_share"] < 0.10, s["subsystems"]
     assert {"intersect", "nee-light", "bsdf", "table-gather"} <= set(s["subsystems"])
