@@ -84,6 +84,11 @@ exits non-zero:
      of the plain form (rtol 1e-4) and twice to the same bits, each timed
      on the training cube beside its operation bound and the plain form's
      wall;
+     the RNG kernels (rng_seed, rng_draw) behind make_state and every draw
+     helper bitwise against the plain int64 form at a render step's
+     262,144 and the bake's 1,048,576 lanes (tools/rng_check.py's edge ids,
+     the sample id a Python int and a device scalar), each kernel timed at
+     both beside its byte bound and the plain form's wall;
      the 128^2, 16-spp frame gated by the CPU-anchored `e1m1_128`
      band of pim_tpu_torch/render/gate_bands.json (the 512^2 mean is printed
      beside the reference's TPU drift band, for information only); a 32^2,
@@ -627,6 +632,7 @@ E1M1_KERNELS = ("cluster_isect", "cluster_anyhit", "gather_bilinear")
 TRAIN_KERNELS = ("gather_cols_bwd", "gather_texels", "gather_texels_bwd")
 BSDF_KERNELS = ("bsdf_scatter", "bsdf_refract_finish", "bsdf_eval")
 SKY_KERNELS = ("sky_bake", "sky_bake_bwd")
+RNG_KERNELS = ("rng_seed", "rng_draw")
 # the main paths that run each kernel
 CORNELL_BAKES = ("cornell_lightmap", "cornell_refl", "cornell_light_probe")
 E1M1_BAKES = ("e1m1_lightmap", "e1m1_lightmap_compacted", "e1m1_refl", "e1m1_light_probe")
@@ -655,30 +661,37 @@ PATHS = {
     "sky_bake": ("e1m1", "e1m1_train", "e1m1_shell"),
     "sky_bake_bwd": ("e1m1_train",),
     "sky_grad_sum": ("e1m1_train",),
+    # every path that traces on the card seeds and draws its streams there
+    **{name: ("cornell", "e1m1", "e1m1_train", "cornell_train", "cornell_shell",
+              "cornell_media_shell", "e1m1_shell") + CORNELL_BAKES + E1M1_BAKES
+       for name in RNG_KERNELS},
 }
 # phase 8's paths and the kernels each must launch (added to PATHS)
 PAR_KERNELS = {
-    "e1m1_sharded_render": ("gather_cols",) + E1M1_KERNELS,
-    "e1m1_sharded_train": ("gather_cols", "cluster_isect", "cluster_anyhit") + TRAIN_KERNELS,
-    "e1m1_sharded_bake": ("gather_cols",) + E1M1_KERNELS,
-    "cornell_nccl_dryrun": ("dense_isect", "dense_anyhit", "gather_cols", "gather_cols_bwd"),
-    "cornell_nccl_render": CORNELL_KERNELS,
-    "cornell_spheres_shell": ("gather_cols", "cluster_isect", "cluster_anyhit"),
+    "e1m1_sharded_render": ("gather_cols",) + E1M1_KERNELS + RNG_KERNELS,
+    "e1m1_sharded_train": ("gather_cols", "cluster_isect", "cluster_anyhit") + TRAIN_KERNELS
+    + RNG_KERNELS,
+    "e1m1_sharded_bake": ("gather_cols",) + E1M1_KERNELS + RNG_KERNELS,
+    "cornell_nccl_dryrun": ("dense_isect", "dense_anyhit", "gather_cols", "gather_cols_bwd")
+    + RNG_KERNELS,
+    "cornell_nccl_render": CORNELL_KERNELS + RNG_KERNELS,
+    "cornell_spheres_shell": ("gather_cols", "cluster_isect", "cluster_anyhit") + RNG_KERNELS,
 }
 # phase 9's paths (the measurement modules) and the kernels each must launch
 MEASURE_KERNELS = {
-    "perf_table_cornell": CORNELL_KERNELS,
-    "perf_table_e1m1": ("gather_cols",) + E1M1_KERNELS,
-    "ab_sort": ("gather_cols",) + E1M1_KERNELS,
+    "perf_table_cornell": CORNELL_KERNELS + RNG_KERNELS,
+    "perf_table_e1m1": ("gather_cols",) + E1M1_KERNELS + RNG_KERNELS,
+    "ab_sort": ("gather_cols",) + E1M1_KERNELS + RNG_KERNELS,
     "bench_cluster": ("dense_isect", "dense_anyhit", "cluster_isect", "cluster_anyhit",
                       "bvh_isect", "bvh_anyhit"),
 }
 # phase 10's paths (the Moller-Trumbore backends) and the kernels each must launch
 MT_PATH_KERNELS = {
-    "cornell_brute": ("brute_isect", "brute_anyhit", "gather_cols"),
-    "e1m1_bvh": ("bvh_isect", "bvh_anyhit", "gather_cols", "gather_bilinear"),
-    "cornell_brute_shell": ("brute_isect", "brute_anyhit", "gather_cols"),
-    "e1m1_bvh_shell": ("bvh_isect", "bvh_anyhit", "gather_cols", "gather_bilinear"),
+    "cornell_brute": ("brute_isect", "brute_anyhit", "gather_cols") + RNG_KERNELS,
+    "e1m1_bvh": ("bvh_isect", "bvh_anyhit", "gather_cols", "gather_bilinear") + RNG_KERNELS,
+    "cornell_brute_shell": ("brute_isect", "brute_anyhit", "gather_cols") + RNG_KERNELS,
+    "e1m1_bvh_shell": ("bvh_isect", "bvh_anyhit", "gather_cols", "gather_bilinear")
+    + RNG_KERNELS,
 }
 PATH_KERNELS = {**PAR_KERNELS, **MEASURE_KERNELS, **MT_PATH_KERNELS}
 PATHS = {name: paths + tuple(p for p, names in PATH_KERNELS.items() if name in names)
@@ -709,6 +722,9 @@ SOURCES = {
     # not TPU kernels: the JAX package's march is a lax.scan
     "sky_bake": ("pim_tpu_torch/csrc/sky.cu", "pim_tpu/render/sky.py:70"),
     "sky_bake_bwd": ("pim_tpu_torch/csrc/sky.cu", "pim_tpu/render/sky.py:70"),
+    # not TPU kernels: XLA fuses the JAX package's RNG into the ops around it
+    "rng_seed": ("pim_tpu_torch/csrc/rng.cu", "pim_tpu/core/rng.py:76"),
+    "rng_draw": ("pim_tpu_torch/csrc/rng.cu", "pim_tpu/core/rng.py:86"),
 }
 
 
@@ -1636,6 +1652,63 @@ def check_sky(dev) -> dict:
     return rows
 
 
+RNG_SEED = 3_141_592_653     # the stream seed of the RNG kernels' check
+RNG_LANES = (N_RAYS, 1 << 20)  # a render step's lanes, the e1m1 bake's
+
+
+def _check_rng_bits(label: str, diffs: list) -> None:
+    print(f"{label}: lanes whose bits differ {diffs}")
+    if any(diffs):
+        raise AssertionError(f"{label}: the RNG kernels differ from the plain form")
+
+
+def check_rng(dev) -> dict:
+    """The RNG kernels against the plain int64 form at the main path's
+    shapes (RNG_LANES), bit for bit: make_state with the sample id a Python
+    int and a device scalar, and every draw helper on its words (rows of one
+    block), on tools/rng_check.py's edge ids; each kernel timed at both
+    shapes beside its byte bound and the plain form's wall (about 130 and
+    260 launches a call).  Returns the two kernel rows (a render step's
+    shape; the bake's under `bake_` keys)."""
+    import torch
+
+    from pim_tpu_torch import native
+    from pim_tpu_torch.core import rng
+    from pim_tpu_torch.tools import rng_check as rc
+
+    rows = {}
+    for n in RNG_LANES:
+        ids = rc.edge_ids(n, dev)
+        before = dict(native.launches)
+        for label, sample_id in (("int", 5), ("device scalar", torch.tensor(5, device=dev))):
+            _check_rng_bits(f"rng_seed {n} lanes, sample id a {label}",
+                            rc.seed_differences(ids, sample_id, RNG_SEED))
+        state = rng.make_state(ids, 5, RNG_SEED)
+        for name in rc.HELPERS:
+            _check_rng_bits(f"rng_draw {n} lanes, {name}", rc.helper_differences(name, state))
+        torch.cuda.synchronize()
+        launched = {k: native.launches[k] - before[k] for k in RNG_KERNELS}
+        if launched != {"rng_seed": 3, "rng_draw": len(rc.HELPERS)}:
+            raise AssertionError(f"rng {n} lanes: launches {launched}")
+        k, p = _time_pair(f"rng_seed {n} lanes", lambda: rng.rng_seed(ids, 5, RNG_SEED),
+                          lambda: rng.make_state_plain(ids, 5, RNG_SEED), plain_queued=False)
+        seed_row = _row(0.0, k, p, _bound(rc.seed_bytes(n), 0))
+        k, p = _time_pair(f"rng_draw {n} lanes, two floats (next_f32x2)",
+                          lambda: rng.rng_draw(state, 2), lambda: rng.draw_plain(state, 2),
+                          plain_queued=False)
+        draw_row = _row(0.0, k, p, _bound(rc.draw_bytes(n, 2), 0))
+        for name, row in (("rng_seed", seed_row), ("rng_draw", draw_row)):
+            print(f"{name} {n} lanes: {row['ms']:.4f} ms device a call, call {row['call_ms']:.4f} "
+                  f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+                  f"{row['plain_ms']:.4f} ms wall")
+            if n == N_RAYS:
+                rows[name] = row
+            else:
+                rows[name].update({f"bake_{key}": v for key, v in row.items()
+                                   if key != "max_abs_err"})
+    return rows
+
+
 def run_e1m1(dev):
     """Phase 4; returns (kernel rows, launches of the main path, the scene,
     the main-path indices of K3 and K7)."""
@@ -1667,6 +1740,7 @@ def run_e1m1(dev):
     kernels, main_idx = check_e1m1_kernels(dev, scene)
     kernels.update(check_bsdf(dev, scene))
     kernels.update(check_sky(dev))
+    kernels.update(check_rng(dev))
     time_e1m1_build(dev, scene)
 
     lo, hi = gate_band("e1m1_128")
@@ -3735,7 +3809,7 @@ def main() -> int:
          "replaces": SOURCES[name][1], "launches": sum(launches[name].values()),
          "launches_by_path": launches[name], **kernels[name]}
         for name in CORNELL_KERNELS + E1M1_KERNELS + TRAIN_KERNELS + MT_KERNELS + BSDF_KERNELS
-        + SKY_KERNELS]}
+        + SKY_KERNELS + RNG_KERNELS]}
     print(json.dumps(report))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -39,11 +39,14 @@
 // clamp and clamp_min pass a NaN through, torch.where selects, and sqrt,
 // rsqrt, sin, cos, log and exp are the same libdevice calls.  Constants
 // are the float32 values the Python code forms, written exactly in hex.
-// The pcg4d on uint32 words gives the int64 form's bits (core/rng.py).
+// The pcg4d on uint32 words (rng.cuh, shared with rng.cu) gives the int64
+// form's bits (core/rng.py).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "rng.cuh"
 
 namespace {
 
@@ -64,7 +67,6 @@ constexpr float kF0Dielectric = 0x1.47ae14p-5f; // 0.04
 constexpr float kEtaAir = 0x1.001228p+0f;       // 1.000277
 constexpr float kInsideBias = 0x1.a36e3p-14f;   // MILLI * 0.1
 constexpr float kTirDot = 0x1.5798eep-27f;      // 1e-8
-constexpr float kToFloat = 0x1p-24f;
 constexpr float kNoHit = 1.0e6f;
 // sigma_a_from_reflectance's polynomial (math/brdf.py:_SIGMA_C)
 constexpr float kC0 = 0x1.7e0418p+2f, kC1 = 0x1.b851ecp-3f, kC2 = 0x1.441894p+1f;
@@ -279,35 +281,11 @@ __device__ __forceinline__ Lobe eval_diffuse(const Shading& s, V i, V l) {
   return {s.albedo * sv, valid ? pdf : 0.0f};
 }
 
-// --- core/rng.py
+// --- core/rng.py (rng.cuh)
 
-__device__ __forceinline__ void pcg4d(uint32_t& x, uint32_t& y, uint32_t& z, uint32_t& w) {
-  x = x * 1664525u + 1013904223u;
-  y = y * 1664525u + 1013904223u;
-  z = z * 1664525u + 1013904223u;
-  w = w * 1664525u + 1013904223u;
-  x += y * w;
-  y += z * x;
-  z += x * y;
-  w += y * z;
-  x ^= x >> 16;
-  y ^= y >> 16;
-  z ^= z >> 16;
-  w ^= w >> 16;
-  x += y * w;
-  y += z * x;
-  z += x * y;
-  w += y * z;
-}
-
-// an int64 word in [0, 2^32) as the uint32 it holds
-__device__ __forceinline__ uint32_t word(const int64_t* w, long long e) {
-  return static_cast<uint32_t>(__ldg(reinterpret_cast<const long long*>(w) + e));
-}
-
-__device__ __forceinline__ float to_float(uint32_t bits) {
-  return static_cast<float>(bits >> 8) * kToFloat;
-}
+using pim_rng::pcg4d;
+using pim_rng::to_float;
+using pim_rng::word;
 
 // --- the kernels
 

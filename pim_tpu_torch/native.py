@@ -37,8 +37,8 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("dense_isect.cu", "gather_cols.cu", "cluster_isect.cu", "gather_bilinear.cu",
-           "gather_texels.cu", "mt_isect.cu", "bsdf.cu", "sky.cu")
-HEADERS = ("gather_tiles.cuh",)  # included by the sources; in the build hash
+           "gather_texels.cu", "mt_isect.cu", "bsdf.cu", "sky.cu", "rng.cu")
+HEADERS = ("gather_tiles.cuh", "rng.cuh")  # included by the sources; in the build hash
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "pim_tpu_torch")
 LIB_NAME = "libpim_tpu_torch.so"
 # --fmad=false: the intersection kernels must round every product and sum
@@ -56,6 +56,7 @@ launches: Dict[str, int] = {
     "brute_isect": 0, "brute_anyhit": 0, "bvh_isect": 0, "bvh_anyhit": 0,
     "bsdf_scatter": 0, "bsdf_refract_finish": 0, "bsdf_eval": 0,
     "sky_bake": 0, "sky_bake_bwd": 0, "sky_grad_sum": 0,
+    "rng_seed": 0, "rng_draw": 0,
 }
 
 
@@ -208,6 +209,14 @@ def bind(lib) -> None:
     # partial, n, out, stream
     lib.pim_sky_grad_sum.argtypes = [p, ll, p, p]
     lib.pim_sky_grad_sum.restype = i
+    # pix, n, then for the sample id and the seed: pointer (or null), element
+    # size, step, value; words, stream
+    key = [p, i, i, ctypes.c_uint]
+    lib.pim_rng_seed.argtypes = [p, ll] + key + key + [p, p]
+    lib.pim_rng_seed.restype = i
+    # x, y, z, w, n, k, words, out, stream
+    lib.pim_rng_draw.argtypes = [p] * 4 + [ll, i, p, p, p]
+    lib.pim_rng_draw.restype = i
     lib.pim_cuda_error_string.argtypes = [i]
     lib.pim_cuda_error_string.restype = ctypes.c_char_p
 

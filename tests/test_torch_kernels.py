@@ -480,6 +480,8 @@ def test_bsdf_counters_count_only_when_tracing(bsdf_lut, traced):
     finally:
         profiler.set_tracing(False)
         profiler.reset_counters()
+    # the plain form's draws count under rng.* (tests/test_torch_rng.py)
+    counts = {k: v for k, v in counts.items() if k.startswith("bsdf.")}
     assert counts == ({"bsdf.calls": 3, "bsdf.kernel": 0} if traced else {})
 
 

@@ -1,5 +1,7 @@
 """pim_tpu_torch.core.rng and the Hammersley sequence, bitwise against
-pim_tpu (the port carries 32-bit words in int64)."""
+pim_tpu (the port carries 32-bit words in int64); the helpers' dispatch
+between the plain form and the kernels of csrc/rng.cu, and the tracing
+counters `rng.calls` and `rng.kernel`."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -8,8 +10,10 @@ import torch
 
 from pim_tpu.core import rng as jrng
 from pim_tpu.math import sampling as jsamp
-from pim_tpu_torch.core import rng
+from pim_tpu_torch import native
+from pim_tpu_torch.core import profiler, rng
 from pim_tpu_torch.math import sampling
+from pim_tpu_torch.tools import rng_check as rc
 
 torch.set_num_threads(2)
 
@@ -94,3 +98,86 @@ def test_radical_inverse_near_2_32_bitwise():
     np.testing.assert_array_equal(
         np.asarray(jsamp.radical_inverse_base2(jnp.asarray(ids))),
         sampling.radical_inverse_base2(torch.from_numpy(ids.astype(np.int64))).numpy())
+
+
+# --- the dispatch: CPU words take the plain form; CUDA words csrc/rng.cu's
+# kernels (their bits are held on the card by tests/test_torch_rng_card.py)
+
+def _make_state(_):
+    return rng.make_state(torch.arange(64), 3), ()
+
+
+HELPERS = {"make_state": _make_state, **{name: h for name, (h, _) in rc.HELPERS.items()}}
+
+
+def test_edge_ids_are_the_bitwise_tests_ids():
+    ids = rc.edge_ids(4096, "cpu")
+    assert ids.dtype == torch.int64 and (ids[:3] < 0).any() and (ids[:3] >= 2**32).any()
+    np.testing.assert_array_equal(ids[8:].numpy(), _ids().astype(np.int64)[8:])
+
+
+@pytest.mark.parametrize("helper", sorted(rc.HELPERS))
+def test_cpu_words_take_the_plain_form_and_launch_nothing(helper):
+    state = rng.make_state(rc.edge_ids(4096, "cpu"), 11)
+    before = dict(native.launches)
+    diffs = rc.helper_differences(helper, state)
+    assert native.launches == before
+    outputs = {"next_state": 4, "next_f32": 5, "next_f32x2": 6, "next_f32x3": 7,
+               "next_f32x4": 8, "next_u32": 5}
+    assert len(diffs) == outputs[helper] and not any(diffs), diffs
+
+
+def test_cpu_make_state_takes_the_plain_form_and_launches_nothing():
+    ids = rc.edge_ids(4096, "cpu")
+    before = dict(native.launches)
+    for sample_id, seed in ((5, 7), (torch.tensor(5, dtype=torch.int32), torch.arange(4096))):
+        assert not any(rc.seed_differences(ids, sample_id, seed))
+    assert native.launches == before
+
+
+@pytest.mark.parametrize("helper", sorted(HELPERS))
+def test_a_card_word_without_the_library_raises(helper, monkeypatch):
+    """Words the dispatch takes for a card's go to the kernels or raise:
+    no quiet fall back to the plain form."""
+    state = rng.make_state_plain(torch.arange(64), 0)
+
+    def missing():
+        raise RuntimeError("no kernel library")
+
+    monkeypatch.setattr(rng, "_on_card", lambda t: True)
+    monkeypatch.setattr(native, "load", missing)
+    before = dict(native.launches)
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        HELPERS[helper](state)
+    # with a library, the kernels still refuse words that are not on a card
+    monkeypatch.setattr(native, "load", lambda: None)
+    with pytest.raises(ValueError, match="CUDA"):
+        HELPERS[helper](state)
+    assert native.launches == before
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_rng_counters_count_only_when_tracing(traced):
+    profiler.reset_counters()
+    profiler.set_tracing(traced)
+    try:
+        state, _ = _make_state(None)
+        for name in sorted(rc.HELPERS):
+            state, _ = rc.HELPERS[name][0](state)
+        counts = profiler.counters()
+    finally:
+        profiler.set_tracing(False)
+        profiler.reset_counters()
+    assert counts == ({"rng.calls": 7, "rng.kernel": 0} if traced else {})
+
+
+@pytest.mark.parametrize("helper", sorted(rc.HELPERS))
+def test_rows_of_one_block_give_the_bits_of_separate_words(helper):
+    """A state whose words are rows of one [4, N] block (as the kernels and
+    bsdf_scatter return it) draws the bits of the same words held apart."""
+    state = rng.make_state(rc.edge_ids(4096, "cpu"), 9)
+    rows, apart = rc.block_state(state), rc.separate_state(state)
+    assert rows.y.data_ptr() == rows.x.data_ptr() + 4096 * 8 and rows.y.is_contiguous()
+    h = rc.HELPERS[helper][0]
+    got, want = h(rows), h(apart)
+    assert not any(rc.differing([*got[0], *got[1]], [*want[0], *want[1]]))
