@@ -89,6 +89,12 @@ exits non-zero:
      262,144 and the bake's 1,048,576 lanes (tools/rng_check.py's edge ids,
      the sample id a Python int and a device scalar), each kernel timed at
      both beside its byte bound and the plain form's wall;
+     the media kernels (media_scatter, media_transmittance) bitwise against
+     the plain form on 262,144 seeded lanes (tools/media_check.py) through
+     a dense medium, the cornell-media cell's and a random one, and on the
+     first 3 calls of each in a Cornell 512^2, 10-bounce step through the
+     cell's medium, each timed beside its bound (bytes, and the plain
+     form's operations) and the plain form's wall;
      the 128^2, 16-spp frame gated by the CPU-anchored `e1m1_128`
      band of pim_tpu_torch/render/gate_bands.json (the 512^2 mean is printed
      beside the reference's TPU drift band, for information only); a 32^2,
@@ -122,7 +128,7 @@ exits non-zero:
      port's Cornell tier, pim_tpu_torch/render/pt_gate_bands.json; both
      screenshots must decode); 16 frames of Cornell with `pt_media 1` at
      512^2, gated by the 16-sample Cornell tier (the default medium is near
-     vacuum); the unchanged scripts/pt_test_e1m1.cmd at 128^2 by `exec`,
+     vacuum; its marches launch the media kernels); the unchanged scripts/pt_test_e1m1.cmd at 128^2 by `exec`,
      gated by the port's e1m1 tier; a dense medium (tests/test_media.py's)
      at 32^2, 3 bounces, on the card against the CPU on Cornell (K2's
      in-media NEE) and e1m1 (K5's); a checkpoint on the card (ckpt_save
@@ -633,6 +639,7 @@ TRAIN_KERNELS = ("gather_cols_bwd", "gather_texels", "gather_texels_bwd")
 BSDF_KERNELS = ("bsdf_scatter", "bsdf_refract_finish", "bsdf_eval")
 SKY_KERNELS = ("sky_bake", "sky_bake_bwd")
 RNG_KERNELS = ("rng_seed", "rng_draw")
+MEDIA_KERNELS = ("media_scatter", "media_transmittance")
 # the main paths that run each kernel
 CORNELL_BAKES = ("cornell_lightmap", "cornell_refl", "cornell_light_probe")
 E1M1_BAKES = ("e1m1_lightmap", "e1m1_lightmap_compacted", "e1m1_refl", "e1m1_light_probe")
@@ -665,6 +672,8 @@ PATHS = {
     **{name: ("cornell", "e1m1", "e1m1_train", "cornell_train", "cornell_shell",
               "cornell_media_shell", "e1m1_shell") + CORNELL_BAKES + E1M1_BAKES
        for name in RNG_KERNELS},
+    # the media marches run where media are on
+    **{name: ("cornell_media_shell",) for name in MEDIA_KERNELS},
 }
 # phase 8's paths and the kernels each must launch (added to PATHS)
 PAR_KERNELS = {
@@ -725,6 +734,9 @@ SOURCES = {
     # not TPU kernels: XLA fuses the JAX package's RNG into the ops around it
     "rng_seed": ("pim_tpu_torch/csrc/rng.cu", "pim_tpu/core/rng.py:76"),
     "rng_draw": ("pim_tpu_torch/csrc/rng.cu", "pim_tpu/core/rng.py:86"),
+    # not TPU kernels: the JAX package's marches are lax.scans
+    "media_scatter": ("pim_tpu_torch/csrc/media.cu", "pim_tpu/render/media.py:189"),
+    "media_transmittance": ("pim_tpu_torch/csrc/media.cu", "pim_tpu/render/media.py:127"),
 }
 
 
@@ -1709,6 +1721,90 @@ def check_rng(dev) -> dict:
     return rows
 
 
+MEDIA_SEED = 1_618_033_988
+MEDIA_MAIN_CALLS = 3     # the main path's calls of each media kernel held bit for bit
+
+
+def _check_media_bits(label: str, diffs: dict) -> None:
+    print(f"{label}: lanes whose bits differ {diffs}")
+    if any(diffs.values()):
+        raise AssertionError(f"{label}: the media kernels differ from the plain form")
+
+
+def check_media(dev) -> dict:
+    """The media kernels against the plain form at the main path's shape
+    (N_RAYS lanes), bit for bit: tools/media_check.py's seeded lanes through
+    its dense medium, the cornell-media cell's medium and a random one, and
+    the first MEDIA_MAIN_CALLS calls of each kernel in a Cornell 512^2,
+    10-bounce step through the cell's medium; each kernel timed on the
+    seeded lanes through the cell's medium beside its bound (the bytes and
+    the plain form's operations that the lanes' result needs,
+    media_check.call_work, from the kernel's tally, which is held to the
+    plain form's) and the plain form's
+    wall (about 20,000 and 17,000 launches a call); the device ops of one
+    such step with the kernels and with the plain form forced
+    (media_check.step_launches).  Returns the two kernel rows."""
+    import dataclasses
+
+    import torch
+
+    from pim_tpu_torch import native
+    from pim_tpu_torch.app import bench_camera, build_cornell_scene
+    from pim_tpu_torch.render import media
+    from pim_tpu_torch.tools import media_check as mc
+
+    lanes = mc.random_lanes(N_RAYS, MEDIA_SEED, dev)
+    before = dict(native.launches)
+    for name, kw in (("dense", mc.DENSE), ("cell", mc.CELL),
+                     ("random", mc.random_medium(MEDIA_SEED))):
+        desc = media.make_media_desc(**kw)
+        _check_media_bits(f"media_scatter {N_RAYS} seeded lanes, {name} medium",
+                          mc.scatter_differences(desc, *lanes))
+        _check_media_bits(f"media_transmittance {N_RAYS} seeded lanes, {name} medium",
+                          mc.transmittance_differences(desc, *lanes))
+    torch.cuda.synchronize()
+    launched = {k: native.launches[k] - before[k] for k in MEDIA_KERNELS}
+    if launched != {"media_scatter": 3, "media_transmittance": 3}:
+        raise AssertionError(f"media: launches {launched}")
+    for kind in ("scatter", "tr"):
+        _check_media_bits(f"media {kind} tally {N_RAYS} seeded lanes, cell medium",
+                          mc.tally_differences(kind, media.make_media_desc(**mc.CELL), *lanes))
+
+    cell = media.make_media_desc(**mc.CELL)
+    meta, arrays, lights = build_cornell_scene(dev)
+    scene = (dataclasses.replace(meta, media_enabled=True, media=cell), arrays, lights)
+    cam = bench_camera("cornell", WIDTH, HEIGHT)
+    calls = mc.main_path_calls(scene, cam, WIDTH, HEIGHT, BOUNCES, MEDIA_MAIN_CALLS)
+    steps = {plain: mc.step_launches(scene, cam, WIDTH, HEIGHT, BOUNCES, plain)
+             for plain in (False, True)}
+    print(f"media step launches (aten ops on the card, port kernels), {WIDTH}^2, {BOUNCES} "
+          f"bounces: kernels {steps[False]}, plain form {steps[True]}")
+    for kind, check in (("scatter", mc.scatter_differences),
+                        ("tr", mc.transmittance_differences)):
+        if len(calls[kind]) != MEDIA_MAIN_CALLS:
+            raise AssertionError(f"media main path: {len(calls[kind])} {kind} calls kept")
+        for i, (desc, args) in enumerate(calls[kind]):
+            _check_media_bits(f"media {kind} main path call {i} ({args[0].x.shape[0]} lanes)",
+                              check(desc, *args))
+
+    ro, rd, length, state = lanes
+    fields = [t.contiguous() for t in media.lane_fields(ro, rd, length, state)]
+    rows = {}
+    for name, kernel, plain, kind in (
+            ("media_scatter", lambda: media.media_scatter(cell, fields),
+             lambda: media.march_plain(cell, state, ro, rd, length), "scatter"),
+            ("media_transmittance", lambda: media.media_transmittance(cell, fields),
+             lambda: media.calc_transmittance_plain(cell, state, ro, rd, length), "tr")):
+        k, p = _time_pair(f"{name} {N_RAYS} lanes, the cell's medium", kernel, plain,
+                          plain_runs=2, plain_queued=False)
+        rows[name] = row = _row(0.0, k, p, _bound(*mc.call_work(kind, cell, fields)))
+        print(f"{name} {N_RAYS} lanes: {row['ms']:.4f} ms device a call, call "
+              f"{row['call_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"share {100.0 * row['bound_ms'] / row['ms']:.1f}%, plain {row['plain_ms']:.4f} ms "
+              "wall")
+    return rows
+
+
 def run_e1m1(dev):
     """Phase 4; returns (kernel rows, launches of the main path, the scene,
     the main-path indices of K3 and K7)."""
@@ -1741,6 +1837,7 @@ def run_e1m1(dev):
     kernels.update(check_bsdf(dev, scene))
     kernels.update(check_sky(dev))
     kernels.update(check_rng(dev))
+    kernels.update(check_media(dev))
     time_e1m1_build(dev, scene)
 
     lo, hi = gate_band("e1m1_128")
@@ -2207,7 +2304,8 @@ MEDIA_RES = 32           # the dense-medium card-vs-CPU frames
 MEDIA_BOUNCES = 3
 DENSE_MEDIUM = dict(constant_mfp=15.0, noise_mfp=1e9, absorption=0.2)  # tests/test_media.py:167
 CKPT_RES = 512
-SHELL_KERNELS = {"cornell_shell": CORNELL_KERNELS, "cornell_media_shell": CORNELL_KERNELS,
+SHELL_KERNELS = {"cornell_shell": CORNELL_KERNELS,
+                 "cornell_media_shell": CORNELL_KERNELS + MEDIA_KERNELS,
                  "e1m1_shell": ("gather_cols",) + E1M1_KERNELS}
 
 
@@ -3809,7 +3907,7 @@ def main() -> int:
          "replaces": SOURCES[name][1], "launches": sum(launches[name].values()),
          "launches_by_path": launches[name], **kernels[name]}
         for name in CORNELL_KERNELS + E1M1_KERNELS + TRAIN_KERNELS + MT_KERNELS + BSDF_KERNELS
-        + SKY_KERNELS + RNG_KERNELS]}
+        + SKY_KERNELS + RNG_KERNELS + MEDIA_KERNELS]}
     print(json.dumps(report))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
 // The pcg4d hash of core/rng.py on uint32 words, the one device copy of
-// the port's RNG: rng.cu (the seed and draw kernels) and bsdf.cu (the
-// BSDF's own draws) include it.
+// the port's RNG: rng.cu (the seed and draw kernels), bsdf.cu (the BSDF's
+// own draws) and media.cu (the marches' draws, and the fBm's cell hash, its
+// first word) include it.
 //
 // The Python side carries each word as an int64 tensor holding a value in
 // [0, 2^32) and forms every product from 16-bit halves; here a word is a

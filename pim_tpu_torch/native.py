@@ -37,13 +37,13 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("dense_isect.cu", "gather_cols.cu", "cluster_isect.cu", "gather_bilinear.cu",
-           "gather_texels.cu", "mt_isect.cu", "bsdf.cu", "sky.cu", "rng.cu")
+           "gather_texels.cu", "mt_isect.cu", "bsdf.cu", "sky.cu", "rng.cu", "media.cu")
 HEADERS = ("gather_tiles.cuh", "rng.cuh")  # included by the sources; in the build hash
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "pim_tpu_torch")
 LIB_NAME = "libpim_tpu_torch.so"
 # --fmad=false: the intersection kernels must round every product and sum
 # as separate float32 operations (no fused multiply-add), as the reference;
-# the BSDF and sky kernels as PyTorch's one-op kernels do.
+# the BSDF, sky and media kernels as PyTorch's one-op kernels do.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -57,6 +57,7 @@ launches: Dict[str, int] = {
     "bsdf_scatter": 0, "bsdf_refract_finish": 0, "bsdf_eval": 0,
     "sky_bake": 0, "sky_bake_bwd": 0, "sky_grad_sum": 0,
     "rng_seed": 0, "rng_draw": 0,
+    "media_scatter": 0, "media_transmittance": 0,
 }
 
 
@@ -217,6 +218,14 @@ def bind(lib) -> None:
     # x, y, z, w, n, k, words, out, stream
     lib.pim_rng_draw.argtypes = [p] * 4 + [ll, i, p, p, p]
     lib.pim_rng_draw.restype = i
+    # the lane pointer table, the medium's constants, octaves, n, out,
+    # scattered, words, tally (or null), stream
+    lib.pim_media_scatter.argtypes = [p, p, i, ll, p, p, p, p, p]
+    lib.pim_media_scatter.restype = i
+    # the lane pointer table, the medium's constants, octaves, n, out, words,
+    # tally (or null), stream
+    lib.pim_media_transmittance.argtypes = [p, p, i, ll, p, p, p, p]
+    lib.pim_media_transmittance.restype = i
     lib.pim_cuda_error_string.argtypes = [i]
     lib.pim_cuda_error_string.restype = ctypes.c_char_p
 

@@ -12,10 +12,11 @@ closest-hit probe for their interior thickness; misses and sky surfaces
 take the sky radiance (K6).
 
 With media on (`SceneMeta.media_enabled`), every traced segment is marched
-for a null-scattering event (render/media.py).  A lane that scatters takes
-an in-media NEE sample (one more any-hit call a segment, K2 or K5, on the
-scattered lanes only) and continues from the scatter point in a
-phase-sampled direction; it skips the next bounce's surface work
+for a null-scattering event through the scene's medium (`SceneMeta.media`;
+render/media.py, on the card the kernels of csrc/media.cu).  A lane that
+scatters takes an in-media NEE sample (one more any-hit call a segment, K2
+or K5, on the scattered lanes only) and continues from the scatter point in
+a phase-sampled direction; it skips the next bounce's surface work
 (`media_skip`).  Surface NEE then carries the medium's ratio-tracked
 transmittance along its shadow ray.
 
@@ -98,7 +99,9 @@ def _evaluate_light(meta, arrays, light_table, media_desc, state, p: V3, active)
     blocked = scene_occluded(meta, arrays, p, ls.dir, 0.0, t_far)
     ok = ls.ok & ~blocked & (ls.lp > EPS)
     lum = ls.emission * (1.0 / torch.clamp_min(ls.lp, EPS))
-    state, tr = calc_transmittance(media_desc, state, p, ls.dir, ls.dist)
+    # the lanes whose transmittance counts, for the counters alone
+    used = ok & active if prof.tracing() else None
+    state, tr = calc_transmittance(media_desc, state, p, ls.dir, ls.dist, active=used)
     return state, lum * tr, ls.dir, ok
 
 
@@ -131,7 +134,7 @@ def _finish_segment(meta, arrays, light_table, media_desc, state, ro, rd, hit, a
 
         state, ms = scatter_ray(media_desc, state, ro, rd, ray_len,
                                 evaluate_light=eval_light_in_media
-                                if meta.emissive_count > 0 else None)
+                                if meta.emissive_count > 0 else None, active=alive)
         media_scattered = alive & ms.scattered
         lum = lum + atten * ms.luminance * media_scattered.to(torch.float32)
         inv_mpdf = 1.0 / torch.clamp_min(ms.pdf, EPS)
@@ -163,15 +166,16 @@ def trace_rays(meta: SceneMeta, arrays: SceneArrays, lights: LightState, ro: V3,
     """Trace a batch of [N] rays to completion.
 
     media_desc: the MediaDesc when `meta.media_enabled` (None: the
-    defaults of `make_media_desc`).  mis_both: accepted and ignored, as
-    the reference does: the integrator is always full MIS.  use_rr:
+    scene's own, `meta.media`, else the defaults of `make_media_desc`).
+    mis_both: accepted and ignored, as the reference does: the integrator
+    is always full MIS.  use_rr:
     Russian roulette; the differentiable path
     turns it off, since its survive/die compare flips discretely with the
     parameters.  The roulette uniform is drawn either way, so the RNG
     streams of the two modes stay aligned."""
     del mis_both
     if meta.media_enabled and media_desc is None:
-        media_desc = make_media_desc()
+        media_desc = meta.media if meta.media is not None else make_media_desc()
     n = ro.x.shape[0]
     dev = ro.x.device
     lut = BrdfLut(texels=arrays.brdf_lut)
@@ -221,8 +225,9 @@ def trace_rays(meta: SceneMeta, arrays: SceneArrays, lights: LightState, ro: V3,
                     # through the closure's cell
                     st_box = [state]
 
-                    def tr_fn(p, ldir, ldist):
-                        st_box[0], tr = calc_transmittance(media_desc, st_box[0], p, ldir, ldist)
+                    def tr_fn(p, ldir, ldist, used):
+                        st_box[0], tr = calc_transmittance(media_desc, st_box[0], p, ldir, ldist,
+                                                           active=used)
                         return tr
                 li, ls = nee_light_strategy(meta, arrays, light_table, lut, surf, hit.tri, rd,
                                             u_sel, bu, bv, active=surf_alive,

@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from pim_tpu_torch.core.profiler import spanned
+from pim_tpu_torch.core.profiler import spanned, tracing
 from pim_tpu_torch.math.dist1d import cumsum_seq
 from pim_tpu_torch.math.grid import grid_index_soa
 from pim_tpu_torch.math.sampling import light_pdf, power_heuristic, sample_bary_coord
@@ -215,8 +215,10 @@ def nee_light_strategy(meta: SceneMeta, arrays: SceneArrays, light_table, lut,
     trace ONE any-hit shadow ray (K2 or K5), weight by the power heuristic
     against the BSDF pdf.  Inactive lanes get t_far = 0 (dead for the
     kernel).  Refractive surfaces take no NEE.  transmittance_fn(p, dir,
-    dist) -> V3, given when media are on, scales the radiance by the
-    medium's transmittance along the shadow ray.
+    dist, used) -> V3, given when media are on, scales the radiance by the
+    medium's transmittance along the shadow ray; `used` ([N] bool, None
+    unless the profiler traces) marks the active lanes whose radiance is
+    kept.
 
     Returns (radiance V3, LightSample); radiance is zero where invalid."""
     ls = sample_light(meta, arrays, light_table, surf.p, u_sel, bu, bv, active=active)
@@ -235,5 +237,8 @@ def nee_light_strategy(meta: SceneMeta, arrays: SceneArrays, light_table, lut,
           & ~refractive)
     radiance = ls.emission * brdf_a * (w * ok.to(torch.float32))
     if transmittance_fn is not None:
-        radiance = radiance * transmittance_fn(surf.p, ls.dir, ls.dist)
+        used = None   # the lanes whose radiance counts, for the profiler's counters alone
+        if tracing():
+            used = ok if active is None else ok & active
+        radiance = radiance * transmittance_fn(surf.p, ls.dir, ls.dist, used)
     return radiance, ls

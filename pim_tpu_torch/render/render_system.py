@@ -91,7 +91,8 @@ def load_gate_band(sample_count: int, scene: str = "cornell"):
 def trace_samples(scene, cam: CameraArrays, width: int, height: int, bounces: int, spp: int,
                   first_sample: int, seed: int = rng.DEFAULT_SEED, blade_count: int = 5,
                   blade_rot: float = float(np.pi / 10.0)) -> TraceResult:
-    """`spp` one-sample traces with sample ids first_sample + i, folded as
+    """`spp` one-sample traces with sample ids first_sample + i (through the
+    scene's medium, `meta.media`, where media are on), folded as
     the reference's frame step folds them: the mean of their color, albedo
     and normal; the sum of their light histograms, wrapped to 32 bits as
     the reference's uint32 sum; rays_traced, their total (float64, on the

@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,6 +95,9 @@ class SceneMeta:
     # sampled from their parameter planes through K7, and the refraction
     # probe's t carries its gradient
     differentiable: bool = False
+    # the scene's medium (a render/media.py MediaDesc) where media are on;
+    # None: make_media_desc()'s defaults
+    media: Optional[tuple] = None
 
     @property
     def grid_len(self) -> int:
@@ -546,6 +549,7 @@ def build_scene(
     sky=None,
     sort_rays=None,
     media_enabled: bool = False,
+    media=None,
 ) -> Tuple[SceneMeta, SceneArrays, LightState]:
     """Entities + textures -> (meta, device arrays, light state).
 
@@ -554,7 +558,9 @@ def build_scene(
     [6, R, R, 3] radiance cube, or None: then a scene with sky surfaces
     gets a black 1-texel cube, as the reference's.  sort_rays: None
     follows `_resolve_sort_rays`.  media_enabled: the integrator marches
-    the participating medium (render/media.py).  The light grid is baked
+    the participating medium (render/media.py); media: that medium's
+    MediaDesc, which the scene carries to the integrator (None:
+    make_media_desc()'s defaults).  The light grid is baked
     on `device`, so on the card the build already runs the intersection
     and fetch kernels."""
     device = torch.device(device)
@@ -608,6 +614,7 @@ def build_scene(
         has_normal_maps=any(m.normal_tex >= 0 for m in flat.materials),
         backend=backend,
         sort_rays=_resolve_sort_rays(sort_rays, backend, device),
+        media=media,
     )
 
     def dev_t(x, dtype=torch.float32):

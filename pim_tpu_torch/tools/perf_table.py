@@ -9,8 +9,9 @@ names one) and one step of its 512^2 bench frame (`frame_step`): one
 sample at `--bounces` bounces (10), e1m1's step also running the exposure
 pass (a 16-spp Cornell step's trace holds about 330k kernels, one
 sample's about 20k).  With `--media` the step marches the default
-participating medium (`--bounces` cuts the depth: a media step launches
-~125k kernels a segment, and the trace grows with them).  With `--train`
+participating medium (csrc/media.cu's kernels on the card, about 250
+launches a segment with the in-media NEE; `--bounces` cuts the depth).
+With `--train`
 a step is instead one training step of the differentiable path
 (render/diff.py): 512^2, TRAIN_BOUNCES bounces, 1 spp, every parameter
 group trainable, Adam against a target rendered with the albedos moved

@@ -132,6 +132,9 @@ def test_from_jax_scene_round_trips_every_field(jax_scene):
             assert (m.backend, meta_f["backend"]) == ("dense", "pallas")
         elif f.name == "differentiable":  # the port's flag for render/diff.py
             assert "differentiable" not in meta_f and not m.differentiable
+        elif f.name == "media":  # the port's scene-carried medium (the JAX
+            # package passes its MediaDesc to trace_rays)
+            assert "media" not in meta_f and m.media is None
         else:
             assert getattr(m, f.name) == meta_f[f.name], f.name
     jax_name = {"tris12": "tris9"}
